@@ -1,0 +1,2 @@
+"""Weights in and out of the port (so far: conversion from and to the
+JAX package's numpy-leaved params)."""

@@ -1,0 +1,19 @@
+"""Data pipeline, numpy copies of ``repro.data``: the synthetic
+heavy-tailed OHLCV generator (seeded through hashlib, so it gives the
+JAX package's arrays bit for bit), the S&P500 loader with its synthetic
+fallback, and sliding-window datasets."""
+
+from repro_torch.data.synthetic import SyntheticStockConfig, generate_ohlcv
+from repro_torch.data.sp500 import load_stock, train_test_split
+from repro_torch.data.windows import (WindowDataset, make_windows,
+                                      normalize_windows)
+
+__all__ = [
+    "SyntheticStockConfig",
+    "WindowDataset",
+    "generate_ohlcv",
+    "load_stock",
+    "make_windows",
+    "normalize_windows",
+    "train_test_split",
+]

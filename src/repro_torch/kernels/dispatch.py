@@ -1,0 +1,98 @@
+"""Kernel routing and dispatch accounting.
+
+The JAX package resolves Pallas-vs-XLA from a per-(backend, shape) rule
+table. The port has no such table and no kill switch: the route is the
+device. A CUDA tensor always goes to the hand-written kernel and a CPU
+tensor to its plain PyTorch version, so no rule can hide the kernel on
+the card.
+
+Accounting keeps the JAX package's semantics: ``record`` counts one
+invocation of a serving-level op (``predict``, ``slots_generate``, ...)
+at (batch, hidden) under ``(device type, op, impl, shape)``, and only
+while a ``counting()`` collector is installed. ``impl`` is ``"cuda"``
+for the kernel route and ``"torch"`` for the plain one. Kernel launches
+themselves are counted by each kernel's wrapper
+(``repro_torch.kernels.lstm.kernel.LAUNCHES``).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.kernels.lstm.ops import lstm_cell as _lstm_cell
+
+_lock = threading.Lock()
+_collectors: list["DispatchCounts"] = []
+
+
+def impl_for(device) -> str:
+    """The route a tensor on ``device`` takes: ``"cuda"`` or ``"torch"``."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+class DispatchCounts:
+    """Per-(device type, op, impl, shape) invocation counts, collected
+    while installed via ``counting()``."""
+
+    def __init__(self):
+        self.counts: dict[tuple, int] = {}
+
+    def add(self, key: tuple, n: int = 1) -> None:
+        self.counts[key] = self.counts.get(key, 0) + n
+
+    def total(self, op: str | None = None) -> int:
+        return sum(n for (bk, o, impl, shape), n in self.counts.items()
+                   if op is None or o == op)
+
+    def by_op(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for (bk, op, impl, shape), n in self.counts.items():
+            out[op] = out.get(op, 0) + n
+        return out
+
+    def __getitem__(self, op: str) -> int:
+        return self.total(op)
+
+    def __repr__(self) -> str:
+        return f"DispatchCounts({self.counts!r})"
+
+
+def record(op: str, *, batch: int, hidden: int, device, n: int = 1) -> None:
+    """Count one dispatch of ``op`` at (batch, hidden) on ``device``.
+    With no collector installed this is one truthiness check."""
+    if not _collectors:
+        return
+    dev = torch.device(device)
+    key = (dev.type, op, impl_for(dev), (batch, hidden))
+    with _lock:
+        for c in _collectors:
+            c.add(key, n)
+
+
+class counting:
+    """Collect dispatch counts inside a ``with`` block::
+
+        with dispatch.counting() as counts:
+            engine.submit_step(...)          # ... flush ...
+        assert counts["slots_generate"] == 1   # one generate per flush
+
+    Collectors nest (each sees every dispatch while installed)."""
+
+    def __enter__(self) -> DispatchCounts:
+        self._counts = DispatchCounts()
+        with _lock:
+            _collectors.append(self._counts)
+        return self._counts
+
+    def __exit__(self, *exc) -> None:
+        with _lock:
+            _collectors.remove(self._counts)
+
+
+def lstm_cell(x, h, c, wx, wh, b):
+    """The routed LSTM cell: x [B, I]; h, c [B, H]; gates packed
+    [i, f, g, o]. CUDA tensors run the hand-written kernel, CPU tensors
+    the plain version (``kernels.lstm.ops.lstm_cell``)."""
+    return _lstm_cell(x, h, c, wx, wh, b)

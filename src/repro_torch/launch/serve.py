@@ -1,0 +1,159 @@
+"""Serving launcher: hosts the paper LSTM behind the micro-batching
+engine on the card and replays a simulated many-client traffic trace
+against it.
+
+    # stream stock windows from 32 synthetic clients, then 20 ticks of
+    # O(1) session steps from 8 of them through the decode slots
+    PYTHONPATH=src python -m repro_torch.launch.serve --model paper-lstm \
+        --clients 32 --requests 128 --max-batch 32 --sessions
+
+    # the same on the CPU (plain PyTorch path, no kernel)
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+Single process only; the sharded mesh, process workers, ensembles and
+the durable state directory of ``repro.launch.serve`` wait for later
+slices of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def _traffic_datasets(n_clients: int, window: int, seed: int):
+    """Per-client window datasets from the synthetic S&P500 generator
+    (distinct ticker per client); ``.x`` feeds traffic, ``.v`` is the
+    extreme-event label of each window's next step."""
+    from repro_torch.data import load_stock, make_windows
+
+    return [make_windows(load_stock(f"CLIENT{c}", n_days=window + 64,
+                                    seed=seed + c), window=window)
+            for c in range(n_clients)]
+
+
+def _precision_recall(alerts: np.ndarray, labels: np.ndarray):
+    tp = int(np.sum(alerts & (labels != 0)))
+    fp = int(np.sum(alerts & (labels == 0)))
+    fn = int(np.sum(~alerts & (labels != 0)))
+    precision = tp / (tp + fp) if tp + fp else 0.0
+    recall = tp / (tp + fn) if tp + fn else 0.0
+    return precision, recall, tp, fp, fn
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """Run the CLI; returns the traffic and session telemetry snapshots
+    (``{"traffic": ..., "sessions": ... or None}``)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="paper-lstm", choices=["paper-lstm"],
+                    help="the model to host (the port serves the paper "
+                    "LSTM so far)")
+    ap.add_argument("--clients", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=256)
+    ap.add_argument("--max-batch", type=int, default=32)
+    ap.add_argument("--max-wait-ms", type=float, default=2.0)
+    ap.add_argument("--sessions", action="store_true",
+                    help="also demo O(1) per-step session serving")
+    ap.add_argument("--alert-threshold", type=float, default=0.9)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", action="store_true",
+                    help="record per-request trace spans (submit -> queue "
+                    "-> flush -> ... -> reply) and print a span summary "
+                    "of the slowest trace")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default: the card; "
+                    "'cpu' runs the plain PyTorch path)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import (BatcherConfig, ModelRegistry,
+                                     ServingEngine, Telemetry,
+                                     build_lstm_forecaster)
+
+    registry = ModelRegistry()
+    fc = build_lstm_forecaster(seed=args.seed, device=args.device)
+    registry.register(args.model, fc)
+    print(f"hosting {args.model!r} on {fc.device}")
+
+    streams = _traffic_datasets(args.clients, fc.window, args.seed)
+    payloads, labels = [], []
+    for i in range(args.requests):
+        ds = streams[i % args.clients]
+        j = i % len(ds)
+        payloads.append(ds.x[j])
+        labels.append(int(ds.v[j]))
+    labels = np.asarray(labels)
+
+    # bucket exactly the lengths this trace contains: no padding waste
+    lengths = tuple(sorted({p.shape[0] for p in payloads}))
+    cfg = BatcherConfig(max_batch=args.max_batch,
+                        max_wait_ms=args.max_wait_ms,
+                        length_buckets=lengths)
+    tracer = Tracer(capacity=1024) if args.trace else None
+    engine = ServingEngine(registry, cfg, tracer=tracer)
+    session_snap = None
+    with engine:
+        engine.warmup(args.model, lengths=lengths)
+        engine.telemetry.reset_clock()
+        t0 = time.time()
+        futures = [engine.submit(args.model, p,
+                                 client_id=f"client-{i % args.clients}")
+                   for i, p in enumerate(payloads)]
+        results = [f.result(timeout=60.0) for f in futures]
+        wall = time.time() - t0
+        snap = engine.telemetry.snapshot()
+        if args.sessions:
+            # engine-resident sessions over the decode slots: carries
+            # stay in device lanes between ticks, and each tick's steps
+            # flush as ONE generate instead of one call per client
+            streams = _traffic_datasets(min(args.clients, 8), fc.window,
+                                        args.seed + 1)
+            t0s = time.time()
+            n_steps = 0
+            for step in range(fc.window):
+                futs = [engine.submit_step(args.model, f"client-{c}",
+                                           ds.x[0][step])
+                        for c, ds in enumerate(streams)]
+                for f in futs:
+                    f.result(timeout=30.0)
+                n_steps += len(futs)
+            wall_s = time.time() - t0s
+            session_snap = engine.telemetry.snapshot()
+            print(f"sessions (batched decode): {n_steps} steps in "
+                  f"{wall_s*1e3:.1f} ms "
+                  f"({n_steps/max(wall_s,1e-9):.0f} steps/s); "
+                  f"{session_snap['step_batches']} fused flushes, mean "
+                  f"batch {session_snap['mean_step_batch']:.1f}, step p95 "
+                  f"{session_snap['step_p95_ms']:.2f} ms")
+
+    alert_mask = np.asarray([p >= args.alert_threshold
+                             for _, p in results], dtype=bool)
+    alerts = [(i, y, p) for i, (y, p) in enumerate(results)
+              if p >= args.alert_threshold]
+    print(f"{args.model}: {len(results)} requests in {wall*1e3:.1f} ms")
+    print(Telemetry.format(snap))
+    print(f"extreme alerts (p >= {args.alert_threshold}): {len(alerts)}"
+          + (f", first: req {alerts[0][0]} forecast {alerts[0][1]:+.4f} "
+             f"p {alerts[0][2]:.3f}" if alerts else ""))
+    if labels.size:
+        precision, recall, tp, fp, fn = _precision_recall(alert_mask,
+                                                          labels)
+        print(f"alert quality vs synthetic extreme labels: precision "
+              f"{precision:.3f}  recall {recall:.3f}  (tp={tp} fp={fp} "
+              f"fn={fn}, base rate {float(np.mean(labels != 0)):.3f})")
+    if tracer is not None:
+        done = tracer.traces()
+        if done:
+            slow = max(done, key=lambda t: t.duration)
+            parts = "  ".join(
+                f"{s.name} {s.dur*1e3:.2f}ms"
+                for s in sorted(slow.spans, key=lambda s: s.t0))
+            print(f"traces: {len(done)} recorded; slowest "
+                  f"({slow.op}, {slow.duration*1e3:.2f} ms): {parts}")
+    return {"traffic": snap, "sessions": session_snap}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,397 @@
+"""The paper LSTM behind the serving interface: ``predict(windows,
+lengths) -> (forecast, extreme_probability)`` plus O(1) streaming with
+explicit carries and device-resident decode slots.
+
+The forecast is the next-step normalized close; the extreme probability
+fuses the EVL sigmoid head with the EVT tail machinery of
+``repro_torch.extreme`` (eq. 3 GEV depth-into-tail) by noisy-OR.
+
+Every call runs eagerly on ``device`` (the card unless the caller asks
+for the CPU). Each LSTM step goes through the hand-written CUDA cell on
+the card. The bitwise contracts of the JAX package hold inside the port:
+a session's ``step``, its ``replay`` and its slot-resident ``generate``
+give the same bits. Two things carry that:
+
+- every streaming step runs at ONE fixed batch width (``decode_width``,
+  padded; larger batches chunk), so the FC head's matmuls and the
+  elementwise ops always see the same shapes, whatever the path;
+- the LSTM kernel's per-row result does not depend on B or on the row's
+  place in the batch (a fixed per-row reduction order).
+
+There are no donated buffers in PyTorch: ``insert`` and ``generate``
+update the slot tensors IN PLACE (``generate`` only under its step
+mask, so lanes it does not step come out unchanged), and ``extract``
+returns a copy. Inputs are built on the host and copied once per call;
+results come back in one device-to-host copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.convert import params_to
+from repro_torch.device import resolve_device
+from repro_torch.extreme.evt import fit_tail, gev_cdf
+from repro_torch.extreme.indicators import quantile_thresholds
+from repro_torch.kernels import dispatch
+from repro_torch.models.rnn import (RNNConfig, init_rnn, init_rnn_carry,
+                                    rnn_apply_padded, rnn_step,
+                                    split_rnn_carry, stack_rnn_carries)
+
+PyTree = Any
+
+
+def _fused_alert(score, head, xi, scale, active, gamma):
+    """GEV depth-into-tail of ``score`` (zero when uncalibrated, i.e.
+    ``active`` False), noisy-OR'ed with the learned head, in [0, 1]."""
+    if active:
+        p = gev_cdf((score - xi) / max(scale, 1e-8), gamma)
+    else:
+        p = torch.zeros_like(score)
+    if head is not None:
+        p = 1.0 - (1.0 - head) * (1.0 - p)
+    return torch.clamp(p, 0.0, 1.0)
+
+
+def _alert_probability(score, tail: dict | None, gamma: float, head=None):
+    """Host-side twin of ``_fused_alert`` over a calibration dict:
+    ``score`` is the magnitude judged, ``tail`` the ``fit_tail`` result
+    (None: no EVT term), ``head`` an optional learned probability."""
+    score = torch.as_tensor(score, dtype=torch.float32)
+    if head is not None:
+        head = torch.as_tensor(head, dtype=torch.float32)
+    if tail is None:
+        return _fused_alert(score, head, 0.0, 1.0, False, gamma)
+    return _fused_alert(score, head, tail["xi"], tail["scale"], True, gamma)
+
+
+def _pad_rows(t, width: int):
+    """``t`` [n, ...] right-padded with zero rows to [width, ...]."""
+    n = t.shape[0]
+    if n == width:
+        return t
+    return torch.cat([t, t.new_zeros((width - n,) + tuple(t.shape[1:]))])
+
+
+def _to_host(y, p):
+    """(y, p) device vectors -> two float32 numpy arrays, one copy."""
+    out = torch.stack((y, p)).cpu().numpy()
+    return out[0], out[1]
+
+
+@dataclasses.dataclass
+class DecodeSlots:
+    """Device-resident decode slot state: ``num_slots`` lanes of stacked
+    (h, c) carries on the device, plus a host-side active-lane mask.
+    ``num_slots`` is a multiple of the owning forecaster's
+    ``decode_width`` (``init_slots`` rounds up), so ``generate`` walks
+    the state in whole lane-width chunks."""
+
+    carry: PyTree                # [num_slots, H] (h, c) per layer
+    num_slots: int
+    active: Any                  # np.ndarray bool [num_slots], host-side
+
+    @property
+    def n_active(self) -> int:
+        return int(self.active.sum())
+
+
+@dataclasses.dataclass
+class LSTMForecaster:
+    """Paper LSTM behind the serving interface. ``tail`` holds the
+    ``fit_tail`` parameters over |forecast| scores; ``eps`` the eq. 1
+    indicator thresholds. ``params`` are moved to ``device``."""
+
+    cfg: RNNConfig
+    params: PyTree
+    tail: dict | None = None
+    eps: tuple[float, float] = (0.01, 0.01)
+    gamma: float = 5.0
+    # stamped by ModelRegistry.register/swap
+    version: int = 0
+    published_at: float | None = None
+    # every streaming step / replay / generate runs at this fixed batch
+    # width (padded; larger batches chunk) - see the module docstring
+    decode_width: int = 8
+    device: Any = "cuda"
+    kind: str = dataclasses.field(default="lstm", init=False)
+
+    def __post_init__(self):
+        if self.decode_width < 1:
+            raise ValueError(
+                f"decode_width must be >= 1, got {self.decode_width}")
+        self.device = resolve_device(self.device)
+        self.params = params_to(self.params, self.device)
+
+    # -- batched serving ---------------------------------------------------
+    @property
+    def window(self) -> int:
+        return self.cfg.window
+
+    @property
+    def feature_dim(self) -> int:
+        return self.cfg.input_dim
+
+    def _tail_args(self):
+        """(xi, scale, active) for the fused alert."""
+        if self.tail is None:
+            return 0.0, 1.0, False
+        return float(self.tail["xi"]), float(self.tail["scale"]), True
+
+    def _host_rows(self, a, width: int | None = None):
+        """Host array -> float32 device tensor in one copy, zero-padded
+        along dim 0 to ``width`` rows on the host first."""
+        a = np.asarray(a, np.float32)
+        if width is not None and a.shape[0] != width:
+            padded = np.zeros((width,) + a.shape[1:], np.float32)
+            padded[:a.shape[0]] = a
+            a = padded
+        return torch.as_tensor(a, device=self.device)
+
+    def _step(self, x_t, carry):
+        """The per-step computation every streaming path shares: model
+        step + fused alert, at whatever width it is given."""
+        y, u, carry = rnn_step(self.params, x_t, carry, cfg=self.cfg)
+        p = _fused_alert(torch.abs(y), u, *self._tail_args(), self.gamma)
+        return y, p, carry
+
+    def predict(self, windows, lengths=None):
+        """windows [B, T, F] (right-padded), lengths [B] true lengths.
+        Returns (forecast [B], p_extreme [B]) as float32 numpy arrays."""
+        x = self._host_rows(windows)
+        B, T = x.shape[0], x.shape[1]
+        lens = np.full((B,), T, np.int64) if lengths is None \
+            else np.asarray(lengths, np.int64)
+        dispatch.record("predict", batch=B, hidden=self.cfg.hidden,
+                        device=self.device)
+        y, u = rnn_apply_padded(self.params, x,
+                                torch.as_tensor(lens, device=self.device),
+                                cfg=self.cfg)
+        p = _fused_alert(torch.abs(y), u, *self._tail_args(), self.gamma)
+        return _to_host(y, p)
+
+    # -- incremental (session) serving ------------------------------------
+    def init_carry(self, batch: int = 1):
+        return init_rnn_carry(self.params, batch)
+
+    def carry_nbytes(self, batch: int = 1) -> int:
+        return sum(h.numel() * h.element_size() + c.numel()
+                   * c.element_size() for h, c in self.init_carry(batch))
+
+    def step(self, x_t, carry):
+        """One O(1) streaming step: x_t [B, F]. Returns (forecast [B],
+        p_extreme [B], new_carry), run at ``decode_width`` (padded;
+        batches beyond the width chunk)."""
+        x_t = np.asarray(x_t, np.float32)
+        B = x_t.shape[0]
+        W = self.decode_width
+        if B > W:
+            ys, ps, carries = [], [], []
+            for lo in range(0, B, W):
+                chunk = tuple((h[lo:lo + W], c[lo:lo + W]) for h, c in carry)
+                y, p, c2 = self.step(x_t[lo:lo + W], chunk)
+                ys.append(y), ps.append(p), carries.append(c2)
+            return (np.concatenate(ys), np.concatenate(ps),
+                    stack_rnn_carries(carries))
+        dispatch.record("decode_step", batch=W, hidden=self.cfg.hidden,
+                        device=self.device)
+        cp = tuple((_pad_rows(h, W), _pad_rows(c, W)) for h, c in carry)
+        y, p, c2 = self._step(self._host_rows(x_t, W), cp)
+        y, p = _to_host(y, p)
+        return y[:B], p[:B], tuple((h[:B], c[:B]) for h, c in c2)
+
+    def step_many(self, xs, carries):
+        """Batched streaming step for N independent sessions: xs [N, F],
+        ``carries`` a list of N batch-1 carries. Returns (forecast [N],
+        p_extreme [N], new_carries list), one lane-width step per
+        ``decode_width`` sessions."""
+        xs = np.asarray(xs, np.float32)
+        N = len(carries)
+        W = self.decode_width
+        ys, ps, out = [], [], []
+        for lo in range(0, N, W):
+            chunk = list(carries[lo:lo + W])
+            n = len(chunk)
+            dispatch.record("decode_many", batch=W, hidden=self.cfg.hidden,
+                            device=self.device)
+            y, p, c2 = self._step(self._host_rows(xs[lo:lo + n], W),
+                                  stack_rnn_carries(chunk, pad_to=W))
+            y, p = _to_host(y, p)
+            ys.append(y[:n])
+            ps.append(p[:n])
+            out.extend(split_rnn_carry(c2, n))
+        return np.concatenate(ys), np.concatenate(ps), out
+
+    def replay(self, window, carry=None):
+        """Full-window recompute through the same per-step computation
+        the session path runs (what a cache miss executes), so cached
+        incremental serving is bitwise-identical to it. window [B, T, F];
+        returns (forecast [B], p_extreme [B], carry) after the last
+        step, at the decode-lane width like every step."""
+        window = np.asarray(window, np.float32)
+        B = window.shape[0]
+        if carry is None:
+            carry = self.init_carry(B)
+        if window.shape[1] == 0:
+            return None, None, carry
+        W = self.decode_width
+        if B > W:
+            ys, ps, carries = [], [], []
+            for lo in range(0, B, W):
+                chunk = tuple((h[lo:lo + W], c[lo:lo + W]) for h, c in carry)
+                y, p, c2 = self.replay(window[lo:lo + W], chunk)
+                ys.append(y), ps.append(p), carries.append(c2)
+            return (np.concatenate(ys), np.concatenate(ps),
+                    stack_rnn_carries(carries))
+        dispatch.record("decode_replay", batch=W, hidden=self.cfg.hidden,
+                        device=self.device)
+        steps = self._host_rows(window, W).transpose(0, 1).contiguous()
+        cp = tuple((_pad_rows(h, W), _pad_rows(c, W)) for h, c in carry)
+        for x_t in steps:
+            y, p, cp = self._step(x_t, cp)
+        y, p = _to_host(y, p)
+        return y[:B], p[:B], tuple((h[:B], c[:B]) for h, c in cp)
+
+    # -- device-resident decode slots (prefill / insert / generate) --------
+    def init_slots(self, num_slots: int) -> DecodeSlots:
+        """Allocate the slot state: ``num_slots`` lanes of zero carries
+        (rounded up to a ``decode_width`` multiple), all free."""
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        W = self.decode_width
+        S = -(-int(num_slots) // W) * W
+        return DecodeSlots(carry=init_rnn_carry(self.params, S),
+                           num_slots=S, active=np.zeros((S,), bool))
+
+    def prefill(self, window, carry=None):
+        """Replay a session's window into a batch-1 carry ready for
+        ``insert``: exactly ``replay``, so a prefilled lane is
+        bitwise-equal to the step-by-step session it replaces."""
+        return self.replay(window, carry)
+
+    def insert(self, slots: DecodeSlots, lane: int, carry) -> DecodeSlots:
+        """Write a batch-1 ``carry`` into ``lane``, in place on the
+        device."""
+        dispatch.record("slots_insert", batch=1, hidden=self.cfg.hidden,
+                        device=self.device)
+        for (sh, sc), (h, c) in zip(slots.carry, carry):
+            sh[lane].copy_(h[0])
+            sc[lane].copy_(c[0])
+        slots.active[lane] = True
+        return slots
+
+    def extract(self, slots: DecodeSlots, lane: int):
+        """A copy of ``lane``'s batch-1 carry (spill path); the lane is
+        left intact."""
+        dispatch.record("slots_extract", batch=1, hidden=self.cfg.hidden,
+                        device=self.device)
+        return tuple((h[lane:lane + 1].clone(), c[lane:lane + 1].clone())
+                     for h, c in slots.carry)
+
+    def release(self, slots: DecodeSlots, lane: int) -> None:
+        """Mark ``lane`` free; its stale carry is overwritten by the next
+        ``insert``."""
+        slots.active[lane] = False
+
+    def generate(self, slots: DecodeSlots, x, lanes=None):
+        """Step the slot state: x [num_slots, F] (rows of lanes not
+        stepped are ignored). ``lanes`` lists the lanes stepped (default:
+        every active lane). Stepped lanes' carries are updated IN PLACE;
+        every other lane comes out unchanged. Lane-width chunks holding
+        no stepped lane are skipped. Returns (forecast [num_slots],
+        p_extreme [num_slots], slots): read only the rows of ``lanes``."""
+        x = np.asarray(x, np.float32)
+        S = slots.num_slots
+        if x.shape != (S, self.feature_dim):
+            raise ValueError(f"generate expects x [{S}, "
+                             f"{self.feature_dim}], got {x.shape}")
+        mask = np.zeros((S,), bool)
+        if lanes is None:
+            mask[:] = slots.active
+        else:
+            mask[np.asarray(lanes, np.int64)] = True
+        dispatch.record("slots_generate", batch=S, hidden=self.cfg.hidden,
+                        device=self.device)
+        W = self.decode_width
+        xd = torch.as_tensor(x, device=self.device)
+        md = torch.as_tensor(mask, device=self.device)[:, None]
+        y = torch.zeros((S,), dtype=torch.float32, device=self.device)
+        p = torch.zeros((S,), dtype=torch.float32, device=self.device)
+        for lo in range(0, S, W):
+            if not mask[lo:lo + W].any():
+                continue
+            chunk = tuple((h[lo:lo + W], c[lo:lo + W]) for h, c in slots.carry)
+            yc, pc, stepped = self._step(xd[lo:lo + W], chunk)
+            m = md[lo:lo + W]
+            for (h, c), (h2, c2) in zip(chunk, stepped):
+                h.copy_(torch.where(m, h2, h))
+                c.copy_(torch.where(m, c2, c))
+            y[lo:lo + W] = yc
+            p[lo:lo + W] = pc
+        y, p = _to_host(y, p)
+        return y, p, slots
+
+    def warm_slots(self, num_slots: int) -> int:
+        """Run the slot lifecycle (insert / extract / generate) once
+        against a throwaway slot state, off the serving path (on the card
+        the first call builds the kernel). Returns #calls made."""
+        slots = self.init_slots(num_slots)
+        self.insert(slots, 0, self.init_carry(1))
+        self.extract(slots, 0)
+        self.generate(slots, np.zeros((slots.num_slots, self.feature_dim),
+                                      np.float32), lanes=[0])
+        return 3
+
+    def warm_decode(self) -> int:
+        """Run the decode-lane paths (single step, batched step,
+        full-window replay) once off the serving path. Returns #calls."""
+        F = self.feature_dim
+        W = self.decode_width
+        self.step(np.zeros((1, F), np.float32), self.init_carry(1))
+        self.step_many(np.zeros((W, F), np.float32),
+                       [self.init_carry(1) for _ in range(W)])
+        self.replay(np.zeros((1, self.window, F), np.float32))
+        return 3
+
+    # -- calibration -------------------------------------------------------
+    def calibrate(self, windows, quantile: float = 0.95) -> "LSTMForecaster":
+        """Fit the EVT tail + indicator thresholds on this model's own
+        forecast distribution over a reference window set."""
+        y, _ = self.predict(windows)
+        self.tail = fit_tail(np.abs(y), q=quantile)
+        self.eps = quantile_thresholds(y, q=quantile)
+        return self
+
+    def with_params(self, params: PyTree) -> "LSTMForecaster":
+        """Unpublished successor serving ``params`` with this model's
+        calibration carried over (the hot-swap constructor)."""
+        return dataclasses.replace(self, params=params, version=0,
+                                   published_at=None)
+
+
+def build_lstm_forecaster(seed: int = 0, cfg: RNNConfig | None = None,
+                          params: PyTree | None = None,
+                          calibrate_ticker: str | None = "AAPL",
+                          n_days: int = 400,
+                          device="cuda") -> LSTMForecaster:
+    """Paper-config LSTM forecaster on ``device``: random weights from a
+    ``torch.Generator`` seeded with ``seed`` unless ``params`` is given,
+    EVT-calibrated on a synthetic reference series."""
+    if cfg is None:
+        from repro_torch.configs.paper_lstm import CONFIG
+        cfg = CONFIG
+    device = resolve_device(device)
+    if params is None:
+        params = init_rnn(torch.Generator().manual_seed(seed), cfg,
+                          device=device)
+    fc = LSTMForecaster(cfg=cfg, params=params, device=device)
+    if calibrate_ticker is not None:
+        from repro_torch.data import load_stock, make_windows
+        ohlcv = load_stock(calibrate_ticker, n_days=n_days)
+        ds = make_windows(ohlcv, window=cfg.window)
+        fc.calibrate(ds.x)
+    return fc

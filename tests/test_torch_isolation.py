@@ -1,0 +1,82 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports jax or anything of ``repro``; every entry
+point defaults to the card; and on a machine without one,
+``chip_smoke.py`` and the serve CLI fail instead of carrying on on the
+CPU."""
+
+import ast
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.launch import serve
+from repro_torch.models.rnn import init_rnn
+from repro_torch.serving.forecaster import (LSTMForecaster,
+                                            build_lstm_forecaster)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    bad = [n for n in _imports(path)
+           if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_package_is_complete():
+    assert len(PORT_FILES) > 20
+    assert (ROOT / "src/repro_torch/kernels/lstm/csrc/lstm_cell.cu").is_file()
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (build_lstm_forecaster, init_rnn, params_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert LSTMForecaster.__dataclass_fields__["device"].default == "cuda"
+    tree = ast.parse(inspect.getsource(serve))
+    defaults = [kw.value.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == "--device"
+                for kw in node.keywords if kw.arg == "default"]
+    assert defaults == ["cuda"]
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_without_a_card_chip_smoke_and_cli_fail(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: nothing to refuse")
+    out = _run([str(ROOT / "chip_smoke.py")], ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = _run([str(lone)], tmp_path)
+    assert out.returncode != 0 and '"ok": true' not in out.stdout
+    out = _run(["-m", "repro_torch.launch.serve", "--requests", "1"], ROOT)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
