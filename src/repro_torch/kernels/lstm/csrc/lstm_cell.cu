@@ -13,22 +13,29 @@
 // depend on that row's inputs and the weights only: never on B, on the
 // block the row lands in, or on its position in that block. The serving
 // path rests on that (a session's step, its replay and its slot-resident
-// generate agree bitwise). A block holds ROWS rows x JTILE units; the x
-// and h rows of the block are staged in shared memory, and neighbouring
-// threads read neighbouring weight columns, so every weight load of a
-// warp is one coalesced 128-byte line from global memory / L2. The
-// TPU's padding of B and I to multiples of 8 is not carried over: the
-// kernel masks its own ragged edge and takes I = 5 as it is. fp32
-// throughout, plain FMAs, no TF32 and no fast-math intrinsics.
+// generate agree bitwise). A block holds ROWS rows x JTILE units. It
+// first copies the weight columns of its JTILE units, all I + H rows of
+// them, into shared memory with cp.async (every thread issues all of its
+// copies before waiting on any, so the whole tile is one round trip to
+// L2), and its x and h rows beside them; the FMA loop then reads only
+// shared memory. The TPU's padding of B and I to multiples of 8 is not
+// carried over: the kernel masks its own ragged edges and takes I = 5 as
+// it is. fp32 throughout, plain FMAs, no TF32 and no fast-math
+// intrinsics.
 //
 // What bounds it on an H100. At the serving shapes (B <= 64, I in {5, 64},
-// H = 64) the work is ~1-4 MFLOP and ~140 KB of weights, i.e. well under
-// 0.1 us at the card's 3.35 TB/s: the launch (a few us) is the bound,
-// then the weight bytes, which every row block re-reads from L2. This
-// simple design keeps the launch cheap (one kernel per cell, no
-// workspace, no host sync) and leaves the rest to later work: weights
-// resident in shared memory across both layers, one fused
-// 2-layer + head + alert launch per generate, and CUDA graphs.
+// H = 64) the work is ~0.3-4 MFLOP and ~140 KB of weights: the bytes
+// bound is 0.02-0.07 us at the card's 3.35 TB/s, far below what a launch
+// costs (about 2.3 us per kernel node in a CUDA graph on an H100 80GB
+// HBM3 at 700 W, measured with chip_smoke.py). Latency is the bound. A
+// first version read the weights from L2 inside the k loop; the
+// compiler kept only a few loads in flight, so each k waited out an L2
+// round trip (21 us at I = 64, 13.5 us at I = 5). Staging the tile with
+// cp.async, each thread issuing all its copies before the first wait,
+// pays that round trip once (5.4 us and 4.0 us on the same card).
+// Later work: the weights resident in shared memory across both layers,
+// one fused 2-layer + head + alert launch per generate, and CUDA graphs
+// for the host's share, which dominates the serving path.
 
 #include <cuda_runtime.h>
 
@@ -36,61 +43,75 @@ namespace {
 
 constexpr int JTILE = 32;  // hidden units per block (one warp wide)
 constexpr int ROWS = 4;    // batch rows per block
+// shared memory a block may opt in to on an H100 (227 KB)
+constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ float sigmoidf(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-__global__ void lstm_cell_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ h,
-                                 const float* __restrict__ c,
-                                 const float* __restrict__ wx,
-                                 const float* __restrict__ wh,
-                                 const float* __restrict__ b,
-                                 float* __restrict__ h_out,
-                                 float* __restrict__ c_out,
-                                 int B, int I, int H) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(JTILE * ROWS)
+lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
+                 const float* __restrict__ c, const float* __restrict__ wx,
+                 const float* __restrict__ wh, const float* __restrict__ b,
+                 float* __restrict__ h_out, float* __restrict__ c_out,
+                 int B, int I, int H) {
   extern __shared__ float smem[];
-  float* xs = smem;            // [ROWS][I]
-  float* hs = smem + ROWS * I; // [ROWS][H]
+  const int K = I + H;
+  float* ws = smem;                            // [K][4][JTILE] weights
+  float* vs = smem + (size_t)K * 4 * JTILE;    // [ROWS][K] x then h rows
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j0 = blockIdx.x * JTILE;
+  const int r = blockIdx.y * ROWS + ty;
+  const size_t G = 4 * (size_t)H;
 
-  const int row0 = blockIdx.y * ROWS;
-  const int tid = threadIdx.y * JTILE + threadIdx.x;
-  const int nthreads = JTILE * ROWS;
-
-  for (int e = tid; e < ROWS * I; e += nthreads) {
-    const int r = row0 + e / I;
-    xs[e] = r < B ? x[(size_t)r * I + e % I] : 0.0f;
+  // the block's weight tile, [k][gate][unit]: thread (tx, ty) copies
+  // column j0 + tx of gate ty for every k, one async copy per k
+  const int j = j0 + tx;
+  for (int g = ty; g < 4; g += ROWS) {
+    float* dst = ws + g * JTILE + tx;
+    if (j < H) {
+      const float* src = wx + g * H + j;
+      for (int k = 0; k < I; ++k, src += G, dst += 4 * JTILE)
+        cp_async4(dst, src);
+      src = wh + g * H + j;
+      for (int k = 0; k < H; ++k, src += G, dst += 4 * JTILE)
+        cp_async4(dst, src);
+    } else {
+      for (int k = 0; k < K; ++k, dst += 4 * JTILE) *dst = 0.0f;
+    }
   }
-  for (int e = tid; e < ROWS * H; e += nthreads) {
-    const int r = row0 + e / H;
-    hs[e] = r < B ? h[(size_t)r * H + e % H] : 0.0f;
+  float* v = vs + ty * K;
+  for (int k = tx; k < K; k += JTILE) {
+    float val = 0.0f;
+    if (r < B) val = k < I ? x[(size_t)r * I + k] : h[(size_t)r * H + k - I];
+    v[k] = val;
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  const int j = blockIdx.x * JTILE + threadIdx.x;
-  const int r = row0 + threadIdx.y;
   if (j >= H || r >= B) return;
 
-  const int G = 4 * H;
   float ai = b[j], af = b[H + j], ag = b[2 * H + j], ao = b[3 * H + j];
-  const float* xr = xs + threadIdx.y * I;
-  for (int k = 0; k < I; ++k) {
-    const float v = xr[k];
-    const float* w = wx + (size_t)k * G + j;
-    ai = fmaf(v, w[0], ai);
-    af = fmaf(v, w[H], af);
-    ag = fmaf(v, w[2 * H], ag);
-    ao = fmaf(v, w[3 * H], ao);
-  }
-  const float* hr = hs + threadIdx.y * H;
-  for (int k = 0; k < H; ++k) {
-    const float v = hr[k];
-    const float* w = wh + (size_t)k * G + j;
-    ai = fmaf(v, w[0], ai);
-    af = fmaf(v, w[H], af);
-    ag = fmaf(v, w[2 * H], ag);
-    ao = fmaf(v, w[3 * H], ao);
+  const float* w = ws + tx;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    const float vk = v[k];
+    const float* wk = w + k * 4 * JTILE;
+    ai = fmaf(vk, wk[0], ai);
+    af = fmaf(vk, wk[JTILE], af);
+    ag = fmaf(vk, wk[2 * JTILE], ag);
+    ao = fmaf(vk, wk[3 * JTILE], ao);
   }
 
   const float ig = sigmoidf(ai);
@@ -103,27 +124,37 @@ __global__ void lstm_cell_kernel(const float* __restrict__ x,
   h_out[o] = og * tanhf(cn);
 }
 
+cudaError_t allow_max_smem() {
+  return cudaFuncSetAttribute(lstm_cell_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSmem);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one launch needs for (I, H), in bytes; the caller checks
-// it against the card's 48 KB default before launching.
+// Shared memory one launch needs for (I, H), in bytes: the weight tile
+// and the x/h rows. The caller checks it against the 227 KB a block may
+// opt in to.
 int lstm_cell_smem_bytes(int I, int H) {
-  return (int)(ROWS * (I + H) * sizeof(float));
+  return (int)((size_t)(I + H) * (4 * JTILE + ROWS) * sizeof(float));
 }
 
 // Launch one step on `stream`. All pointers are device pointers to
 // contiguous fp32 arrays: x [B, I], h, c, h_out, c_out [B, H],
-// wx [I, 4H], wh [H, 4H], b [4H]. Returns cudaGetLastError() after the
-// launch (0 = launched); nothing is synchronised.
+// wx [I, 4H], wh [H, 4H], b [4H]. Returns the first CUDA error (0 =
+// launched); nothing is synchronised.
 int lstm_cell_forward(const float* x, const float* h, const float* c,
                       const float* wx, const float* wh, const float* b,
                       float* h_out, float* c_out, int B, int I, int H,
                       void* stream) {
+  // opt in to more than 48 KB of shared memory once per process
+  static const cudaError_t opt_in = allow_max_smem();
+  if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 block(JTILE, ROWS);
   const dim3 grid((H + JTILE - 1) / JTILE, (B + ROWS - 1) / ROWS);
-  const size_t smem = (size_t)ROWS * (I + H) * sizeof(float);
+  const size_t smem = (size_t)lstm_cell_smem_bytes(I, H);
   lstm_cell_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       x, h, c, wx, wh, b, h_out, c_out, B, I, H);
   return (int)cudaGetLastError();
