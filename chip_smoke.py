@@ -465,7 +465,7 @@ def main() -> None:
     run_cli(fc.window)
     rows = time_kernels(launches, tag)
     profile_serving(fc, payloads, sessions, tag)
-    print(f"card: {card}")
+    print(card)
     print(json.dumps({"kernels": [kernel_entry(rows, launches, max_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,15 +2,16 @@
 version (what a CPU tensor runs) vs the Pallas kernel in interpret mode
 and vs its jnp oracle, over the JAX kernel tests' shape sweep; the
 device route and launch counter of the wrapper; and, on a card, the
-hand-written CUDA kernel vs the plain version."""
+hand-written CUDA kernel vs the plain version.
 
-import jax.numpy as jnp
+The JAX package is imported inside the parity test only, so that the
+``cuda`` tests also run on a machine with a card and no jax:
+``python -m pytest -q -m cuda tests/test_torch_lstm.py``."""
+
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.lstm.ops import lstm_cell_fused
-from repro.kernels.lstm.ref import lstm_cell_ref as jax_cell_ref
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lstm import kernel as lstm_kernel
 from repro_torch.kernels.lstm.ops import lstm_cell
@@ -36,6 +37,11 @@ def _inputs(batch, in_dim, hidden, seed=42):
 
 @pytest.mark.parametrize("batch,in_dim,hidden", SHAPES)
 def test_plain_cell_matches_pallas_kernel_and_oracle(batch, in_dim, hidden):
+    import jax.numpy as jnp
+
+    from repro.kernels.lstm.ops import lstm_cell_fused
+    from repro.kernels.lstm.ref import lstm_cell_ref as jax_cell_ref
+
     arrays = _inputs(batch, in_dim, hidden)
     h, c = lstm_cell(*map(torch.from_numpy, arrays))
     hk, ck = lstm_cell_fused(*map(jnp.asarray, arrays))
@@ -80,12 +86,16 @@ def test_dispatch_counting_records_device_and_route():
     assert outer.total() == 2                 # collector uninstalled
 
 
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,in_dim,hidden",
                          SHAPES + [(8, 5, 64), (8, 64, 64), (64, 64, 64)])
 def test_cuda_kernel_matches_plain_version(batch, in_dim, hidden):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _card()
     arrays = [torch.from_numpy(a).cuda()
               for a in _inputs(batch, in_dim, hidden)]
     before = lstm_kernel.LAUNCHES.total
@@ -95,3 +105,32 @@ def test_cuda_kernel_matches_plain_version(batch, in_dim, hidden):
     hr, cr = lstm_cell_ref(*arrays)
     torch.testing.assert_close(h, hr, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(c, cr, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dim", [5, 64])
+def test_cuda_kernel_rows_do_not_depend_on_batch(in_dim):
+    _card()
+    x, h, c, wx, wh, b = [torch.from_numpy(a).cuda()
+                          for a in _inputs(64, in_dim, 64)]
+    h64, c64 = lstm_cell(x, h, c, wx, wh, b)
+    for lo in range(0, 64, 8):
+        rows = slice(lo, lo + 8)
+        h8, c8 = lstm_cell(x[rows].contiguous(), h[rows].contiguous(),
+                           c[rows].contiguous(), wx, wh, b)
+        assert torch.equal(h8, h64[rows]) and torch.equal(c8, c64[rows])
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_instead_of_falling_back():
+    _card()
+    x, h, c, wx, wh, b = [torch.from_numpy(a).cuda()
+                          for a in _inputs(4, 5, 16)]
+    before = lstm_kernel.LAUNCHES.total
+    with pytest.raises(TypeError, match="float32"):
+        lstm_cell(x.double(), h, c, wx, wh, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_cell(x, h, c, wx, wh.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="one device"):
+        lstm_cell(x, h, c, wx, wh, b.cpu())
+    assert lstm_kernel.LAUNCHES.total == before
