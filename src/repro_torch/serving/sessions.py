@@ -72,18 +72,10 @@ class SessionCache:
         with self._lock:
             return len(self._sessions)
 
-    def __contains__(self, client_id: str) -> bool:
-        with self._lock:
-            return client_id in self._sessions
-
-    def get(self, client_id: str):
-        """Return the cached carry (refreshing LRU order) or None."""
-        entry = self.get_entry(client_id)
-        return entry[0] if entry is not None else None
-
     def get_entry(self, client_id: str) -> tuple[Any, int] | None:
-        """Like ``get`` but returns (carry, model_version), so callers can
-        detect carries built under weights since hot-swapped out."""
+        """(carry, model_version) of ``client_id``'s session, refreshing
+        its LRU place, or None. The version lets callers detect carries
+        built under weights since hot-swapped out."""
         with self._lock:
             expired = self._expire_locked()
             s = self._sessions.get(client_id)
