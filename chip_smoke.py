@@ -5,14 +5,23 @@ NVIDIA H100.
     python3 chip_smoke.py            # from the repo root, on the card
 
 It builds the hand-written CUDA kernels from the sources in the
-checkout, holds each against its plain PyTorch version on the card,
-checks the forecaster's bitwise step == replay == generate contract,
-serves the paper LSTM (full width, random weights from seed 0) through
-``ServingEngine`` and the ``repro_torch.launch.serve`` CLI, times each
-kernel beside its plain version, ``torch.lstm_cell`` and its bound, and
-reads the device's busy share while serving with ``torch.profiler``.
-Any failed phase exits non-zero. The last two lines are a JSON
-object per kernel and ``{"ok": true, "device": {...}}``.
+checkout (one ``nvcc`` per library, all started together) and holds
+each against its plain PyTorch version on the card: the LSTM cell's
+forward (with the local-SGD worker dim) and backward, and the EVL loss's
+forward and backward. It checks the forecaster's bitwise step == replay
+== generate contract and that a training step puts real gradients on
+every LSTM weight. Then it drives the port's two main paths: serving
+the paper LSTM (full width, random weights from seed 0) through
+``ServingEngine`` and the ``repro_torch.launch.serve`` CLI, and training
+it (serial, and asynchronous local SGD with 4 workers at tau 0 and 1,
+EVL on) through ``repro_torch.training`` and the
+``repro_torch.launch.train`` CLI, with every kernel launch counter set
+to 0 just before each path and read just after, and no plain version
+called on a card tensor. It times each kernel beside its plain version,
+a PyTorch yardstick where one exists, and its bound, and reads the
+device's busy share while serving and while training with
+``torch.profiler``. Any failed phase exits non-zero. The last two lines
+are a JSON object per kernel and ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -20,11 +29,14 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -35,16 +47,55 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
-RTOL, ATOL = 1e-5, 1e-6         # kernel vs plain, as tests/test_kernels.py
+RTOL, ATOL = 1e-5, 1e-6         # LSTM kernels vs plain, as tests/test_kernels.py
+EVL_RTOL, EVL_ATOL = 1e-5, 1e-7  # EVL kernels vs plain, as tests/test_kernels.py
 FC_RTOL, FC_ATOL = 1e-4, 1e-5   # card vs CPU over the whole model
-# (B, I, H) the serving path gives the cell: the decode lane (B = 8),
-# the slot state (64), the request batch (max_batch = 32); I = 5 for
-# layer 1 and 64 for layer 2
-PATH_SHAPES = [(8, 5, 64), (8, 64, 64), (32, 5, 64), (32, 64, 64),
-               (64, 64, 64)]
-# the odd shapes of the JAX package's kernel sweep
+# Training on the card vs the port on the CPU, from the same weights and
+# batches: fp32 on both sides, the kernels' sums in another order than
+# oneDNN's, so the two drift apart a little more with every SGD step.
+# The bound is the whole-model bound above, applied to each loss of the
+# first ~20 iterations and, per leaf, to one step's gradient relative to
+# the leaf's largest entry.
+TRAIN_RTOL = 1e-4
+# The weight gradients dwx = x^T dgates, dwh = h^T dgates and
+# db = sum_B dgates sum B products whose signs differ, and the kernel's
+# dgates differ from autograd's in the last bits (another order of the
+# same multiplications). Where the sum cancels, its error is relative to
+# the sum of the terms' magnitudes, not to the result, so these three
+# are held to |kernel - plain| <= ATOL + RTOL * (|x|^T |dgates|) (and
+# likewise for h and the bias) instead of RTOL * |result|.
+# (W, B, I, H) the serving path gives the cell: one model (W = 1); the
+# decode lane (B = 8), the slot state (64), the request batch (max_batch
+# = 32); I = 5 for layer 1 and 64 for layer 2
+PATH_SHAPES = [(1, 8, 5, 64), (1, 8, 64, 64), (1, 32, 5, 64),
+               (1, 32, 64, 64), (1, 64, 64, 64)]
+# (W, B, I, H) the training path gives the cell and its backward: the
+# serial baseline (W = 1) and 4 local-SGD workers, batch 32
+TRAIN_SHAPES = [(W, 32, I, 64) for W in (1, 4) for I in (5, 64)]
+# the odd (B, I, H) of the JAX package's kernel sweep
 ODD_SHAPES = [(1, 5, 64), (13, 5, 64), (32, 7, 32), (8, 16, 128),
               (3, 9, 24), (7, 3, 40), (1, 1, 8), (9, 11, 48), (5, 5, 16)]
+# (W, N) the training path gives the EVL loss: one row per worker, N the
+# batch; and a row longer than a block
+EVL_SHAPES = [(1, 32), (4, 32)]
+EVL_EPS = 1e-7
+EVL_EDGES = [0.0, EVL_EPS, float(np.float32(1.0 - EVL_EPS)), 1.0]
+# sha256 of (h', c') from the LSTM cell kernel of the serving slice (the
+# port's first version, before the worker dim; commit 18fdff0) at the
+# serving shapes, on ``bits_inputs(B, I, H)``: a W = 1 launch must give
+# them bit for bit. Taken by that kernel on an H100 80GB HBM3 (700 W).
+SERVING_SLICE_DIGESTS = {
+    "8x5x64": "b33af6c0d958079e3f21c3096ffaf7a42c3d8ef56aec6b01f755d7129d878016",
+    "8x64x64": "c5d71f1ec59528f4d5823f330bbbbbb440d5f7760aa45dcf464328ce6a9865fb",
+    "32x5x64": "b46ead90d913392c4050d5d191ed385f8726984080ccaa3e211127c8d9dd08ec",
+    "32x64x64": "72efe52a6d4959c3e5d4edd78e9a6a8958ec0f352b550e5a5eb235967ced05de",
+    "64x64x64": "ecd8f29e5a126d3901f477e395ac7befb5484ff75b1d4ccf975ec68983d61740"}
+# the paper-LSTM training runs of the main path (CLI defaults: AAPL,
+# 1430 days, batch 32, seed 0; EVL weight 0.5)
+SERIAL_ITERATIONS = 300
+LOCAL_SGD_ITERATIONS = 800
+COMPARE_SERIAL = 20             # the first iterations held against the CPU
+COMPARE_LOCAL_SGD = 28          # W = 4: rounds of 8 and 20 iterations
 
 
 def fail(msg: str) -> None:
@@ -66,35 +117,120 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cell_inputs(B, I, H, seed=0):
-    g = torch.Generator().manual_seed(seed * 1_000_003 + B * 10_007
-                                      + I * 101 + H)
+def counters():
+    """Every kernel launch counter of the port, by kernel name."""
+    from repro_torch.kernels.evl import kernel as evl_kernel
+    from repro_torch.kernels.lstm import kernel as lstm_kernel
+
+    return {"lstm_cell": lstm_kernel.LAUNCHES,
+            "lstm_cell_bwd": lstm_kernel.BWD_LAUNCHES,
+            "evl_forward": evl_kernel.EVL_LAUNCHES,
+            "evl_backward": evl_kernel.EVL_BWD_LAUNCHES}
+
+
+def reset_counters() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def read_counters() -> dict:
+    return {name: dict(c.by_shape) for name, c in counters().items()}
+
+
+@contextlib.contextmanager
+def no_plain_version_on_the_card():
+    """Record every call of a plain version from the kernel wrappers with
+    a tensor on the card; the caller checks that there was none."""
+    import repro_torch.kernels.evl.ops as evl_ops
+    import repro_torch.kernels.lstm.ops as lstm_ops
+
+    names = [(lstm_ops, "lstm_cell_ref"), (lstm_ops, "lstm_cell_fwd_ref"),
+             (lstm_ops, "lstm_cell_bwd_ref"), (evl_ops, "evl_loss_ref"),
+             (evl_ops, "evl_grad_ref")]
+    calls: list[str] = []
+    saved = {(m, n): getattr(m, n) for m, n in names}
+    for (mod, name), fn in saved.items():
+        def guard(*args, _fn=fn, _name=name, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                calls.append(_name)
+            return _fn(*args, **kwargs)
+        setattr(mod, name, guard)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def cell_inputs(W, B, I, H, seed=0):
+    g = torch.Generator().manual_seed(seed * 1_000_003 + W * 7_919
+                                      + B * 10_007 + I * 101 + H)
 
     def r(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=g)).cuda()
 
-    return (r(B, I), r(B, H), r(B, H), r(I, 4 * H, scale=0.1),
-            r(H, 4 * H, scale=0.1), r(4 * H, scale=0.1))
+    return (r(W, B, I), r(W, B, H), r(W, B, H), r(W, I, 4 * H, scale=0.1),
+            r(W, H, 4 * H, scale=0.1), r(W, 4 * H, scale=0.1))
 
 
-def cell_bound(B, I, H):
-    """Least time (ms) for one cell at (B, I, H) and what bounds it:
-    each input read once and each output written once (fp32), and the
-    operations of the two products plus the gate math (each
-    transcendental counted as one operation)."""
-    nbytes = 4 * (B * I + 2 * B * H + I * 4 * H + H * 4 * H + 4 * H
-                  + 2 * B * H)
-    ops = 2 * B * 4 * H * (I + H) + 4 * B * H + 9 * B * H
+def bits_inputs(B, I, H):
+    """numpy-seeded unstacked inputs for the bitwise check against the
+    serving slice's kernel."""
+    rng = np.random.default_rng(B * 10_007 + I * 101 + H)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).cuda()
+    return (f(B, I), f(B, H), f(B, H), f(I, 4 * H, scale=0.1),
+            f(H, 4 * H, scale=0.1), f(4 * H, scale=0.1))
+
+
+def cell_digest(h, c) -> str:
+    return hashlib.sha256(h.cpu().numpy().tobytes()
+                          + c.cpu().numpy().tobytes()).hexdigest()
+
+
+def bound(nbytes: int, ops: int):
+    """Least time (ms) for work that moves ``nbytes`` and does ``ops``
+    float32 operations, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cell_bound(W, B, I, H):
+    """The forward cell: each input read once and each output written
+    once (fp32); the two products plus the gate math (each
+    transcendental counted as one operation)."""
+    nbytes = 4 * W * (B * I + 2 * B * H + I * 4 * H + H * 4 * H + 4 * H
+                      + 2 * B * H)
+    ops = W * (2 * B * 4 * H * (I + H) + 4 * B * H + 9 * B * H)
+    return bound(nbytes, ops)
+
+
+def cell_bwd_bound(W, B, I, H):
+    """The backward kernel: reads dh', dc', c, c', the gates, wx and wh,
+    writes dgates, dc, dh and dx (fp32); about 25 operations per (row,
+    unit) for dgates and dc, and the two products dgates wx^T and
+    dgates wh^T."""
+    nbytes = 4 * W * (4 * B * H + B * 4 * H + I * 4 * H + H * 4 * H
+                      + B * 4 * H + 2 * B * H + B * I)
+    ops = W * (25 * B * H + 2 * B * 4 * H * (I + H))
+    return bound(nbytes, ops)
+
+
+def evl_bound(W, N, backward: bool):
+    """The EVL loss: reads u and v (and the incoming gradient), writes
+    the W losses (or du); about 20 operations per element forward, 35
+    backward (each log, pow and division counted as one)."""
+    if backward:
+        return bound(4 * (3 * W * N + W), 35 * W * N)
+    return bound(4 * (2 * W * N + W), 20 * W * N)
 
 
 def graph_ms(fn, inner=50, reps=21):
     """Median device time (ms) of one ``fn()`` call: ``inner`` calls are
     captured in a CUDA graph, the graph is replayed ``reps`` times
     between CUDA events. Host launch overhead is left out; the weights
-    stay warm in L2, as in serving, which reuses them every step."""
+    stay warm in L2, as on both paths, which reuse them every step."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -102,9 +238,13 @@ def graph_ms(fn, inner=50, reps=21):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
+    # an empty capture (work that went to another stream) would time
+    # nothing: PyTorch only warns, so make that warning an error
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        with torch.cuda.graph(graph):
+            for _ in range(inner):
+                fn()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -121,7 +261,7 @@ def graph_ms(fn, inner=50, reps=21):
 
 def eager_ms(fn, n=200):
     """Time (ms) per eager ``fn()`` call, host launch overhead included:
-    what one call costs the serving path."""
+    what one call costs the path."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -136,28 +276,39 @@ def eager_ms(fn, n=200):
 
 
 def build_kernels() -> None:
-    """Phase 1: build every kernel of the path from the checkout."""
+    """Phase 1: build every kernel library from the checkout, one nvcc
+    each, all at once."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.evl import kernel as evl_kernel
     from repro_torch.kernels.lstm import kernel as lstm_kernel
 
-    lib = build.library_path("lstm_cell", lstm_kernel.SOURCES)
-    cached = lib.exists()
+    libs = {**lstm_kernel.LIBRARIES, **evl_kernel.LIBRARIES}
+    cached = {n: build.library_path(n, s).exists() for n, s in libs.items()}
     t0 = time.perf_counter()
-    lstm_kernel.smem_bytes(5, 64)          # builds and loads the library
-    print(f"[build] lstm_cell: {'cached' if cached else 'built'} in "
-          f"{time.perf_counter() - t0:.2f} s -> {lib.relative_to(ROOT)}")
+    paths = build.build_all(libs)
+    lstm_kernel.smem_bytes(5, 64)          # loads each library
+    lstm_kernel.bwd_smem_bytes(64)
+    evl_kernel._library()
+    for name, path in paths.items():
+        print(f"[build] {name}: {'cached' if cached[name] else 'built'} -> "
+              f"{path.relative_to(ROOT)}")
+    print(f"[build] {len(libs)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
-def check_kernels() -> float:
-    """Phase 2: each kernel against its plain version on the card, and
-    the LSTM cell's per-row bits independent of B. Returns the largest
-    |kernel - plain| seen."""
+def check_forward() -> float:
+    """Phase 2a: the forward cell against its plain version, its rows'
+    bits independent of B and of W, and a W = 1 launch bit for bit the
+    serving slice's kernel. Returns the largest |kernel - plain|."""
     from repro_torch.kernels.lstm.ops import lstm_cell
     from repro_torch.kernels.lstm.ref import lstm_cell_ref
 
     max_err = 0.0
-    for B, I, H in PATH_SHAPES + ODD_SHAPES:
-        args = cell_inputs(B, I, H)
+    shapes = PATH_SHAPES + TRAIN_SHAPES + [(1,) + s for s in ODD_SHAPES]
+    for W, B, I, H in shapes:
+        args = cell_inputs(W, B, I, H)
+        if W == 1:                       # the unstacked (serving) form
+            args = tuple(a[0] for a in args)
         hk, ck = lstm_cell(*args)
         hr, cr = lstm_cell_ref(*args)
         torch.cuda.synchronize()
@@ -165,13 +316,13 @@ def check_kernels() -> float:
         max_err = max(max_err, err)
         ok = torch.allclose(hk, hr, rtol=RTOL, atol=ATOL) \
             and torch.allclose(ck, cr, rtol=RTOL, atol=ATOL)
-        print(f"[check] lstm_cell B={B} I={I} H={H}: max |kernel - plain| "
-              f"{err:.3e} (rtol {RTOL}, atol {ATOL}) "
+        print(f"[check] lstm_cell W={W} B={B} I={I} H={H}: max |kernel - "
+              f"plain| {err:.3e} (rtol {RTOL}, atol {ATOL}) "
               f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"lstm_cell kernel disagrees with its plain version at "
-                  f"B={B} I={I} H={H}")
+                  f"W={W} B={B} I={I} H={H}")
     for I in (5, 64):
-        x, h, c, wx, wh, b = cell_inputs(64, I, 64, seed=1)
+        x, h, c, wx, wh, b = (a[0] for a in cell_inputs(1, 64, I, 64, seed=1))
         h64, c64 = lstm_cell(x, h, c, wx, wh, b)
         for lo in range(0, 64, 8):
             h8, c8 = lstm_cell(x[lo:lo + 8].contiguous(),
@@ -181,9 +332,204 @@ def check_kernels() -> float:
                   and torch.equal(c8, c64[lo:lo + 8]),
                   f"rows {lo}..{lo + 7} of a B=64 launch differ from a "
                   f"B=8 launch of the same rows (I={I})")
+        args4 = cell_inputs(4, 32, I, 64, seed=2)
+        h4, c4 = lstm_cell(*args4)
+        for w in range(4):
+            h1, c1 = lstm_cell(*(a[w] for a in args4))
+            check(torch.equal(h1, h4[w]) and torch.equal(c1, c4[w]),
+                  f"worker {w} of a W=4 launch differs from its W=1 launch "
+                  f"(I={I})")
     print("[check] lstm_cell rows of B=8 launches == the same rows of a "
-          "B=64 launch, bitwise (I=5 and I=64)")
+          "B=64 launch, and the rows of a W=4 launch == four W=1 launches, "
+          "bitwise (I=5 and I=64)")
+    digests = {}
+    for _, B, I, H in PATH_SHAPES:
+        digests[f"{B}x{I}x{H}"] = cell_digest(*lstm_cell(*bits_inputs(B, I,
+                                                                      H)))
+    check(digests == SERVING_SLICE_DIGESTS,
+          f"a W = 1 launch is not bit for bit the serving slice's kernel: "
+          f"{digests} != {SERVING_SLICE_DIGESTS}")
+    print("[check] lstm_cell W=1 == the serving slice's kernel bit for bit "
+          "at the serving shapes (sha256 of h', c')")
     return max_err
+
+
+def check_backward() -> float:
+    """Phase 2b: the cell's gradient on the card (the autograd Function:
+    forward kernel saving the gates, backward kernel, weight gradients by
+    bmm) against torch autograd through the plain cell, for all six
+    operands; and the backward kernel against the plain version of its
+    own function. Returns the largest |kernel - plain| of the latter."""
+    from repro_torch.kernels.lstm import kernel
+    from repro_torch.kernels.lstm.ops import lstm_cell
+    from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
+                                              lstm_cell_fwd_ref,
+                                              lstm_cell_ref)
+
+    max_err = 0.0
+    worst = {}
+    for W, B, I, H in TRAIN_SHAPES + [(1,) + s for s in ODD_SHAPES]:
+        args = cell_inputs(W, B, I, H, seed=3)
+        g = torch.Generator().manual_seed(W * 31 + B + I + H)
+        dh, dc = (torch.randn(W, B, H, generator=g).cuda() for _ in range(2))
+        t1 = [a.clone().requires_grad_(True) for a in args]
+        t2 = [a.clone().requires_grad_(True) for a in args]
+        g1 = torch.autograd.grad(lstm_cell(*t1), t1, (dh, dc))
+        g2 = torch.autograd.grad(lstm_cell_ref(*t2), t2, (dh, dc))
+        _, c_new, gates = lstm_cell_fwd_ref(*args)
+        x, h, c, wx, wh, _ = args
+        got = kernel.lstm_cell_bwd_cuda(dh, dc, gates, c, c_new, wx, wh)
+        want = lstm_cell_bwd_ref(dh, dc, gates, c, c_new, wx, wh)
+        mag = want[0].abs()                     # |dgates|, [W, B, 4H]
+        scale = {"wx": torch.bmm(x.abs().transpose(1, 2), mag),
+                 "wh": torch.bmm(h.abs().transpose(1, 2), mag),
+                 "b": mag.sum(dim=1)}
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dgates", "dc", "dx", "dh"), got, want):
+            err = float((a - b).abs().max())
+            max_err = max(max_err, err)
+            check(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
+                  f"lstm_cell backward kernel: {name} disagrees with the "
+                  f"plain version at W={W} B={B} I={I} H={H}: max err {err}")
+        errs = []
+        for name, a, b in zip(("x", "h", "c", "wx", "wh", "b"), g1, g2):
+            err = float((a - b).abs().max())
+            errs.append(f"d{name} {err:.2e}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            if name in scale:
+                ok = bool(((a - b).abs()
+                           <= ATOL + RTOL * scale[name]).all())
+            else:
+                ok = torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+            check(ok,
+                  f"lstm_cell gradient d{name} on the card disagrees with "
+                  f"autograd of the plain cell at W={W} B={B} I={I} H={H}: "
+                  f"max err {err}")
+        print(f"[check] lstm_cell backward W={W} B={B} I={I} H={H}: vs "
+              f"autograd of the plain cell {', '.join(errs)} (rtol {RTOL}, "
+              f"atol {ATOL}; dwx, dwh, db against the terms' magnitudes) "
+              f"ok")
+    print(f"[check] lstm_cell backward: largest |kernel - plain| over "
+          f"dgates, dc, dx, dh {max_err:.3e}; largest gradient error by "
+          f"operand {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}")
+    return max_err
+
+
+def check_evl() -> tuple[float, float]:
+    """Phase 2c: the EVL kernels (mean, sum, none; u at 0, eps, 1 - eps
+    and 1; v at 0 and 1) against the plain version and its autograd.
+    Returns the largest |kernel - plain| forward and backward."""
+    from repro_torch.kernels.evl import kernel
+    from repro_torch.kernels.evl.ops import evl_loss
+    from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
+
+    betas = (0.93, 0.07, 2.0)
+    err_f = err_b = 0.0
+    for W, N in EVL_SHAPES + [(2, 300)]:
+        g = torch.Generator().manual_seed(W * 1000 + N)
+        u = torch.rand(W, N, generator=g)
+        u[0, :4] = torch.tensor(EVL_EDGES)
+        u[-1, 4:8] = torch.tensor(EVL_EDGES)
+        v = (torch.rand(W, N, generator=g) < 0.3).float()
+        v[0, :2] = 0.0
+        v[0, 2:4] = 1.0
+        v[-1, 4:6] = 1.0
+        v[-1, 6:8] = 0.0
+        u, v = u.cuda(), v.cuda()
+        for reduce in ("mean", "sum", "none"):
+            uk = u.clone().requires_grad_(True)
+            ur = u.clone().requires_grad_(True)
+            out = evl_loss(uk, v, *betas, EVL_EPS, reduce)
+            ref = evl_loss_ref(ur, v, *betas, EVL_EPS)
+            ref = {"mean": ref.mean(-1), "sum": ref.sum(-1),
+                   "none": ref}[reduce]
+            gout = torch.rand(out.shape, generator=g).cuda() + 0.5
+            (dk,) = torch.autograd.grad(out, uk, gout)
+            (dr,) = torch.autograd.grad(ref, ur, gout)
+            scale = {"none": gout, "sum": gout[:, None],
+                     "mean": gout[:, None] / N}[reduce]
+            dplain = evl_grad_ref(u, v, *betas, EVL_EPS) * scale
+            du = kernel.evl_backward_cuda(u, v, gout.contiguous(), *betas,
+                                          EVL_EPS, reduce)
+            torch.cuda.synchronize()
+            ef = float((out - ref).abs().max())
+            eb = max(float((du - dplain).abs().max()),
+                     float((dk - dr).abs().max()))
+            err_f, err_b = max(err_f, ef), max(err_b, eb)
+            ok = (torch.allclose(out, ref, rtol=EVL_RTOL, atol=EVL_ATOL)
+                  and torch.allclose(dk, dr, rtol=EVL_RTOL, atol=EVL_ATOL)
+                  and torch.allclose(du, dplain, rtol=EVL_RTOL,
+                                     atol=EVL_ATOL))
+            print(f"[check] evl W={W} N={N} {reduce}: max |kernel - plain| "
+                  f"loss {ef:.3e}, dL/du {eb:.3e} (rtol {EVL_RTOL}, atol "
+                  f"{EVL_ATOL}) {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"evl kernels disagree with the plain version at "
+                      f"W={W} N={N} reduce={reduce}")
+            check(dk[0, 0] == 0 and dk[0, 3] == 0 and dk[0, 1] != 0,
+                  "evl dL/du at the clip's edges")
+    u = torch.rand(4, 32, generator=torch.Generator().manual_seed(9)).cuda()
+    first = evl_loss(u, (u > 0.7).float(), *betas)
+    check(all(torch.equal(evl_loss(u, (u > 0.7).float(), *betas), first)
+              for _ in range(10)), "the evl loss changed between runs")
+    print("[check] evl loss bitwise the same over 10 runs (no atomics)")
+    return err_f, err_b
+
+
+def training_data():
+    """The CLI's default data: synthetic AAPL, 1430 days."""
+    from repro_torch.data import load_stock, make_windows, train_test_split
+
+    tr, te = train_test_split(load_stock("AAPL", n_days=1430, seed=0))
+    return make_windows(tr), make_windows(te)
+
+
+def check_gradients(train_ds) -> None:
+    """Phase 2d: one local-SGD step of the paper LSTM on the card, W = 4
+    workers, EVL on: every LSTM weight of every worker gets a nonzero
+    gradient, equal to the CPU port's (plain path) to TRAIN_RTOL of the
+    leaf's largest entry, and all four kernels launched."""
+    from repro_torch.checkpoint.convert import params_to, stack_workers
+    from repro_torch.configs.paper_lstm import CONFIG
+    from repro_torch.core.async_local_sgd import to_device, value_and_grad
+    from repro_torch.models.rnn import init_rnn
+    from repro_torch.training import loop
+
+    params = stack_workers(init_rnn(torch.Generator().manual_seed(0), CONFIG,
+                                    device="cpu"), 4)
+    idx = np.random.default_rng(0).permutation(len(train_ds))[:4 * 32]
+    batch = tuple(np.stack(parts) for parts in zip(*(
+        loop._batch_arrays(train_ds, idx[w * 32:(w + 1) * 32])
+        for w in range(4))))
+    loss_fn = loop._loss_fn_for(train_ds, CONFIG, 0.5)
+    reset_counters()
+    with no_plain_version_on_the_card() as plain_calls:
+        loss_g, grads_g = value_and_grad(loss_fn, params_to(params, "cuda"),
+                                         to_device(batch, "cuda"))
+        torch.cuda.synchronize()
+    launched = {k: sum(v.values()) for k, v in read_counters().items()}
+    loss_c, grads_c = value_and_grad(loss_fn, params, to_device(batch, "cpu"))
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    check(all(n > 0 for n in launched.values()),
+          f"a training step did not launch every kernel: {launched}")
+    worst = 0.0
+    for layer, (lg, lc) in enumerate(zip(grads_g["lstm"], grads_c["lstm"])):
+        for name in ("wx", "wh", "b"):
+            g, c = lg[name].cpu(), lc[name]
+            for w in range(4):
+                check(bool(torch.count_nonzero(g[w]) > 0),
+                      f"worker {w}: lstm[{layer}].{name} got no gradient "
+                      f"on the card")
+            err = float((g - c).abs().max() / c.abs().max())
+            worst = max(worst, err)
+            check(err <= TRAIN_RTOL,
+                  f"lstm[{layer}].{name} gradient card vs CPU: max error "
+                  f"{err:.3e} of the leaf's largest entry")
+    dloss = float(((loss_g.cpu() - loss_c).abs() / loss_c.abs()).max())
+    check(dloss <= TRAIN_RTOL, f"training loss card vs CPU: {dloss:.3e}")
+    print(f"[check] one training step, W=4, full width, EVL on: nonzero "
+          f"gradients on every LSTM weight of every worker; card vs CPU: "
+          f"loss {dloss:.3e} relative, LSTM gradients {worst:.3e} of each "
+          f"leaf's largest entry (bound {TRAIN_RTOL}); launches {launched}")
 
 
 def check_forecaster():
@@ -244,10 +590,11 @@ def check_forecaster():
 
 
 def serve_main_path(fc, tag: str):
-    """Phase 4, the main path: 128 windowed requests from 32 clients,
+    """Phase 4, the serving path: 128 windowed requests from 32 clients,
     then 20 ticks of ``submit_step`` from 8 clients, through
     ``ServingEngine``. Kernel launch counts are zeroed just before and
-    read just after. Returns (launches by shape, payloads, sessions)."""
+    read just after. Returns (launches by kernel and shape, payloads,
+    sessions)."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.lstm import kernel as lstm_kernel
     from repro_torch.launch import serve
@@ -265,8 +612,9 @@ def serve_main_path(fc, tag: str):
     with engine:
         engine.warmup("paper-lstm", lengths=(fc.window,))
         engine.telemetry.reset_clock()
-        lstm_kernel.LAUNCHES.reset()
-        with dispatch.counting() as counts:
+        reset_counters()
+        with dispatch.counting() as counts, \
+                no_plain_version_on_the_card() as plain_calls:
             t0 = time.perf_counter()
             futs = [engine.submit("paper-lstm", p,
                                   client_id=f"client-{i % 32}")
@@ -283,10 +631,11 @@ def serve_main_path(fc, tag: str):
                         for c, ds in enumerate(sessions)]
                 step_results.append([f.result(timeout=60.0) for f in futs])
             wall_s = time.perf_counter() - t0s
-        launches = dict(lstm_kernel.LAUNCHES.by_shape)
+        launches = read_counters()
     snap = engine.telemetry.snapshot()
-    n_generate = sum(launches.values()) - n_predict
+    n_generate = sum(launches["lstm_cell"].values()) - n_predict
     flushes, step_flushes = traffic_snap["batches"], snap["step_batches"]
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
     check(len(results) == 128 and all(np.isfinite(v) for r in results
                                       for v in r),
           "a served request did not resolve to finite values")
@@ -322,15 +671,103 @@ def serve_main_path(fc, tag: str):
           f"{counts['slots_generate']} slots_generate, step p50 "
           f"{snap['step_p50_ms']:.3f} ms p95 {snap['step_p95_ms']:.3f} ms, "
           f"{n_generate} kernel launches = {n_generate / step_flushes:.1f} "
-          f"per generate flush; served steps == replay, bitwise")
+          f"per generate flush; served steps == replay, bitwise; no plain "
+          f"version on the card")
     print(f"[serve] dispatch counts {counts.by_op()}; kernel launches by "
-          f"(B, I, H) {launches}")
+          f"(W, B, I, H) {launches['lstm_cell']}")
     return launches, payloads, sessions
 
 
-def run_cli(window: int) -> None:
-    """Phase 5: the serving CLI on the card."""
-    from repro_torch.launch import serve
+def train_main_path(data, tag: str):
+    """Phase 5, the training path: the serial baseline and asynchronous
+    local SGD with W = 4 workers (linear schedule, tau 0 and 1), EVL on,
+    full width, through ``repro_torch.training``. Every launch counter is
+    zeroed just before and read just after. The first iterations' losses
+    are held against the same runs of the port on the CPU. Returns the
+    launches by kernel and shape."""
+    from repro_torch.configs.paper_lstm import CONFIG
+    from repro_torch.models.rnn import init_rnn
+    from repro_torch.training.loop import (train_rnn_local_sgd,
+                                           train_rnn_serial)
+    from repro_torch.tree import tree_leaves
+
+    train_ds, test_ds = data
+    init = init_rnn(torch.Generator().manual_seed(0), CONFIG, device="cpu")
+    runs = [("serial", train_rnn_serial, {}, SERIAL_ITERATIONS,
+             COMPARE_SERIAL),
+            ("local SGD W=4 tau=0", train_rnn_local_sgd,
+             {"n_workers": 4, "tau": 0}, LOCAL_SGD_ITERATIONS,
+             COMPARE_LOCAL_SGD),
+            ("local SGD W=4 tau=1", train_rnn_local_sgd,
+             {"n_workers": 4, "tau": 1}, LOCAL_SGD_ITERATIONS,
+             COMPARE_LOCAL_SGD)]
+    common = dict(cfg=CONFIG, batch=32, evl_weight=0.5, seed=0,
+                  init_params=init)
+    # two short runs first: the same inputs must give the same bits (no
+    # float atomics anywhere on the path), and the first-call costs of
+    # the allocator and cuBLAS stay out of the timed runs
+    a, b = (train_rnn_local_sgd(train_ds, test_ds, iterations=28,
+                                n_workers=4, tau=1, device="cuda", **common)
+            for _ in range(2))
+    same = a.loss_history == b.loss_history and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                          tree_leaves(b.params)))
+    check(same, "two identical training runs on the card differ")
+    print(f"[train] two identical local-SGD runs (W=4, tau=1, 28 "
+          f"iterations) on the card: loss histories and weights bitwise "
+          f"equal ({a.loss_history})")
+    reset_counters()
+    with no_plain_version_on_the_card() as plain_calls:
+        for name, fn, kw, iters, n_cmp in runs:
+            before = {k: c.total for k, c in counters().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(train_ds, test_ds, iterations=iters, device="cuda",
+                     **kw, **common)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: c.total - before[k] for k, c in counters().items()}
+            hist = np.asarray(res.loss_history)
+            check(np.all(np.isfinite(hist)) and np.isfinite(res.test_mse),
+                  f"{name}: non-finite loss or test MSE")
+            k = max(len(hist) // 10, 1)
+            check(hist[-k:].mean() < hist[:k].mean(),
+                  f"{name}: the loss did not fall ({hist[:k].mean():.5f} -> "
+                  f"{hist[-k:].mean():.5f})")
+            check(all(n > 0 for n in launched.values()),
+                  f"{name}: not every kernel launched: {launched}")
+            cpu = fn(train_ds, test_ds, iterations=n_cmp, device="cpu",
+                     **kw, **common)
+            n = len(cpu.loss_history)
+            drift = float(np.max(np.abs(hist[:n] - cpu.loss_history)
+                                 / np.abs(cpu.loss_history)))
+            check(drift <= TRAIN_RTOL,
+                  f"{name}: the first {n_cmp} iterations' losses drift "
+                  f"{drift:.3e} from the CPU port's (bound {TRAIN_RTOL})")
+            steps = res.iterations // kw.get("n_workers", 1)
+            print(f"[train] {tag}: {name}: {res.iterations} iterations in "
+                  f"{wall:.3f} s = {wall / res.iterations * 1e3 * 1e3:.1f} ms "
+                  f"per 1000 iterations, {res.iterations / wall:.1f} "
+                  f"iterations/s, {steps} local steps "
+                  f"({wall / steps * 1e3:.3f} ms each); communications "
+                  f"{res.communications}, comm bytes {res.comm_bytes}; test "
+                  f"MSE {res.test_mse:.6f}; loss {hist[0]:.5f} -> "
+                  f"{hist[-1]:.5f} over {len(hist)} "
+                  f"{'rounds' if 'n_workers' in kw else 'iterations'}; "
+                  f"first {n_cmp} iterations ({n} losses) vs the CPU port: "
+                  f"max relative drift {drift:.3e} (bound {TRAIN_RTOL}); "
+                  f"launches {launched} = "
+                  f"{sum(launched.values()) / steps:.1f} per local step")
+        launches = read_counters()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    print(f"[train] kernel launches on the training path by shape: "
+          f"{launches}; no plain version on the card")
+    return launches
+
+
+def run_clis(window: int) -> None:
+    """Phase 6: the serving and training CLIs on the card."""
+    from repro_torch.launch import serve, train
 
     out = serve.main(["--model", "paper-lstm", "--clients", "32",
                       "--requests", "128", "--max-batch", "32",
@@ -339,71 +776,200 @@ def run_cli(window: int) -> None:
           and out["sessions"]["step_requests"] == 8 * window,
           "python -m repro_torch.launch.serve did not serve everything")
     print("[cli] repro_torch.launch.serve --sessions --device cuda: ok")
+    reset_counters()
+    res = train.main(["--arch", "paper-lstm", "--workers", "4",
+                      "--iterations", "200", "--evl-weight", "0.5",
+                      "--device", "cuda"])
+    launched = {k: c.total for k, c in counters().items()}
+    check(np.isfinite(res.test_mse) and res.communications > 0,
+          "python -m repro_torch.launch.train gave no trained model")
+    check(all(n > 0 for n in launched.values()),
+          f"the train CLI did not launch every kernel: {launched}")
+    print(f"[cli] repro_torch.launch.train --workers 4 --iterations 200 "
+          f"--evl-weight 0.5 --device cuda: ok, launches {launched}")
 
 
-def time_kernels(launches: dict, tag: str) -> dict:
-    """Phase 6: the cell's time at every shape of the path beside its
-    plain version, ``torch.lstm_cell`` (the yardstick, never called by
-    the port) and its bound. Returns a row per (B, I, H)."""
+def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
+    """Phase 7: each kernel's device time at every shape of the two paths
+    beside its plain version, its PyTorch yardstick (never called by the
+    port) and its bound. Returns rows by kernel and shape."""
+    from repro_torch.kernels.evl import kernel as evl_kernel
+    from repro_torch.kernels.evl.ops import evl_loss
+    from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
+    from repro_torch.kernels.lstm import kernel as lstm_kernel
     from repro_torch.kernels.lstm.ops import lstm_cell
-    from repro_torch.kernels.lstm.ref import lstm_cell_ref
+    from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
+                                              lstm_cell_fwd_ref,
+                                              lstm_cell_ref)
 
-    rows = {}
-    for B, I, H in sorted(set(PATH_SHAPES) | set(launches) | {(1, 1, 8)}):
-        x, h, c, wx, wh, b = cell_inputs(B, I, H, seed=2)
-        wx_t, wh_t = wx.t().contiguous(), wh.t().contiguous()
-        zero = torch.zeros_like(b)
-        hl, cl = torch.lstm_cell(x, (h, c), wx_t, wh_t, b, zero)
-        hr, cr = lstm_cell_ref(x, h, c, wx, wh, b)
-        check(torch.allclose(hl, hr, rtol=RTOL, atol=ATOL)
-              and torch.allclose(cl, cr, rtol=RTOL, atol=ATOL),
-              f"torch.lstm_cell is not the same function at {B, I, H}")
-        bound, by = cell_bound(B, I, H)
-        rows[(B, I, H)] = {
-            "ms": graph_ms(lambda: lstm_cell(x, h, c, wx, wh, b)),
+    rows = {name: {} for name in counters()}
+    fwd_shapes = (set(PATH_SHAPES) | set(TRAIN_SHAPES) | {(1, 1, 1, 8)}
+                  | set(serve_launches["lstm_cell"])
+                  | set(train_launches["lstm_cell"]))
+    for W, B, I, H in sorted(fwd_shapes):
+        x, h, c, wx, wh, b = cell_inputs(W, B, I, H, seed=2)
+        wx_t = [wx[w].t().contiguous() for w in range(W)]
+        wh_t = [wh[w].t().contiguous() for w in range(W)]
+        zero = torch.zeros_like(b[0])
+        for w in range(W):
+            hl, cl = torch.lstm_cell(x[w], (h[w], c[w]), wx_t[w], wh_t[w],
+                                     b[w], zero)
+            hr, cr = lstm_cell_ref(x[w], h[w], c[w], wx[w], wh[w], b[w])
+            check(torch.allclose(hl, hr, rtol=RTOL, atol=ATOL)
+                  and torch.allclose(cl, cr, rtol=RTOL, atol=ATOL),
+                  f"torch.lstm_cell is not the same function at "
+                  f"{W, B, I, H}")
+
+        def library():
+            for w in range(W):
+                torch.lstm_cell(x[w], (h[w], c[w]), wx_t[w], wh_t[w], b[w],
+                                zero)
+
+        # the wrapper as the path calls it: unstacked for one model
+        wrapper_args = ((x[0], h[0], c[0], wx[0], wh[0], b[0]) if W == 1
+                        else (x, h, c, wx, wh, b))
+        bnd, by = cell_bound(W, B, I, H)
+        rows["lstm_cell"][(W, B, I, H)] = {
+            "ms": graph_ms(lambda: lstm_kernel.lstm_cell_cuda(
+                x, h, c, wx, wh, b)),
             "plain_ms": graph_ms(lambda: lstm_cell_ref(x, h, c, wx, wh, b)),
-            "library_ms": graph_ms(lambda: torch.lstm_cell(
-                x, (h, c), wx_t, wh_t, b, zero)),
-            "eager_ms": eager_ms(lambda: lstm_cell(x, h, c, wx, wh, b)),
-            "bound_ms": bound, "bound_by": by}
-    floor = rows[(1, 1, 8)]
-    print(f"[time] {tag}: launch floor (kernel at B=1 I=1 H=8): "
+            "library_ms": graph_ms(library),
+            "eager_ms": eager_ms(lambda: lstm_cell(*wrapper_args)),
+            "bound_ms": bnd, "bound_by": by}
+    bwd_shapes = set(TRAIN_SHAPES) | set(train_launches["lstm_cell_bwd"])
+    for W, B, I, H in sorted(bwd_shapes):
+        args = cell_inputs(W, B, I, H, seed=4)
+        x, h, c, wx, wh, b = args
+        _, c_new, gates = lstm_cell_fwd_ref(*args)
+        g = torch.Generator().manual_seed(5)
+        dh, dc = (torch.randn(W, B, H, generator=g).cuda() for _ in range(2))
+        need_dx = I != 5          # the first layer's input is data
+
+        def kernel_bwd():
+            return lstm_kernel.lstm_cell_bwd_cuda(dh, dc, gates, c, c_new,
+                                                  wx, wh, need_dx=need_dx)
+
+        def full_bwd():           # the kernel plus the weight gradients
+            dgates = kernel_bwd()[0]
+            return (torch.bmm(x.transpose(1, 2), dgates),
+                    torch.bmm(h.transpose(1, 2), dgates), dgates.sum(1))
+
+        leaves = [t.clone().requires_grad_(True) for t in (x, h, c)]
+        wx_t = [wx[w].t().contiguous().requires_grad_(True)
+                for w in range(W)]
+        wh_t = [wh[w].t().contiguous().requires_grad_(True)
+                for w in range(W)]
+        bb = [b[w].clone().requires_grad_(True) for w in range(W)]
+        zero = torch.zeros_like(b[0])
+
+        def library_fwd():
+            return [torch.lstm_cell(leaves[0][w], (leaves[1][w],
+                                                   leaves[2][w]),
+                                    wx_t[w], wh_t[w], bb[w], zero)
+                    for w in range(W)]
+
+        def library_fwd_bwd():
+            outs = library_fwd()
+            torch.autograd.grad([t for hc in outs for t in hc],
+                                leaves + wx_t + wh_t + bb,
+                                [t for _ in range(W) for t in (dh[0], dc[0])])
+
+        bnd, by = cell_bwd_bound(W, B, I, H)
+        lib_fwd_bwd = graph_ms(library_fwd_bwd)
+        lib_fwd = graph_ms(lambda: library_fwd())
+        rows["lstm_cell_bwd"][(W, B, I, H)] = {
+            "ms": graph_ms(kernel_bwd),
+            "plain_ms": graph_ms(lambda: lstm_cell_bwd_ref(
+                dh, dc, gates, c, c_new, wx, wh)),
+            "library_ms": lib_fwd_bwd - lib_fwd,
+            "with_weight_grads_ms": graph_ms(full_bwd),
+            "eager_ms": eager_ms(kernel_bwd),
+            "bound_ms": bnd, "bound_by": by}
+    betas = (0.93, 0.07, 2.0)
+    evl_shapes = (set(EVL_SHAPES) | set(train_launches["evl_forward"])
+                  | set(train_launches["evl_backward"]))
+    for W, N in sorted(evl_shapes):
+        g = torch.Generator().manual_seed(W + N)
+        u = torch.rand(W, N, generator=g).cuda()
+        v = (torch.rand(W, N, generator=g) < 0.1).float().cuda()
+        gout = torch.rand(W, generator=g).cuda()
+        for name, backward in (("evl_forward", False),
+                               ("evl_backward", True)):
+            if backward:
+                kfn = lambda: evl_kernel.evl_backward_cuda(
+                    u, v, gout, *betas, EVL_EPS, "mean")
+                pfn = lambda: evl_grad_ref(u, v, *betas, EVL_EPS) \
+                    * (gout[:, None] / N)
+                efn = kfn
+            else:
+                kfn = lambda: evl_kernel.evl_forward_cuda(
+                    u, v, *betas, EVL_EPS, "mean")
+                pfn = lambda: evl_loss_ref(u, v, *betas, EVL_EPS).mean(-1)
+                efn = lambda: evl_loss(u, v, *betas, EVL_EPS, "mean")
+            bnd, by = evl_bound(W, N, backward)
+            rows[name][(W, N)] = {
+                "ms": graph_ms(kfn), "plain_ms": graph_ms(pfn),
+                "library_ms": None, "eager_ms": eager_ms(efn),
+                "bound_ms": bnd, "bound_by": by}
+    floor = rows["lstm_cell"][(1, 1, 1, 8)]
+    print(f"[time] {tag}: launch floor (cell kernel at W=1 B=1 I=1 H=8): "
           f"{floor['ms'] * 1e3:.2f} us per launch in a CUDA graph, "
           f"{floor['eager_ms'] * 1e3:.2f} us per eager wrapper call")
-    for (B, I, H), r in rows.items():
-        print(f"[time] {tag}: lstm_cell B={B} I={I} H={H}: kernel "
-              f"{r['ms'] * 1e3:.2f} us (eager call {r['eager_ms'] * 1e3:.2f}"
-              f" us), plain {r['plain_ms'] * 1e3:.2f} us, torch.lstm_cell "
-              f"{r['library_ms'] * 1e3:.2f} us, bound "
-              f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
-              f"{launches.get((B, I, H), 0)} launches on the main path")
-    return rows
+    every = {k: {**serve_launches.get(k, {})} for k in rows}
+    for k, by_shape in train_launches.items():
+        for s, n in by_shape.items():
+            every[k][s] = every[k].get(s, 0) + n
+    for name, by_shape in rows.items():
+        for shape, r in by_shape.items():
+            extra = (f", with the weight gradients (2 bmm + sum) "
+                     f"{r['with_weight_grads_ms'] * 1e3:.2f} us"
+                     if "with_weight_grads_ms" in r else "")
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms'] * 1e3:.2f} us")
+            print(f"[time] {tag}: {name} {shape}: kernel "
+                  f"{r['ms'] * 1e3:.2f} us (eager "
+                  f"{'binding' if name == 'lstm_cell_bwd' else 'wrapper'} "
+                  f"call "
+                  f"{r['eager_ms'] * 1e3:.2f} us){extra}, plain "
+                  f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                  f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
+                  f"{every[name].get(shape, 0)} launches on the main paths")
+    return rows, every
+
+
+def profile(label: str, drive, tag: str) -> None:
+    """The device's busy share (kernel time from ``torch.profiler`` over
+    wall time) while ``drive()`` runs. Only the device's own events are
+    summed: a CPU op (``aten::bmm``, an autograd node) also carries the
+    device time of the kernels it launched, and adding it too would count
+    those kernels twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    device_us = sum(k[0] for k in kernels)
+    check(0 < device_us <= wall_us,
+          f"{label}: device busy {device_us:.1f} us of {wall_us:.0f} us")
+    top = "; ".join(f"{us:.1f} us x{n} {key[:48]}"
+                    for us, n, key in kernels[:5])
+    print(f"[profile] {tag}: {label}: wall {wall_us:.0f} us, device "
+          f"busy {device_us:.1f} us = {100 * device_us / wall_us:.2f} % "
+          f"(idle {100 - 100 * device_us / wall_us:.2f} %); top: {top}")
 
 
 def profile_serving(fc, payloads, sessions, tag: str) -> None:
-    """Phase 7, where the time goes: the device's busy share (kernel
-    time from ``torch.profiler`` over wall time) while serving."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Phase 8a, where the serving time goes."""
     from repro_torch.serving import (BatcherConfig, ModelRegistry,
                                      ServingEngine)
-
-    def busy(label, drive):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            drive()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = sorted(((e.self_device_time_total, e.count, e.key)
-                          for e in prof.key_averages()
-                          if e.self_device_time_total > 0), reverse=True)
-        device_us = sum(k[0] for k in kernels)
-        top = "; ".join(f"{us:.1f} us x{n} {key[:48]}"
-                        for us, n, key in kernels[:4])
-        print(f"[profile] {tag}: {label}: wall {wall_us:.0f} us, device "
-              f"busy {device_us:.1f} us = {100 * device_us / wall_us:.2f} % "
-              f"(idle {100 - 100 * device_us / wall_us:.2f} %); top: {top}")
 
     def ticks():
         for t in range(fc.window):
@@ -417,30 +983,65 @@ def profile_serving(fc, payloads, sessions, tag: str) -> None:
             max_batch=32, max_wait_ms=2.0,
             length_buckets=(fc.window,))) as engine:
         engine.warmup("paper-lstm", lengths=(fc.window,))
-        busy("128 requests, 32 clients", lambda: [
+        profile("128 requests, 32 clients", lambda: [
             f.result(timeout=120.0) for f in
-            [engine.submit("paper-lstm", p) for p in payloads]])
-        busy("20 ticks of 8 session steps", ticks)
+            [engine.submit("paper-lstm", p) for p in payloads]], tag)
+        profile("20 ticks of 8 session steps", ticks, tag)
 
 
-def kernel_entry(rows: dict, launches: dict, max_err: float) -> dict:
-    """The cell's line of the report: times weighted by the main path's
-    launches at each shape."""
+def profile_training(train_ds, tag: str) -> None:
+    """Phase 8b, where the training time goes: 3 rounds of 5 local steps
+    of W = 4 workers (EVL on), after 2 rounds of warm-up."""
+    from repro_torch.configs.paper_lstm import CONFIG
+    from repro_torch.core.async_local_sgd import (AsyncLocalSGD,
+                                                  LocalSGDConfig)
+    from repro_torch.models.rnn import init_rnn
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.training import loop
+
+    trainer = AsyncLocalSGD(loop._loss_fn_for(train_ds, CONFIG, 0.5), sgd(),
+                            LocalSGDConfig(n_workers=4))
+    state = list(trainer.init(init_rnn(torch.Generator().manual_seed(1),
+                                       CONFIG, device="cuda")))
+    rng = np.random.default_rng(1)
+    rounds = []
+    for _ in range(5):
+        idx = rng.integers(0, len(train_ds), size=(4, 5, 32))
+        rounds.append((train_ds.x[idx], train_ds.y[idx],
+                       train_ds.v[idx].astype(np.float32),
+                       np.ones(idx.shape, np.float32)))
+
+    def run(batches):
+        for b in batches:
+            state[:2] = trainer.run_round(state[0], state[1], b)[:2]
+
+    run(rounds[:2])
+    reset_counters()
+    profile("3 local-SGD rounds, W=4, 5 local steps each",
+            lambda: run(rounds[2:]), tag)
+    n = sum(c.total for c in counters().values())
+    print(f"[profile] {tag}: {n} kernel launches in 15 local steps = "
+          f"{n / 15:.1f} per local step ({read_counters()})")
+
+
+def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
+    """One kernel's line of the report: times weighted by its launches at
+    each shape on the main paths."""
     n = sum(launches.values())
 
     def weighted(key):
+        if any(rows[s][key] is None for s in launches):
+            return None
         return sum(k * rows[s][key] for s, k in launches.items()) / n
 
     return {
-        "name": "lstm_cell", "route": "cuda",
-        "source": "src/repro_torch/kernels/lstm/csrc/lstm_cell.cu",
-        "replaces": "src/repro/kernels/lstm/kernel.py:21",
-        "launches": n, "max_abs_err": max_err,
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": n, "max_abs_err": max_err,
         "ms": weighted("ms"), "plain_ms": weighted("plain_ms"),
         "bound_ms": weighted("bound_ms"),
         "bound_by": rows[max(launches, key=launches.get)]["bound_by"],
         "library_ms": weighted("library_ms"),
-        "shapes": {f"{B}x{I}x{H}": k for (B, I, H), k in launches.items()}}
+        "shapes": {"x".join(map(str, s)): k for s, k in launches.items()}}
 
 
 def main() -> None:
@@ -459,14 +1060,31 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     build_kernels()
-    max_err = check_kernels()
+    errs = {"lstm_cell": check_forward(), "lstm_cell_bwd": check_backward()}
+    errs["evl_forward"], errs["evl_backward"] = check_evl()
+    data = training_data()
+    check_gradients(data[0])
     fc = check_forecaster()
-    launches, payloads, sessions = serve_main_path(fc, tag)
-    run_cli(fc.window)
-    rows = time_kernels(launches, tag)
+    serve_launches, payloads, sessions = serve_main_path(fc, tag)
+    train_launches = train_main_path(data, tag)
+    run_clis(fc.window)
+    rows, every = time_kernels(serve_launches, train_launches, tag)
     profile_serving(fc, payloads, sessions, tag)
+    profile_training(data[0], tag)
+    csrc = "src/repro_torch/kernels/{}/csrc/{}"
+    meta = {
+        "lstm_cell": (csrc.format("lstm", "lstm_cell.cu"),
+                      "src/repro/kernels/lstm/kernel.py:21"),
+        "lstm_cell_bwd": (csrc.format("lstm", "lstm_cell_bwd.cu"),
+                          "src/repro/kernels/lstm/kernel.py:21"),
+        "evl_forward": (csrc.format("evl", "evl.cu"),
+                        "src/repro/kernels/evl/kernel.py:20"),
+        "evl_backward": (csrc.format("evl", "evl.cu"),
+                         "src/repro/kernels/evl/kernel.py:20")}
+    entries = [kernel_entry(k, *meta[k], rows[k], every[k], errs[k])
+               for k in meta]
     print(card)
-    print(json.dumps({"kernels": [kernel_entry(rows, launches, max_err)]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

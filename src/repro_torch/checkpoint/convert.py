@@ -4,6 +4,13 @@ The JAX package's params are a nest of dicts and lists whose leaves are
 arrays; ``params_from_numpy`` takes that nest with numpy leaves (e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the same
 nest of tensors on ``device``; ``params_to_numpy`` is its inverse.
+
+``stack_workers`` gives a nest the leading worker dim ``[W, ...]`` that
+the local-SGD trainer works on, the way the JAX package's
+``AsyncLocalSGD.init`` broadcasts it. The JAX package's ``init_rnn``
+weights reach the port's trainers as
+``params_from_numpy(jax.tree_util.tree_map(np.asarray, params))``
+(their ``init_params``), and worker-stacked as ``stack_workers(that, W)``.
 """
 
 from __future__ import annotations
@@ -12,15 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import stack_workers, tree_map
 
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a dict/list/tuple nest."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+__all__ = ["params_from_numpy", "params_to", "params_to_numpy",
+           "stack_workers", "tree_map"]
 
 
 def params_from_numpy(tree, device="cuda"):

@@ -1,2 +1,3 @@
 """Extreme-event modeling (paper section II.A): the eq. 1 indicator
-sequence (``indicators``) and the GEV tail machinery (``evt``)."""
+sequence and class fractions (``indicators``), the GEV tail machinery
+(``evt``) and the Extreme Value Loss (``evl``)."""

@@ -7,6 +7,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,6 +18,17 @@ def indicator_sequence(y, eps1: float, eps2: float):
     y = torch.as_tensor(y)
     v = torch.where(y > eps1, 1, torch.where(y < -eps2, -1, 0))
     return v.to(torch.int32)
+
+
+def extreme_fractions(v) -> dict[str, float]:
+    """beta_0 = P(v=0) (normal), P(v=1) (right), P(v=-1) (left): the
+    event-class proportions that weight the EVL (eq. 6). Each is a count
+    over n divided in float32, as the reference's ``jnp`` division is."""
+    v = np.asarray(v)
+    n = np.float32(v.size)
+    return {"normal": float(np.float32(np.sum(v == 0)) / n),
+            "right": float(np.float32(np.sum(v == 1)) / n),
+            "left": float(np.float32(np.sum(v == -1)) / n)}
 
 
 def quantile_thresholds(y, q: float = 0.95) -> tuple[float, float]:

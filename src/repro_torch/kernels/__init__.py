@@ -10,5 +10,12 @@ Each kernel package holds:
     ref.py    — the plain PyTorch version
 
 Kernels ported so far:
-    lstm — one LSTM time step (replaces repro/kernels/lstm/kernel.py)
+    lstm — one LSTM time step and its backward, W workers per launch
+           (replaces repro/kernels/lstm/kernel.py)
+    evl  — the Extreme Value Loss with its reduction, and dL/du
+           (replaces repro/kernels/evl/kernel.py)
 """
+from repro_torch.kernels.evl.ops import evl_loss
+from repro_torch.kernels.lstm.ops import lstm_cell
+
+__all__ = ["evl_loss", "lstm_cell"]

@@ -7,8 +7,11 @@ no PyTorch headers, so it builds in seconds) into ``lib<name>.so`` under
 ``kernels/_build/<name>-<hash of the sources and flags>/``. The hash keys
 the cache: an edited source builds anew, an unchanged one loads the
 library already there. A file lock around the build makes concurrent
-first calls (threads or processes) build once. Nothing here runs at
-import time: a CPU-only machine imports every module and never builds.
+first calls (threads or processes) build once; ``build_all`` starts one
+``nvcc`` per library, all at once. Nothing here runs at import time: a
+CPU-only machine imports every module and never builds.
+
+``LaunchCounter`` is what each binding counts its launches with.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -28,6 +32,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+class LaunchCounter:
+    """Launches of one kernel, by shape. Thread-safe: the serving flush
+    worker and the caller's thread both launch."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.by_shape: dict[tuple, int] = {}
+
+    def add(self, shape: tuple) -> None:
+        with self._lock:
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+
+    @property
+    def total(self) -> int:
+        with self._lock:
+            return sum(self.by_shape.values())
+
+    def reset(self) -> None:
+        with self._lock:
+            self.by_shape = {}
 
 
 def _nvcc() -> str:
@@ -85,3 +111,12 @@ def load(name: str, sources: list[Path]) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(build(name, sources)))
                 _loaded[name] = lib
     return lib
+
+
+def build_all(libraries: dict[str, list[Path]]) -> dict[str, Path]:
+    """Build every ``name -> sources`` library not built yet, one
+    ``nvcc`` each, all started together; returns their paths."""
+    with ThreadPoolExecutor(max_workers=max(len(libraries), 1)) as pool:
+        futures = {name: pool.submit(build, name, sources)
+                   for name, sources in libraries.items()}
+        return {name: f.result() for name, f in futures.items()}

@@ -11,8 +11,10 @@ invocation of a serving-level op (``predict``, ``slots_generate``, ...)
 at (batch, hidden) under ``(device type, op, impl, shape)``, and only
 while a ``counting()`` collector is installed. ``impl`` is ``"cuda"``
 for the kernel route and ``"torch"`` for the plain one. Kernel launches
-themselves are counted by each kernel's wrapper
-(``repro_torch.kernels.lstm.kernel.LAUNCHES``).
+themselves are counted by each kernel's binding
+(``repro_torch.kernels.lstm.kernel.LAUNCHES`` and ``BWD_LAUNCHES``,
+``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` and
+``EVL_BWD_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import threading
 
 import torch
 
+from repro_torch.kernels.evl.ops import evl_loss as _evl_loss
 from repro_torch.kernels.lstm.ops import lstm_cell as _lstm_cell
 
 _lock = threading.Lock()
@@ -93,6 +96,17 @@ class counting:
 
 def lstm_cell(x, h, c, wx, wh, b):
     """The routed LSTM cell: x [B, I]; h, c [B, H]; gates packed
-    [i, f, g, o]. CUDA tensors run the hand-written kernel, CPU tensors
-    the plain version (``kernels.lstm.ops.lstm_cell``)."""
+    [i, f, g, o]; or every operand with a leading worker dim W. CUDA
+    tensors run the hand-written kernels (forward, and backward under
+    autograd), CPU tensors the plain version
+    (``kernels.lstm.ops.lstm_cell``)."""
     return _lstm_cell(x, h, c, wx, wh, b)
+
+
+def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,
+             eps: float = 1e-7, reduce: str = "mean"):
+    """The routed EVL loss (paper eq. 6) per row of u, v [W, N]. CUDA
+    tensors run the hand-written kernels (forward, and dL/du under
+    autograd), CPU tensors the plain version
+    (``kernels.evl.ops.evl_loss``)."""
+    return _evl_loss(u, v, beta0, beta1, gamma, eps, reduce)

@@ -1,19 +1,28 @@
-// One LSTM time step, fp32, for Hopper (sm_90a).
+// One LSTM time step for W workers at once, fp32, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/lstm/kernel.py::_lstm_kernel
-// (launched by lstm_cell_pallas). Same function:
+// (launched by lstm_cell_pallas). Same function, for each worker w:
 //
-//     gates = x @ wx + h @ wh + b            packed [i, f, g, o], [B, 4H]
+//     gates = x[w] @ wx[w] + h[w] @ wh[w] + b[w]   packed [i, f, g, o]
 //     i, f, o = sigmoid(.)   g = tanh(.)
 //     c' = f * c + i * g     h' = o * tanh(c')
+//
+// The worker dim W leads every operand: x [W,B,I], h and c [W,B,H],
+// wx [W,I,4H], wh [W,H,4H], b [W,4H]. It is the JAX package's
+// jax.vmap over local-SGD workers (repro/core/async_local_sgd.py) made
+// one launch per time step for all W workers (blockIdx.z); serving
+// calls it at W = 1. In training an optional output saves the activated
+// gates [W,B,4H] for the backward kernel (lstm_cell_bwd.cu); serving
+// passes null.
 //
 // Design. One thread per (row r, hidden unit j). The thread accumulates
 // the four gate sums of its unit (columns j, H+j, 2H+j, 3H+j) over k in
 // one fixed order, 0..I-1 over x then 0..H-1 over h, so the bits of a row
-// depend on that row's inputs and the weights only: never on B, on the
-// block the row lands in, or on its position in that block. The serving
-// path rests on that (a session's step, its replay and its slot-resident
-// generate agree bitwise). A block holds ROWS rows x JTILE units. It
+// depend on that row's inputs and its worker's weights only: never on B,
+// on W, on the block the row lands in, or on its position in that
+// block. The serving path rests on that (a session's step, its replay
+// and its slot-resident generate agree bitwise). A block holds ROWS rows
+// x JTILE units of one worker. It
 // first copies the weight columns of its JTILE units, all I + H rows of
 // them, into shared memory with cp.async (every thread issues all of its
 // copies before waiting on any, so the whole tile is one round trip to
@@ -65,7 +74,7 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
                  const float* __restrict__ c, const float* __restrict__ wx,
                  const float* __restrict__ wh, const float* __restrict__ b,
                  float* __restrict__ h_out, float* __restrict__ c_out,
-                 int B, int I, int H) {
+                 float* __restrict__ gates, int B, int I, int H) {
   extern __shared__ float smem[];
   const int K = I + H;
   float* ws = smem;                            // [K][4][JTILE] weights
@@ -74,6 +83,16 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
   const int j0 = blockIdx.x * JTILE;
   const int r = blockIdx.y * ROWS + ty;
   const size_t G = 4 * (size_t)H;
+  // this block's worker
+  const size_t wid = blockIdx.z;
+  x += wid * B * I;
+  h += wid * B * H;
+  c += wid * B * H;
+  wx += wid * I * G;
+  wh += wid * H * G;
+  b += wid * G;
+  h_out += wid * B * H;
+  c_out += wid * B * H;
 
   // the block's weight tile, [k][gate][unit]: thread (tx, ty) copies
   // column j0 + tx of gate ty for every k, one async copy per k
@@ -118,6 +137,13 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
   const float fg = sigmoidf(af);
   const float gg = tanhf(ag);
   const float og = sigmoidf(ao);
+  if (gates != nullptr) {
+    float* gr = gates + (wid * B + r) * G;
+    gr[j] = ig;
+    gr[H + j] = fg;
+    gr[2 * H + j] = gg;
+    gr[3 * H + j] = og;
+  }
   const size_t o = (size_t)r * H + j;
   const float cn = fg * c[o] + ig * gg;
   c_out[o] = cn;
@@ -141,22 +167,23 @@ int lstm_cell_smem_bytes(int I, int H) {
   return (int)((size_t)(I + H) * (4 * JTILE + ROWS) * sizeof(float));
 }
 
-// Launch one step on `stream`. All pointers are device pointers to
-// contiguous fp32 arrays: x [B, I], h, c, h_out, c_out [B, H],
-// wx [I, 4H], wh [H, 4H], b [4H]. Returns the first CUDA error (0 =
-// launched); nothing is synchronised.
+// Launch one step for W workers on `stream`. All pointers are device
+// pointers to contiguous fp32 arrays: x [W, B, I], h, c, h_out, c_out
+// [W, B, H], wx [W, I, 4H], wh [W, H, 4H], b [W, 4H], and gates
+// [W, B, 4H] or null (then no gates are saved). Returns the first CUDA
+// error (0 = launched); nothing is synchronised.
 int lstm_cell_forward(const float* x, const float* h, const float* c,
                       const float* wx, const float* wh, const float* b,
-                      float* h_out, float* c_out, int B, int I, int H,
-                      void* stream) {
+                      float* h_out, float* c_out, float* gates, int W,
+                      int B, int I, int H, void* stream) {
   // opt in to more than 48 KB of shared memory once per process
   static const cudaError_t opt_in = allow_max_smem();
   if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 block(JTILE, ROWS);
-  const dim3 grid((H + JTILE - 1) / JTILE, (B + ROWS - 1) / ROWS);
+  const dim3 grid((H + JTILE - 1) / JTILE, (B + ROWS - 1) / ROWS, W);
   const size_t smem = (size_t)lstm_cell_smem_bytes(I, H);
   lstm_cell_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      x, h, c, wx, wh, b, h_out, c_out, B, I, H);
+      x, h, c, wx, wh, b, h_out, c_out, gates, B, I, H);
   return (int)cudaGetLastError();
 }
 

@@ -1,86 +1,122 @@
-"""Binding of the hand-written CUDA LSTM cell (``csrc/lstm_cell.cu``).
+"""Binding of the hand-written CUDA LSTM cell: the forward
+(``csrc/lstm_cell.cu``) and its backward (``csrc/lstm_cell_bwd.cu``).
 
-The source is built with ``nvcc`` for ``sm_90a`` at first use
-(``repro_torch.kernels.build``) and called through ``ctypes``: device
-pointers and the current stream go in as ``c_void_p``, and the C
-function returns ``cudaGetLastError()`` after its launch, which is
-raised here if it is not 0. The launch runs on the calling thread's
-current stream and does not synchronise. ``LAUNCHES`` counts every
-launch by (B, I, H), so a run can show that its path went through the
-kernel.
+Each source is built with ``nvcc`` for ``sm_90a`` at first use
+(``repro_torch.kernels.build``) into a library of its own and called
+through ``ctypes``: device pointers and the current stream go in as
+``c_void_p``, and the C function returns ``cudaGetLastError()`` after
+its launch, which is raised here if it is not 0. A launch runs on the
+calling thread's current stream and does not synchronise. Operands
+carry the leading worker dim W (the forward also takes them without it,
+as W = 1). ``LAUNCHES`` counts every forward launch and ``BWD_LAUNCHES``
+every backward launch by (W, B, I, H), so a run can show that its path
+went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import LaunchCounter
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "lstm_cell.cu"]
-
-
-class LaunchCounter:
-    """Launches of one kernel, by shape. Thread-safe: the serving flush
-    worker and the caller's thread both launch."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.by_shape: dict[tuple, int] = {}
-
-    def add(self, shape: tuple) -> None:
-        with self._lock:
-            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
-
-    @property
-    def total(self) -> int:
-        with self._lock:
-            return sum(self.by_shape.values())
-
-    def reset(self) -> None:
-        with self._lock:
-            self.by_shape = {}
-
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [_CSRC / "lstm_cell.cu"]
+BWD_SOURCES = [_CSRC / "lstm_cell_bwd.cu"]
+# every library of this package, for build.build_all
+LIBRARIES = {"lstm_cell": SOURCES, "lstm_cell_bwd": BWD_SOURCES}
 
 LAUNCHES = LaunchCounter()
+BWD_LAUNCHES = LaunchCounter()
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("lstm_cell", SOURCES)
     fn = lib.lstm_cell_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.lstm_cell_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.lstm_cell_smem_bytes.restype = ctypes.c_int
+        fn.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        fn.restype = _I
+        lib.lstm_cell_smem_bytes.argtypes = [_I, _I]
+        lib.lstm_cell_smem_bytes.restype = _I
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("lstm_cell_bwd", BWD_SOURCES)
+    fn = lib.lstm_cell_backward
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+        fn.restype = _I
+        lib.lstm_cell_bwd_smem_bytes.argtypes = [_I]
+        lib.lstm_cell_bwd_smem_bytes.restype = _I
     return lib
 
 
 def smem_bytes(in_dim: int, hidden: int) -> int:
-    """Shared memory one launch takes at (I, H)."""
+    """Shared memory one forward launch takes at (I, H)."""
     return _library().lstm_cell_smem_bytes(in_dim, hidden)
 
 
-def lstm_cell_cuda(x, h, c, wx, wh, b):
-    """Launch the kernel on validated CUDA tensors (see ``ops``):
-    x [B, I]; h, c [B, H]; wx [I, 4H]; wh [H, 4H]; b [4H], fp32 and
-    contiguous. Returns (h', c'), freshly allocated."""
+def bwd_smem_bytes(hidden: int) -> int:
+    """Shared memory one backward launch takes at H."""
+    return _bwd_library().lstm_cell_bwd_smem_bytes(hidden)
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def lstm_cell_cuda(x, h, c, wx, wh, b, save_gates: bool = False):
+    """Launch the forward on validated CUDA tensors (see ``ops``):
+    x [W, B, I]; h, c [W, B, H]; wx [W, I, 4H]; wh [W, H, 4H]; b [W, 4H],
+    fp32 and contiguous, or each without the leading W (one model: the
+    same launch at W = 1, no reshape on the host). Returns (h', c'), or
+    (h', c', gates [..., B, 4H]) with ``save_gates``, freshly allocated."""
     lib = _library()
-    B, I = x.shape
-    H = h.shape[1]
+    W = x.shape[0] if x.dim() == 3 else 1
+    B, I = x.shape[-2:]
+    H = h.shape[-1]
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    gates = (h.new_empty(tuple(h.shape[:-1]) + (4 * H,)) if save_gates
+             else None)
     rc = lib.lstm_cell_forward(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
         wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        B, I, H, stream)
+        gates.data_ptr() if save_gates else None, W, B, I, H, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"lstm_cell kernel launch failed at B={B} I={I} "
-                           f"H={H}: cudaError {rc}")
-    LAUNCHES.add((B, I, H))
-    return h_out, c_out
+        raise RuntimeError(f"lstm_cell kernel launch failed at W={W} B={B} "
+                           f"I={I} H={H}: cudaError {rc}")
+    LAUNCHES.add((W, B, I, H))
+    return (h_out, c_out, gates) if save_gates else (h_out, c_out)
+
+
+def lstm_cell_bwd_cuda(dh_new, dc_new, gates, c, c_new, wx, wh,
+                       need_dx: bool = True):
+    """Launch the backward on validated CUDA tensors: dh_new, dc_new, c,
+    c_new [W, B, H]; gates [W, B, 4H] (saved by the forward); wx
+    [W, I, 4H]; wh [W, H, 4H]; fp32 and contiguous. Returns (dgates
+    [W, B, 4H], dc [W, B, H], dx [W, B, I] or None, dh [W, B, H])."""
+    lib = _bwd_library()
+    W, B, H = dh_new.shape
+    I = wx.shape[1]
+    dgates = torch.empty_like(gates)
+    dc = torch.empty_like(c)
+    dh = torch.empty_like(c)
+    dx = dh_new.new_empty((W, B, I)) if need_dx else None
+    rc = lib.lstm_cell_backward(
+        dh_new.data_ptr(), dc_new.data_ptr(), gates.data_ptr(),
+        c.data_ptr(), c_new.data_ptr(), wx.data_ptr(), wh.data_ptr(),
+        dgates.data_ptr(), dc.data_ptr(),
+        dx.data_ptr() if need_dx else None, dh.data_ptr(), W, B, I, H,
+        _stream(dh_new))
+    if rc != 0:
+        raise RuntimeError(f"lstm_cell backward kernel launch failed at "
+                           f"W={W} B={B} I={I} H={H}: cudaError {rc}")
+    BWD_LAUNCHES.add((W, B, I, H))
+    return dgates, dc, dx, dh

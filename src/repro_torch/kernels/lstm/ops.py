@@ -1,11 +1,22 @@
-"""The LSTM cell's wrapper: device routing and argument checks around
-the CUDA kernel.
+"""The LSTM cell's wrapper: device routing, argument checks and the
+autograd Function around the CUDA kernels.
 
-A CUDA tensor goes to the hand-written kernel or raises; nothing on the
-card falls back to the plain version. A CPU tensor goes to the plain
-version (``ref.lstm_cell_ref``), which is what the CPU tests run. The
+A CUDA tensor goes to the hand-written kernels or raises; nothing on
+the card falls back to the plain version, forward or backward. A CPU
+tensor goes to the plain version (``ref.lstm_cell_ref``), which is what
+the CPU tests run and what torch autograd differentiates there. The
 TPU wrapper's padding of B and I to multiples of 8 has no counterpart:
-the kernel masks its own edges.
+the kernels mask their own edges.
+
+The cell takes the unstacked form (x [B, I], wx [I, 4H], b [4H]: one
+model, as serving calls it) or the worker-stacked form (x [W, B, I],
+wx [W, I, 4H], b [W, 4H]: W local-SGD workers in one launch). On the
+card, when autograd needs the cell's gradient, it runs as
+``LSTMCellFunction``: the forward kernel saves the activated gates, and
+the backward kernel turns them and dh', dc' into dgates, dc, dx and dh.
+The weight gradients x^T dgates, h^T dgates and sum_B dgates reduce over
+the batch, as XLA's autodiff does outside the TPU kernel, so they stay
+``torch.bmm`` / ``sum`` here.
 """
 
 from __future__ import annotations
@@ -13,20 +24,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.lstm import kernel
-from repro_torch.kernels.lstm.ref import lstm_cell_ref
+from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
+                                          lstm_cell_fwd_ref, lstm_cell_ref)
 
 # the shared memory an H100 block may opt in to (227 KB)
 _SMEM_LIMIT = 232448
+_NAMES = ("x", "h", "c", "wx", "wh", "b")
 
 
 def _check_shapes(x, h, c, wx, wh, b) -> None:
-    if x.dim() != 2 or h.dim() != 2:
-        raise ValueError(f"lstm_cell expects x [B, I] and h [B, H], got "
-                         f"{tuple(x.shape)} and {tuple(h.shape)}")
-    B, I = x.shape
-    H = h.shape[1]
-    want = {"h": (B, H), "c": (B, H), "wx": (I, 4 * H), "wh": (H, 4 * H),
-            "b": (4 * H,)}
+    if x.dim() not in (2, 3) or h.dim() != x.dim():
+        raise ValueError(f"lstm_cell expects x [B, I] and h [B, H], or x "
+                         f"[W, B, I] and h [W, B, H], got {tuple(x.shape)} "
+                         f"and {tuple(h.shape)}")
+    lead = tuple(x.shape[:-2])                 # () or (W,)
+    B, I = x.shape[-2:]
+    H = h.shape[-1]
+    want = {"h": lead + (B, H), "c": lead + (B, H), "wx": lead + (I, 4 * H),
+            "wh": lead + (H, 4 * H), "b": lead + (4 * H,)}
     got = {"h": h, "c": c, "wx": wx, "wh": wh, "b": b}
     for name, shape in want.items():
         if tuple(got[name].shape) != shape:
@@ -35,31 +50,81 @@ def _check_shapes(x, h, c, wx, wh, b) -> None:
                              f"{tuple(got[name].shape)}")
 
 
-def lstm_cell(x, h, c, wx, wh, b):
-    """x [B, I]; h, c [B, H]; wx [I, 4H]; wh [H, 4H]; b [4H]; gates packed
-    [i, f, g, o]. Returns (h', c')."""
-    _check_shapes(x, h, c, wx, wh, b)
-    args = (x, h, c, wx, wh, b)
-    devices = {t.device for t in args}
-    if len(devices) != 1:
-        raise ValueError(f"lstm_cell: all tensors must share one device, "
-                         f"got {sorted(map(str, devices))}")
-    device = x.device
-    if device.type == "cpu":
-        return lstm_cell_ref(*args)
-    if device.type != "cuda":
-        raise ValueError(f"lstm_cell runs on cuda or cpu, got {device}")
-    for name, t in zip(("x", "h", "c", "wx", "wh", "b"), args):
+def _check_cuda(args) -> None:
+    for name, t in zip(_NAMES, args):
         if t.dtype != torch.float32:
             raise TypeError(f"lstm_cell kernel takes float32, {name} is "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"lstm_cell kernel takes contiguous tensors, "
                              f"{name} is not")
-    if x.shape[0] == 0:
+    I, H = args[0].shape[-1], args[1].shape[-1]
+    if kernel.smem_bytes(I, H) > _SMEM_LIMIT:
+        raise ValueError(f"lstm_cell kernel: I + H = {I + H} needs more "
+                         f"shared memory than {_SMEM_LIMIT} bytes")
+
+
+def _device(args) -> torch.device:
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"lstm_cell: all tensors must share one device, "
+                         f"got {sorted(map(str, devices))}")
+    device = args[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_cell runs on cuda or cpu, got {device}")
+    return device
+
+
+def lstm_cell(x, h, c, wx, wh, b):
+    """One step, gates packed [i, f, g, o]: x [B, I]; h, c [B, H];
+    wx [I, 4H]; wh [H, 4H]; b [4H], or each with a leading worker dim W.
+    Returns (h', c')."""
+    args = (x, h, c, wx, wh, b)
+    _check_shapes(*args)
+    if _device(args).type == "cpu":
+        return lstm_cell_ref(*args)
+    _check_cuda(args)
+    if x.shape[-2] == 0:
         return torch.empty_like(h), torch.empty_like(c)
-    if kernel.smem_bytes(x.shape[1], h.shape[1]) > _SMEM_LIMIT:
-        raise ValueError(f"lstm_cell kernel: I + H = "
-                         f"{x.shape[1] + h.shape[1]} needs more shared "
-                         f"memory than {_SMEM_LIMIT} bytes")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x.dim() == 3:
+            return LSTMCellFunction.apply(*args)
+        h_new, c_new = LSTMCellFunction.apply(*(t.unsqueeze(0)
+                                                for t in args))
+        return h_new[0], c_new[0]
     return kernel.lstm_cell_cuda(*args)
+
+
+class LSTMCellFunction(torch.autograd.Function):
+    """The worker-stacked cell (all operands with a leading W) as an
+    autograd Function. On CUDA tensors the forward and backward are the
+    kernels; on CPU tensors their plain versions (used by the CPU tests
+    to check the backward's assembly). Inputs must already be checked
+    (``lstm_cell`` does)."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, wx, wh, b):
+        if x.is_cuda:
+            h_new, c_new, gates = kernel.lstm_cell_cuda(x, h, c, wx, wh, b,
+                                                        save_gates=True)
+        else:
+            h_new, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
+        ctx.save_for_backward(x, h, c, wx, wh, gates, c_new)
+        return h_new, c_new
+
+    @staticmethod
+    def backward(ctx, dh_new, dc_new):
+        x, h, c, wx, wh, gates, c_new = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dh_new, dc_new = dh_new.contiguous(), dc_new.contiguous()
+        if x.is_cuda:
+            dgates, dc, dx, dh = kernel.lstm_cell_bwd_cuda(
+                dh_new, dc_new, gates, c, c_new, wx, wh, need_dx=need[0])
+        else:
+            dgates, dc, dx, dh = lstm_cell_bwd_ref(dh_new, dc_new, gates, c,
+                                                   c_new, wx, wh)
+        dwx = torch.bmm(x.transpose(1, 2), dgates) if need[3] else None
+        dwh = torch.bmm(h.transpose(1, 2), dgates) if need[4] else None
+        db = dgates.sum(dim=1) if need[5] else None
+        return (dx if need[0] else None, dh if need[1] else None,
+                dc if need[2] else None, dwx, dwh, db)

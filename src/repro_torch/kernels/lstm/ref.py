@@ -1,19 +1,50 @@
-"""Plain PyTorch version of the fused LSTM cell: the same math as
-``repro.kernels.lstm.ref.lstm_cell_ref`` (gates packed [i, f, g, o]).
-The CPU path runs it, and the card's kernel is held against it."""
+"""Plain PyTorch versions of the LSTM cell's kernels: the forward, the
+same math as ``repro.kernels.lstm.ref.lstm_cell_ref`` (gates packed
+[i, f, g, o]), and the function of the backward kernel. Each takes the
+unstacked form (x [B, I], wx [I, 4H], b [4H]) or the worker-stacked form
+(x [W, B, I], wx [W, I, 4H], b [W, 4H]). The CPU path runs
+``lstm_cell_ref`` and differentiates it with torch autograd; the card's
+kernels are held against these."""
 
 from __future__ import annotations
 
 import torch
 
 
-def lstm_cell_ref(x, h, c, wx, wh, b):
-    gates = x @ wx + h @ wh + b
+def _step(x, h, c, wx, wh, b):
+    gates = x @ wx + h @ wh + b.unsqueeze(-2)
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     i = torch.sigmoid(i)
     f = torch.sigmoid(f)
     g = torch.tanh(g)
     o = torch.sigmoid(o)
     c_new = f * c + i * g
-    h_new = o * torch.tanh(c_new)
+    return o * torch.tanh(c_new), c_new, (i, f, g, o)
+
+
+def lstm_cell_ref(x, h, c, wx, wh, b):
+    """One step -> (h', c')."""
+    h_new, c_new, _ = _step(x, h, c, wx, wh, b)
     return h_new, c_new
+
+
+def lstm_cell_fwd_ref(x, h, c, wx, wh, b):
+    """One step -> (h', c', activated gates [..., B, 4H]): what the
+    forward kernel gives in training mode."""
+    h_new, c_new, gates = _step(x, h, c, wx, wh, b)
+    return h_new, c_new, torch.cat(gates, dim=-1)
+
+
+def lstm_cell_bwd_ref(dh_new, dc_new, gates, c, c_new, wx, wh):
+    """The backward kernel's function: from dh', dc', the saved
+    activated gates, c and c' -> (dgates, dc, dx = dgates wx^T,
+    dh = dgates wh^T)."""
+    i, f, g, o = torch.chunk(gates, 4, dim=-1)
+    tc = torch.tanh(c_new)
+    dct = dc_new + dh_new * o * (1.0 - tc * tc)
+    dgates = torch.cat([dct * g * i * (1.0 - i), dct * c * f * (1.0 - f),
+                        dct * i * (1.0 - g * g),
+                        dh_new * tc * o * (1.0 - o)], dim=-1)
+    dc = dct * f
+    return (dgates, dc, dgates @ wx.transpose(-1, -2),
+            dgates @ wh.transpose(-1, -2))

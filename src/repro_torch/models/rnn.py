@@ -8,6 +8,14 @@ one to one (``repro_torch.checkpoint.convert``). A Python loop over time
 takes the place of ``lax.scan``; each step's cell goes through
 ``repro_torch.kernels.dispatch.lstm_cell``, which runs the hand-written
 CUDA kernel for tensors on the card and the plain version on the CPU.
+
+Training (``rnn_features``, ``rnn_head``, ``rnn_apply``) also takes
+worker-stacked params, every leaf with a leading worker dim W, and x
+[W, B, T, I]: the JAX package's ``jax.vmap`` over local-SGD workers
+written out, so that one cell launch per time step serves all W
+workers, and gradients flow through the cell's autograd Function.
+Serving (``rnn_step``, ``rnn_apply_padded``, the carries) stays
+unstacked and gives the same bits as before.
 """
 
 from __future__ import annotations
@@ -79,21 +87,23 @@ def lstm_cell(p, x_t, h, c):
 
 
 def lstm_layer_apply(p, xs):
-    """xs [B, T, I] -> hs [B, T, H], one cell per time step."""
-    B, T = xs.shape[0], xs.shape[1]
-    H = p["wh"].shape[0]
-    h = torch.zeros((B, H), dtype=xs.dtype, device=xs.device)
-    c = torch.zeros((B, H), dtype=xs.dtype, device=xs.device)
-    steps = xs.transpose(0, 1).contiguous()       # [T, B, I], rows contiguous
+    """xs [B, T, I] -> hs [B, T, H], one cell per time step; or, with
+    worker-stacked p, xs [W, B, T, I] -> hs [W, B, T, H]."""
+    lead, T = tuple(xs.shape[:-2]), xs.shape[-2]      # lead: (B,) or (W, B)
+    H = p["wh"].shape[-2]
+    h = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
+    c = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
+    steps = xs.movedim(-2, 0).contiguous()        # [T, ..., I], rows contiguous
     hs = []
     for t in range(T):
         h, c = lstm_cell(p, steps[t], h, c)
         hs.append(h)
-    return torch.stack(hs, dim=1)
+    return torch.stack(hs, dim=-2)
 
 
 def rnn_features(params: PyTree, x):
-    """x [B, T, input_dim] -> last-layer hidden sequence [B, T, H]."""
+    """x [B, T, input_dim] -> last-layer hidden sequence [B, T, H] (or
+    with a leading worker dim W on x, the params and the result)."""
     h = x
     for lp in params["lstm"]:
         h = lstm_layer_apply(lp, h)
@@ -101,19 +111,22 @@ def rnn_features(params: PyTree, x):
 
 
 def rnn_head(params: PyTree, h, cfg: RNNConfig):
-    """FC stack + output/EVL heads on a hidden state h [B, H]."""
+    """FC stack + output/EVL heads on a hidden state h [B, H] (or
+    [W, B, H] with worker-stacked params)."""
     for fp in params["fc"]:
-        h = torch.tanh(h @ fp["w"] + fp["b"])
-    y = (h @ params["out"]["w"] + params["out"]["b"])[:, 0]
+        h = torch.tanh(h @ fp["w"] + fp["b"].unsqueeze(-2))
+    y = (h @ params["out"]["w"] + params["out"]["b"].unsqueeze(-2))[..., 0]
     u = None
     if cfg.evl_head and "evl" in params:
-        u = torch.sigmoid(h @ params["evl"]["w"] + params["evl"]["b"])[:, 0]
+        u = torch.sigmoid(h @ params["evl"]["w"]
+                          + params["evl"]["b"].unsqueeze(-2))[..., 0]
     return y, u
 
 
 def rnn_apply(params: PyTree, x, cfg: RNNConfig):
-    """x [B, window, input_dim] -> (y_pred [B], u_extreme [B] or None)."""
-    h = rnn_features(params, x)[:, -1, :]     # last time step
+    """x [B, window, input_dim] -> (y_pred [B], u_extreme [B] or None);
+    worker-stacked: x [W, B, window, input_dim] -> [W, B] each."""
+    h = rnn_features(params, x)[..., -1, :]   # last time step
     return rnn_head(params, h, cfg)
 
 

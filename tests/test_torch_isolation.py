@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports jax or anything of ``repro``; every entry
 point defaults to the card; and on a machine without one,
-``chip_smoke.py`` and the serve CLI fail instead of carrying on on the
-CPU."""
+``chip_smoke.py`` and the serve and train CLIs fail instead of carrying
+on on the CPU."""
 
 import ast
 import inspect
@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from repro_torch.checkpoint.convert import params_from_numpy
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models.rnn import init_rnn
 from repro_torch.serving.forecaster import (LSTMForecaster,
                                             build_lstm_forecaster)
+from repro_torch.training.loop import train_rnn_local_sgd, train_rnn_serial
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -45,20 +46,33 @@ def test_no_jax_or_repro_import(path):
 
 def test_port_package_is_complete():
     assert len(PORT_FILES) > 20
-    assert (ROOT / "src/repro_torch/kernels/lstm/csrc/lstm_cell.cu").is_file()
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    # the training slice's modules are among the files checked above
+    assert {"kernels/evl/ops.py", "kernels/evl/kernel.py",
+            "core/async_local_sgd.py", "core/schedules.py",
+            "optim/optimizers.py", "training/loop.py", "training/metrics.py",
+            "data/sharding.py", "extreme/evl.py", "launch/train.py",
+            "tree.py"} <= names
+    for src in ("kernels/lstm/csrc/lstm_cell.cu",
+                "kernels/lstm/csrc/lstm_cell_bwd.cu",
+                "kernels/evl/csrc/evl.cu"):
+        assert (ROOT / "src/repro_torch" / src).is_file()
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (build_lstm_forecaster, init_rnn, params_from_numpy):
+    for fn in (build_lstm_forecaster, init_rnn, params_from_numpy,
+               train_rnn_serial, train_rnn_local_sgd):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert LSTMForecaster.__dataclass_fields__["device"].default == "cuda"
-    tree = ast.parse(inspect.getsource(serve))
-    defaults = [kw.value.value for node in ast.walk(tree)
-                if isinstance(node, ast.Call) and node.args
-                and isinstance(node.args[0], ast.Constant)
-                and node.args[0].value == "--device"
-                for kw in node.keywords if kw.arg == "default"]
-    assert defaults == ["cuda"]
+    for cli in (serve, train):
+        tree = ast.parse(inspect.getsource(cli))
+        defaults = [kw.value.value for node in ast.walk(tree)
+                    if isinstance(node, ast.Call) and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and node.args[0].value == "--device"
+                    for kw in node.keywords if kw.arg == "default"]
+        assert defaults == ["cuda"], cli.__name__
 
 
 def _run(args, cwd):
@@ -77,6 +91,8 @@ def test_without_a_card_chip_smoke_and_cli_fail(tmp_path):
     lone.write_text((ROOT / "chip_smoke.py").read_text())
     out = _run([str(lone)], tmp_path)
     assert out.returncode != 0 and '"ok": true' not in out.stdout
-    out = _run(["-m", "repro_torch.launch.serve", "--requests", "1"], ROOT)
-    assert out.returncode != 0
-    assert "no CUDA device" in out.stderr
+    for cli in (["-m", "repro_torch.launch.serve", "--requests", "1"],
+                ["-m", "repro_torch.launch.train", "--iterations", "1"]):
+        out = _run(cli, ROOT)
+        assert out.returncode != 0
+        assert "no CUDA device" in out.stderr

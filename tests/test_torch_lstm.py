@@ -1,8 +1,10 @@
 """The port's LSTM cell against the JAX package's: the plain PyTorch
 version (what a CPU tensor runs) vs the Pallas kernel in interpret mode
-and vs its jnp oracle, over the JAX kernel tests' shape sweep; the
-device route and launch counter of the wrapper; and, on a card, the
-hand-written CUDA kernel vs the plain version.
+and vs its jnp oracle, over the JAX kernel tests' shape sweep; its
+gradient vs ``jax.grad``; the worker-stacked form; the autograd
+Function's backward; the device route and launch counter of the
+wrapper; and, on a card, the hand-written CUDA kernels (forward and
+backward) vs the plain version and its autograd.
 
 The JAX package is imported inside the parity test only, so that the
 ``cuda`` tests also run on a machine with a card and no jax:
@@ -14,8 +16,9 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lstm import kernel as lstm_kernel
-from repro_torch.kernels.lstm.ops import lstm_cell
-from repro_torch.kernels.lstm.ref import lstm_cell_ref
+from repro_torch.kernels.lstm.ops import LSTMCellFunction, lstm_cell
+from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
+                                          lstm_cell_fwd_ref, lstm_cell_ref)
 
 RTOL, ATOL = 1e-5, 1e-6      # tests/test_kernels.py's LSTM tolerance
 
@@ -51,6 +54,94 @@ def test_plain_cell_matches_pallas_kernel_and_oracle(batch, in_dim, hidden):
                                    rtol=RTOL, atol=ATOL)
 
 
+def _stacked(workers, batch, in_dim, hidden, seed=42):
+    """Worker-stacked inputs: every operand with a leading W."""
+    per = [_inputs(batch, in_dim, hidden, seed=seed + 7 * w)
+           for w in range(workers)]
+    return [np.stack(parts) for parts in zip(*per)]
+
+
+def _cotangents(shape, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("batch,in_dim,hidden", SHAPES[:5])
+def test_plain_cell_gradient_matches_jax_grad(batch, in_dim, hidden):
+    """torch autograd through the plain cell (the CPU training path)
+    against jax.grad of the JAX package's cell, for every operand."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels.lstm.ref import lstm_cell_ref as jax_cell_ref
+
+    arrays = _inputs(batch, in_dim, hidden)
+    dh, dc = _cotangents((batch, hidden))
+
+    def jloss(*args):
+        h, c = jax_cell_ref(*args[:5], args[5][None])
+        return jnp.sum(h * dh) + jnp.sum(c * dc)
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*map(jnp.asarray,
+                                                         arrays))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    h, c = dispatch.lstm_cell(*ts)
+    got = torch.autograd.grad((h, c), ts, (torch.from_numpy(dh),
+                                           torch.from_numpy(dc)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w).reshape(g.shape),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("workers,batch,in_dim,hidden",
+                         [(1, 8, 5, 16), (2, 5, 5, 16), (3, 4, 16, 8)])
+def test_function_backward_matches_autograd_of_plain_cell(workers, batch,
+                                                          in_dim, hidden):
+    """LSTMCellFunction on CPU tensors runs the plain versions of both
+    kernels; its backward (dgates, dc, dx, dh from the backward kernel's
+    function, then the weight gradients by bmm/sum) equals torch autograd
+    through the plain cell for all six operands."""
+    arrays = _stacked(workers, batch, in_dim, hidden)
+    dh, dc = (torch.from_numpy(a)
+              for a in _cotangents((workers, batch, hidden)))
+    t1 = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    t2 = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    h1, c1 = LSTMCellFunction.apply(*t1)
+    h2, c2 = lstm_cell_ref(*t2)
+    torch.testing.assert_close(h1, h2, rtol=0, atol=0)
+    torch.testing.assert_close(c1, c2, rtol=0, atol=0)
+    g1 = torch.autograd.grad((h1, c1), t1, (dh, dc))
+    g2 = torch.autograd.grad((h2, c2), t2, (dh, dc))
+    for name, a, b in zip(("x", "h", "c", "wx", "wh", "b"), g1, g2):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+                                   msg=f"d{name}")
+
+
+def test_bwd_ref_is_the_gradient_of_the_cell():
+    x, h, c, wx, wh, b = (torch.from_numpy(a) for a in _inputs(6, 5, 16))
+    h_new, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
+    dh, dc = (torch.from_numpy(a) for a in _cotangents((6, 16)))
+    dgates, dc_prev, dx, dh_prev = lstm_cell_bwd_ref(dh, dc, gates, c, c_new,
+                                                     wx, wh)
+    ts = [t.clone().requires_grad_(True) for t in (x, h, c)]
+    hr, cr = lstm_cell_ref(*ts, wx, wh, b)
+    want = torch.autograd.grad((hr, cr), ts, (dh, dc))
+    for got, w in zip((dx, dh_prev, dc_prev), want):
+        torch.testing.assert_close(got, w, rtol=RTOL, atol=ATOL)
+    assert dgates.shape == (6, 64)
+
+
+def test_stacked_cell_rows_equal_unstacked_cells():
+    """The worker-stacked form is W independent cells."""
+    arrays = [torch.from_numpy(a) for a in _stacked(3, 4, 5, 16)]
+    hs, cs = lstm_cell(*arrays)
+    for w in range(3):
+        h1, c1 = lstm_cell(*(a[w] for a in arrays))
+        torch.testing.assert_close(hs[w], h1, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(cs[w], c1, rtol=RTOL, atol=ATOL)
+
+
 def test_cpu_tensor_takes_plain_route_and_launches_nothing():
     arrays = [torch.from_numpy(a) for a in _inputs(4, 5, 16)]
     lstm_kernel.LAUNCHES.reset()
@@ -70,6 +161,8 @@ def test_wrapper_rejects_bad_shapes_and_mixed_devices():
         lstm_cell(x[0], h, c, wx, wh, b)
     with pytest.raises(ValueError, match="one device"):
         lstm_cell(x, h, c, wx, wh, b.to("meta"))
+    with pytest.raises(ValueError, match="b must be"):
+        lstm_cell(x[None], h[None], c[None], wx[None], wh[None], b)
 
 
 def test_dispatch_counting_records_device_and_route():
@@ -134,3 +227,83 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="one device"):
         lstm_cell(x, h, c, wx, wh, b.cpu())
     assert lstm_kernel.LAUNCHES.total == before
+
+
+# (W, B, I, H) the training path gives the cell: W in {1, 4} workers,
+# batch 32, layer 1 (I = 5) and layer 2 (I = 64), hidden 64
+TRAIN_SHAPES = [(1, 32, 5, 64), (4, 32, 5, 64), (1, 32, 64, 64),
+                (4, 32, 64, 64)]
+
+
+def _weight_grad_scales(arrays, dh, dc):
+    """|x|^T |dgates|, |h|^T |dgates| and sum_B |dgates|: the sums of the
+    magnitudes of the terms that the weight gradients add up. The kernel's
+    dgates differ from autograd's in the last bits, and where a batch sum
+    cancels its error is relative to these, not to the result."""
+    x, h, c, wx, wh, b = arrays
+    _, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
+    mag = lstm_cell_bwd_ref(dh, dc, gates, c, c_new, wx, wh)[0].abs()
+    return (torch.bmm(x.abs().transpose(1, 2), mag),
+            torch.bmm(h.abs().transpose(1, 2), mag), mag.sum(dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers,batch,in_dim,hidden",
+                         TRAIN_SHAPES + [(1,) + s for s in SHAPES])
+def test_cuda_backward_matches_autograd_of_plain_cell(workers, batch, in_dim,
+                                                      hidden):
+    """dx, dh, dc at rtol 1e-5 / atol 1e-6; dwx, dwh, db, each a sum over
+    the batch, at atol 1e-6 + 1e-5 times the sum of its terms'
+    magnitudes (``_weight_grad_scales``)."""
+    _card()
+    arrays = _stacked(workers, batch, in_dim, hidden)
+    dh, dc = (torch.from_numpy(a).cuda()
+              for a in _cotangents((workers, batch, hidden)))
+    t1 = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays]
+    t2 = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays]
+    fwd, bwd = lstm_kernel.LAUNCHES.total, lstm_kernel.BWD_LAUNCHES.total
+    h1, c1 = lstm_cell(*t1)
+    g1 = torch.autograd.grad((h1, c1), t1, (dh, dc))
+    h2, c2 = lstm_cell_ref(*t2)
+    g2 = torch.autograd.grad((h2, c2), t2, (dh, dc))
+    torch.cuda.synchronize()
+    assert lstm_kernel.LAUNCHES.total == fwd + 1
+    assert lstm_kernel.BWD_LAUNCHES.total == bwd + 1
+    for name, a, b in zip(("x", "h", "c"), g1, g2):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+                                   msg=f"d{name}")
+    scales = _weight_grad_scales([t.detach() for t in t2], dh, dc)
+    for name, a, b, s in zip(("wx", "wh", "b"), g1[3:], g2[3:], scales):
+        assert bool(((a - b).abs() <= ATOL + RTOL * s).all()), f"d{name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dim", [5, 64])
+def test_cuda_worker_rows_equal_single_worker_launches(in_dim):
+    """The rows of a W = 4 launch equal four W = 1 launches bitwise, and
+    the unstacked (serving) form is the W = 1 launch."""
+    _card()
+    arrays = [torch.from_numpy(a).cuda() for a in _stacked(4, 32, in_dim, 64)]
+    h4, c4 = lstm_cell(*arrays)
+    for w in range(4):
+        one = [a[w:w + 1] for a in arrays]
+        h1, c1 = lstm_cell(*one)
+        hu, cu = lstm_cell(*(a[w] for a in arrays))
+        assert torch.equal(h1[0], h4[w]) and torch.equal(c1[0], c4[w])
+        assert torch.equal(hu, h4[w]) and torch.equal(cu, c4[w])
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_is_the_same_on_every_run():
+    _card()
+    arrays = _stacked(4, 32, 64, 64)
+    dh, dc = (torch.from_numpy(a).cuda() for a in _cotangents((4, 32, 64)))
+
+    def grads():
+        ts = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays]
+        h, c = lstm_cell(*ts)
+        return torch.autograd.grad((h, c), ts, (dh, dc))
+
+    first = grads()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(grads(), first))
