@@ -144,9 +144,7 @@ def no_plain_version_on_the_card():
     import repro_torch.kernels.evl.ops as evl_ops
     import repro_torch.kernels.lstm.ops as lstm_ops
 
-    names = [(lstm_ops, "lstm_cell_ref"), (lstm_ops, "lstm_cell_fwd_ref"),
-             (lstm_ops, "lstm_cell_bwd_ref"), (evl_ops, "evl_loss_ref"),
-             (evl_ops, "evl_grad_ref")]
+    names = [(lstm_ops, "lstm_cell_ref"), (evl_ops, "evl_loss_ref")]
     calls: list[str] = []
     saved = {(m, n): getattr(m, n) for m, n in names}
     for (mod, name), fn in saved.items():
@@ -206,14 +204,15 @@ def cell_bound(W, B, I, H):
     return bound(nbytes, ops)
 
 
-def cell_bwd_bound(W, B, I, H):
-    """The backward kernel: reads dh', dc', c, c', the gates, wx and wh,
-    writes dgates, dc, dh and dx (fp32); about 25 operations per (row,
-    unit) for dgates and dc, and the two products dgates wx^T and
-    dgates wh^T."""
-    nbytes = 4 * W * (4 * B * H + B * 4 * H + I * 4 * H + H * 4 * H
-                      + B * 4 * H + 2 * B * H + B * I)
-    ops = W * (25 * B * H + 2 * B * 4 * H * (I + H))
+def cell_bwd_bound(W, B, I, H, need_dx: bool):
+    """The backward kernel: reads dh', dc', c, c', the gates and wh,
+    writes dgates, dc and dh (fp32); about 25 operations per (row, unit)
+    for dgates and dc, and the product dgates wh^T. With ``need_dx`` it
+    also reads wx, writes dx and does dgates wx^T; without (the first
+    layer, whose input is data) it touches none of these."""
+    nbytes = 4 * W * (4 * B * H + B * 4 * H + H * 4 * H + B * 4 * H
+                      + 2 * B * H + (I * 4 * H + B * I if need_dx else 0))
+    ops = W * (25 * B * H + 2 * B * 4 * H * (H + (I if need_dx else 0)))
     return bound(nbytes, ops)
 
 
@@ -683,11 +682,14 @@ def train_main_path(data, tag: str):
     local SGD with W = 4 workers (linear schedule, tau 0 and 1), EVL on,
     full width, through ``repro_torch.training``. Every launch counter is
     zeroed just before and read just after. The first iterations' losses
-    are held against the same runs of the port on the CPU. Returns the
-    launches by kernel and shape."""
+    are held against the same runs of the port on the CPU, and each
+    run's test MSE (the kernel over the whole test set in one launch per
+    step) against the CPU's plain path on the trained weights. Returns
+    the launches by kernel and shape."""
+    from repro_torch.checkpoint.convert import params_to
     from repro_torch.configs.paper_lstm import CONFIG
     from repro_torch.models.rnn import init_rnn
-    from repro_torch.training.loop import (train_rnn_local_sgd,
+    from repro_torch.training.loop import (evaluate, train_rnn_local_sgd,
                                            train_rnn_serial)
     from repro_torch.tree import tree_leaves
 
@@ -744,6 +746,12 @@ def train_main_path(data, tag: str):
             check(drift <= TRAIN_RTOL,
                   f"{name}: the first {n_cmp} iterations' losses drift "
                   f"{drift:.3e} from the CPU port's (bound {TRAIN_RTOL})")
+            mse_cpu = evaluate(params_to(res.params, "cpu"), CONFIG,
+                               test_ds)[0]
+            dmse = abs(res.test_mse - mse_cpu) / mse_cpu
+            check(dmse <= FC_RTOL,
+                  f"{name}: test MSE on the card {res.test_mse} vs the CPU's "
+                  f"plain path on the same weights {mse_cpu}: {dmse:.3e}")
             steps = res.iterations // kw.get("n_workers", 1)
             print(f"[train] {tag}: {name}: {res.iterations} iterations in "
                   f"{wall:.3f} s = {wall / res.iterations * 1e3 * 1e3:.1f} ms "
@@ -756,6 +764,8 @@ def train_main_path(data, tag: str):
                   f"{'rounds' if 'n_workers' in kw else 'iterations'}; "
                   f"first {n_cmp} iterations ({n} losses) vs the CPU port: "
                   f"max relative drift {drift:.3e} (bound {TRAIN_RTOL}); "
+                  f"test MSE vs the CPU on the same weights {dmse:.3e} "
+                  f"relative (bound {FC_RTOL}); "
                   f"launches {launched} = "
                   f"{sum(launched.values()) / steps:.1f} per local step")
         launches = read_counters()
@@ -790,9 +800,11 @@ def run_clis(window: int) -> None:
 
 
 def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
-    """Phase 7: each kernel's device time at every shape of the two paths
-    beside its plain version, its PyTorch yardstick (never called by the
-    port) and its bound. Returns rows by kernel and shape."""
+    """Phase 7: each kernel at every shape of the two paths, held against
+    its plain version on the same inputs, then its device time beside
+    the plain version's, its PyTorch yardstick (never called by the port)
+    and its bound. Returns rows by kernel and shape, the launches on the
+    main paths, and the largest |kernel - plain| by kernel."""
     from repro_torch.kernels.evl import kernel as evl_kernel
     from repro_torch.kernels.evl.ops import evl_loss
     from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
@@ -803,11 +815,25 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                                               lstm_cell_ref)
 
     rows = {name: {} for name in counters()}
+    errs = {name: 0.0 for name in counters()}
+
+    def hold(name, shape, got, want, rtol, atol):
+        """|kernel - plain| at one shape of the path, within tolerance."""
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        errs[name] = max(errs[name], err)
+        check(all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                  for a, b in zip(got, want)),
+              f"{name} kernel disagrees with its plain version at the "
+              f"path's shape {shape}: max err {err}")
+
     fwd_shapes = (set(PATH_SHAPES) | set(TRAIN_SHAPES) | {(1, 1, 1, 8)}
                   | set(serve_launches["lstm_cell"])
                   | set(train_launches["lstm_cell"]))
     for W, B, I, H in sorted(fwd_shapes):
         x, h, c, wx, wh, b = cell_inputs(W, B, I, H, seed=2)
+        hold("lstm_cell", (W, B, I, H),
+             lstm_kernel.lstm_cell_cuda(x, h, c, wx, wh, b),
+             lstm_cell_ref(x, h, c, wx, wh, b), RTOL, ATOL)
         wx_t = [wx[w].t().contiguous() for w in range(W)]
         wh_t = [wh[w].t().contiguous() for w in range(W)]
         zero = torch.zeros_like(b[0])
@@ -849,18 +875,30 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
             return lstm_kernel.lstm_cell_bwd_cuda(dh, dc, gates, c, c_new,
                                                   wx, wh, need_dx=need_dx)
 
+        want = lstm_cell_bwd_ref(dh, dc, gates, c, c_new, wx, wh)
+        got = kernel_bwd()
+        hold("lstm_cell_bwd", (W, B, I, H),
+             [t for t in got if t is not None],
+             [t for t, k in zip(want, got) if k is not None], RTOL, ATOL)
+
         def full_bwd():           # the kernel plus the weight gradients
             dgates = kernel_bwd()[0]
             return (torch.bmm(x.transpose(1, 2), dgates),
                     torch.bmm(h.transpose(1, 2), dgates), dgates.sum(1))
 
-        leaves = [t.clone().requires_grad_(True) for t in (x, h, c)]
+        # torch.lstm_cell with autograd, per worker. Against the kernel:
+        # the gradients of (h, c), and of x where the path needs dx, so
+        # the same outputs as the kernel (dgates, dc, dh, dx); against
+        # the kernel plus the weight gradients: also wx, wh and b
+        leaves = [t.clone().requires_grad_(need or need_dx)
+                  for need, t in ((False, x), (True, h), (True, c))]
         wx_t = [wx[w].t().contiguous().requires_grad_(True)
                 for w in range(W)]
         wh_t = [wh[w].t().contiguous().requires_grad_(True)
                 for w in range(W)]
         bb = [b[w].clone().requires_grad_(True) for w in range(W)]
         zero = torch.zeros_like(b[0])
+        wrt = leaves if need_dx else leaves[1:]
 
         def library_fwd():
             return [torch.lstm_cell(leaves[0][w], (leaves[1][w],
@@ -868,21 +906,21 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                                     wx_t[w], wh_t[w], bb[w], zero)
                     for w in range(W)]
 
-        def library_fwd_bwd():
+        def library_fwd_bwd(inputs):
             outs = library_fwd()
-            torch.autograd.grad([t for hc in outs for t in hc],
-                                leaves + wx_t + wh_t + bb,
-                                [t for _ in range(W) for t in (dh[0], dc[0])])
+            torch.autograd.grad([t for hc in outs for t in hc], inputs,
+                                [t for w in range(W) for t in (dh[w], dc[w])])
 
-        bnd, by = cell_bwd_bound(W, B, I, H)
-        lib_fwd_bwd = graph_ms(library_fwd_bwd)
+        bnd, by = cell_bwd_bound(W, B, I, H, need_dx)
         lib_fwd = graph_ms(lambda: library_fwd())
         rows["lstm_cell_bwd"][(W, B, I, H)] = {
             "ms": graph_ms(kernel_bwd),
             "plain_ms": graph_ms(lambda: lstm_cell_bwd_ref(
                 dh, dc, gates, c, c_new, wx, wh)),
-            "library_ms": lib_fwd_bwd - lib_fwd,
+            "library_ms": graph_ms(lambda: library_fwd_bwd(wrt)) - lib_fwd,
             "with_weight_grads_ms": graph_ms(full_bwd),
+            "library_with_weight_grads_ms": graph_ms(
+                lambda: library_fwd_bwd(wrt + wx_t + wh_t + bb)) - lib_fwd,
             "eager_ms": eager_ms(kernel_bwd),
             "bound_ms": bnd, "bound_by": by}
     betas = (0.93, 0.07, 2.0)
@@ -906,6 +944,7 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                     u, v, *betas, EVL_EPS, "mean")
                 pfn = lambda: evl_loss_ref(u, v, *betas, EVL_EPS).mean(-1)
                 efn = lambda: evl_loss(u, v, *betas, EVL_EPS, "mean")
+            hold(name, (W, N), [kfn()], [pfn()], EVL_RTOL, EVL_ATOL)
             bnd, by = evl_bound(W, N, backward)
             rows[name][(W, N)] = {
                 "ms": graph_ms(kfn), "plain_ms": graph_ms(pfn),
@@ -922,7 +961,9 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
     for name, by_shape in rows.items():
         for shape, r in by_shape.items():
             extra = (f", with the weight gradients (2 bmm + sum) "
-                     f"{r['with_weight_grads_ms'] * 1e3:.2f} us"
+                     f"{r['with_weight_grads_ms'] * 1e3:.2f} us against "
+                     f"the library's "
+                     f"{r['library_with_weight_grads_ms'] * 1e3:.2f} us"
                      if "with_weight_grads_ms" in r else "")
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms'] * 1e3:.2f} us")
@@ -934,7 +975,10 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                   f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
                   f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
                   f"{every[name].get(shape, 0)} launches on the main paths")
-    return rows, every
+    print(f"[check] {tag}: every kernel held against its plain version "
+          f"at every shape of the main paths: max |kernel - plain| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    return rows, every, errs
 
 
 def profile(label: str, drive, tag: str) -> None:
@@ -1026,7 +1070,8 @@ def profile_training(train_ds, tag: str) -> None:
 
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
-    each shape on the main paths."""
+    each shape on the main paths. The backward's line adds the kernel
+    plus the weight gradients beside torch autograd with them."""
     n = sum(launches.values())
 
     def weighted(key):
@@ -1034,14 +1079,18 @@ def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
             return None
         return sum(k * rows[s][key] for s, k in launches.items()) / n
 
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n, "max_abs_err": max_err,
         "ms": weighted("ms"), "plain_ms": weighted("plain_ms"),
         "bound_ms": weighted("bound_ms"),
         "bound_by": rows[max(launches, key=launches.get)]["bound_by"],
-        "library_ms": weighted("library_ms"),
-        "shapes": {"x".join(map(str, s)): k for s, k in launches.items()}}
+        "library_ms": weighted("library_ms")}
+    for key in ("with_weight_grads_ms", "library_with_weight_grads_ms"):
+        if all(key in rows[s] for s in launches):
+            entry[key] = weighted(key)
+    entry["shapes"] = {"x".join(map(str, s)): k for s, k in launches.items()}
+    return entry
 
 
 def main() -> None:
@@ -1068,7 +1117,9 @@ def main() -> None:
     serve_launches, payloads, sessions = serve_main_path(fc, tag)
     train_launches = train_main_path(data, tag)
     run_clis(fc.window)
-    rows, every = time_kernels(serve_launches, train_launches, tag)
+    rows, every, path_errs = time_kernels(serve_launches, train_launches,
+                                          tag)
+    errs = {k: max(errs[k], path_errs[k]) for k in errs}
     profile_serving(fc, payloads, sessions, tag)
     profile_training(data[0], tag)
     csrc = "src/repro_torch/kernels/{}/csrc/{}"

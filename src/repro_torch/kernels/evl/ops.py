@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.evl import kernel
-from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
+from repro_torch.kernels.evl.ref import evl_loss_ref
 
 
 def _reduce(loss, reduce: str):
@@ -53,31 +53,18 @@ def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,
 
 
 class EVLFunction(torch.autograd.Function):
-    """The loss as an autograd Function with a gradient for u only (v is
-    a label). On CUDA tensors forward and backward are the kernels; on
-    CPU tensors their plain versions (used by the CPU tests to check the
-    backward's scaling). Inputs must already be checked (``evl_loss``
-    does)."""
+    """The loss on the card as an autograd Function with a gradient for u
+    only (v is a label): forward and backward are the kernels. Inputs
+    must already be checked (``evl_loss`` does)."""
 
     @staticmethod
     def forward(ctx, u, v, beta0, beta1, gamma, eps, reduce):
         ctx.save_for_backward(u, v)
         ctx.args = (beta0, beta1, gamma, eps, reduce)
-        if u.is_cuda:
-            return kernel.evl_forward_cuda(u, v, beta0, beta1, gamma, eps,
-                                           reduce)
-        return _reduce(evl_loss_ref(u, v, beta0, beta1, gamma, eps), reduce)
+        return kernel.evl_forward_cuda(u, v, beta0, beta1, gamma, eps, reduce)
 
     @staticmethod
     def backward(ctx, g):
         u, v = ctx.saved_tensors
-        beta0, beta1, gamma, eps, reduce = ctx.args
-        g = g.contiguous()
-        if u.is_cuda:
-            du = kernel.evl_backward_cuda(u, v, g, beta0, beta1, gamma, eps,
-                                          reduce)
-        else:
-            scale = {"none": g, "sum": g[:, None],
-                     "mean": g[:, None] / u.shape[1]}[reduce]
-            du = evl_grad_ref(u, v, beta0, beta1, gamma, eps) * scale
+        du = kernel.evl_backward_cuda(u, v, g.contiguous(), *ctx.args)
         return du, None, None, None, None, None, None

@@ -24,8 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.lstm import kernel
-from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
-                                          lstm_cell_fwd_ref, lstm_cell_ref)
+from repro_torch.kernels.lstm.ref import lstm_cell_ref
 
 # the shared memory an H100 block may opt in to (227 KB)
 _SMEM_LIMIT = 232448
@@ -95,20 +94,24 @@ def lstm_cell(x, h, c, wx, wh, b):
     return kernel.lstm_cell_cuda(*args)
 
 
+def weight_grads(x, h, dgates, need):
+    """The weight gradients from the backward kernel's dgates: x^T dgates,
+    h^T dgates and sum_B dgates, each where ``need`` (wx, wh, b) asks
+    for it, else None."""
+    return (torch.bmm(x.transpose(1, 2), dgates) if need[0] else None,
+            torch.bmm(h.transpose(1, 2), dgates) if need[1] else None,
+            dgates.sum(dim=1) if need[2] else None)
+
+
 class LSTMCellFunction(torch.autograd.Function):
-    """The worker-stacked cell (all operands with a leading W) as an
-    autograd Function. On CUDA tensors the forward and backward are the
-    kernels; on CPU tensors their plain versions (used by the CPU tests
-    to check the backward's assembly). Inputs must already be checked
-    (``lstm_cell`` does)."""
+    """The worker-stacked cell (all operands with a leading W, on the
+    card) as an autograd Function: forward and backward are the kernels.
+    Inputs must already be checked (``lstm_cell`` does)."""
 
     @staticmethod
     def forward(ctx, x, h, c, wx, wh, b):
-        if x.is_cuda:
-            h_new, c_new, gates = kernel.lstm_cell_cuda(x, h, c, wx, wh, b,
-                                                        save_gates=True)
-        else:
-            h_new, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
+        h_new, c_new, gates = kernel.lstm_cell_cuda(x, h, c, wx, wh, b,
+                                                    save_gates=True)
         ctx.save_for_backward(x, h, c, wx, wh, gates, c_new)
         return h_new, c_new
 
@@ -116,15 +119,9 @@ class LSTMCellFunction(torch.autograd.Function):
     def backward(ctx, dh_new, dc_new):
         x, h, c, wx, wh, gates, c_new = ctx.saved_tensors
         need = ctx.needs_input_grad
-        dh_new, dc_new = dh_new.contiguous(), dc_new.contiguous()
-        if x.is_cuda:
-            dgates, dc, dx, dh = kernel.lstm_cell_bwd_cuda(
-                dh_new, dc_new, gates, c, c_new, wx, wh, need_dx=need[0])
-        else:
-            dgates, dc, dx, dh = lstm_cell_bwd_ref(dh_new, dc_new, gates, c,
-                                                   c_new, wx, wh)
-        dwx = torch.bmm(x.transpose(1, 2), dgates) if need[3] else None
-        dwh = torch.bmm(h.transpose(1, 2), dgates) if need[4] else None
-        db = dgates.sum(dim=1) if need[5] else None
-        return (dx if need[0] else None, dh if need[1] else None,
-                dc if need[2] else None, dwx, dwh, db)
+        dgates, dc, dx, dh = kernel.lstm_cell_bwd_cuda(
+            dh_new.contiguous(), dc_new.contiguous(), gates, c, c_new, wx,
+            wh, need_dx=need[0])
+        return ((dx if need[0] else None, dh if need[1] else None,
+                 dc if need[2] else None) + weight_grads(x, h, dgates,
+                                                         need[3:]))

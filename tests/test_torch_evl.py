@@ -16,7 +16,7 @@ import torch
 from repro_torch.extreme import evl as tevl
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.evl import kernel as evl_kernel
-from repro_torch.kernels.evl.ops import EVLFunction, evl_loss
+from repro_torch.kernels.evl.ops import evl_loss
 from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
 
 RTOL, ATOL = 1e-5, 1e-7      # tests/test_kernels.py's EVL tolerance
@@ -84,25 +84,22 @@ def test_gradient_matches_jax_grad_at_the_edges(reduce):
 
 @pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
 def test_function_backward_matches_autograd_of_plain_version(reduce):
-    """EVLFunction on CPU tensors runs the plain versions of both kernels:
-    its closed-form dL/du, scaled for the reduction, equals torch
-    autograd through the plain loss (the card's backward kernel is held
-    against the same)."""
+    """EVLFunction's backward is the closed-form dL/du kernel, scaled for
+    the reduction in the kernel; its plain version (what the kernel is
+    held against on the card) equals torch autograd through the plain
+    loss."""
     W, N = 3, 32
     u = np.stack([_uv(N, seed=s)[0] for s in range(W)])
     v = np.stack([_uv(N, seed=s)[1] for s in range(W)])
     g = np.random.default_rng(3).uniform(0.5, 1.5,
                                          (W, N) if reduce == "none" else W)
     g = torch.from_numpy(g.astype(np.float32))
-    u1 = torch.from_numpy(u).requires_grad_(True)
-    u2 = torch.from_numpy(u).requires_grad_(True)
-    tv = torch.from_numpy(v)
-    out1 = EVLFunction.apply(u1, tv, *BETAS, EPS, reduce)
-    out2 = evl_loss(u2, tv, *BETAS, EPS, reduce)
-    torch.testing.assert_close(out1, out2, rtol=RTOL, atol=ATOL)
-    (out1 * g).sum().backward()
-    (out2 * g).sum().backward()
-    torch.testing.assert_close(u1.grad, u2.grad, rtol=RTOL, atol=ATOL)
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    scale = {"none": g, "sum": g[:, None], "mean": g[:, None] / N}[reduce]
+    du = evl_grad_ref(tu, tv, *BETAS, EPS) * scale
+    u2 = tu.clone().requires_grad_(True)
+    (evl_loss(u2, tv, *BETAS, EPS, reduce) * g).sum().backward()
+    torch.testing.assert_close(du, u2.grad, rtol=RTOL, atol=ATOL)
 
 
 def test_rows_are_vmapped_reference():

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lstm import kernel as lstm_kernel
-from repro_torch.kernels.lstm.ops import LSTMCellFunction, lstm_cell
+from repro_torch.kernels.lstm.ops import lstm_cell, weight_grads
 from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
                                           lstm_cell_fwd_ref, lstm_cell_ref)
 
@@ -98,24 +98,27 @@ def test_plain_cell_gradient_matches_jax_grad(batch, in_dim, hidden):
                          [(1, 8, 5, 16), (2, 5, 5, 16), (3, 4, 16, 8)])
 def test_function_backward_matches_autograd_of_plain_cell(workers, batch,
                                                           in_dim, hidden):
-    """LSTMCellFunction on CPU tensors runs the plain versions of both
-    kernels; its backward (dgates, dc, dx, dh from the backward kernel's
-    function, then the weight gradients by bmm/sum) equals torch autograd
-    through the plain cell for all six operands."""
+    """LSTMCellFunction's backward: dgates, dc, dx, dh from the backward
+    kernel's function (its plain version here; the kernel is held
+    against it on the card), then the weight gradients by
+    ``ops.weight_grads``, equals torch autograd through the plain cell
+    for all six operands."""
     arrays = _stacked(workers, batch, in_dim, hidden)
     dh, dc = (torch.from_numpy(a)
               for a in _cotangents((workers, batch, hidden)))
-    t1 = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    x, h, c, wx, wh, b = (torch.from_numpy(a) for a in arrays)
+    _, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
+    dgates, dc_prev, dx, dh_prev = lstm_cell_bwd_ref(dh, dc, gates, c, c_new,
+                                                     wx, wh)
+    g1 = (dx, dh_prev, dc_prev) + weight_grads(x, h, dgates,
+                                               (True, True, True))
     t2 = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
-    h1, c1 = LSTMCellFunction.apply(*t1)
-    h2, c2 = lstm_cell_ref(*t2)
-    torch.testing.assert_close(h1, h2, rtol=0, atol=0)
-    torch.testing.assert_close(c1, c2, rtol=0, atol=0)
-    g1 = torch.autograd.grad((h1, c1), t1, (dh, dc))
-    g2 = torch.autograd.grad((h2, c2), t2, (dh, dc))
+    g2 = torch.autograd.grad(lstm_cell_ref(*t2), t2, (dh, dc))
     for name, a, b in zip(("x", "h", "c", "wx", "wh", "b"), g1, g2):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
                                    msg=f"d{name}")
+    assert weight_grads(x, h, dgates, (False, True, False))[::2] == (None,
+                                                                     None)
 
 
 def test_bwd_ref_is_the_gradient_of_the_cell():
