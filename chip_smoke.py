@@ -7,21 +7,26 @@ NVIDIA H100.
 It builds the hand-written CUDA kernels from the sources in the
 checkout (one ``nvcc`` per library, all started together) and holds
 each against its plain PyTorch version on the card: the LSTM cell's
-forward (with the local-SGD worker dim) and backward, and the EVL loss's
-forward and backward. It checks the forecaster's bitwise step == replay
-== generate contract and that a training step puts real gradients on
-every LSTM weight. Then it drives the port's two main paths: serving
-the paper LSTM (full width, random weights from seed 0) through
-``ServingEngine`` and the ``repro_torch.launch.serve`` CLI, and training
-it (serial, and asynchronous local SGD with 4 workers at tau 0 and 1,
-EVL on) through ``repro_torch.training`` and the
-``repro_torch.launch.train`` CLI, with every kernel launch counter set
-to 0 just before each path and read just after, and no plain version
-called on a card tensor. It times each kernel beside its plain version,
-a PyTorch yardstick where one exists, and its bound, and reads the
-device's busy share while serving and while training with
-``torch.profiler``. Any failed phase exits non-zero. The last two lines
-are a JSON object per kernel and ``{"ok": true, "device": {...}}``.
+forward (with the local-SGD worker dim) and backward, the EVL loss's
+forward and backward, and flash attention (the JAX kernel tests' sweep
+and masks, fp32 and bf16). It checks the forecaster's bitwise step ==
+replay == generate contract and that a training step puts real
+gradients on every LSTM weight. Then it drives the port's three main
+paths: serving the paper LSTM (full width, random weights from seed 0)
+through ``ServingEngine`` and the ``repro_torch.launch.serve`` CLI;
+training it (serial, and asynchronous local SGD with 4 workers at tau 0
+and 1, EVL on) through ``repro_torch.training`` and the
+``repro_torch.launch.train`` CLI; and serving the zoo's Qwen1.5-4B at
+full width and depth (bf16) through ``ServingEngine`` (a burst of short
+prompts, then one of 2048-token prompts) and the serve CLI, with the
+same model cut to 2 layers in fp32 held against the port on the CPU.
+Every kernel launch counter is set to 0 just before each path and read
+just after, and no plain version may run on a card tensor. It times
+each kernel beside its plain version, a PyTorch yardstick where one
+exists, and its bound, reads the device's busy share on each path with
+``torch.profiler``, and prints each phase's seconds. Any failed phase
+exits non-zero. The last two lines are a JSON object per kernel and
+``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -90,6 +95,27 @@ SERVING_SLICE_DIGESTS = {
     "32x5x64": "b46ead90d913392c4050d5d191ed385f8726984080ccaa3e211127c8d9dd08ec",
     "32x64x64": "72efe52a6d4959c3e5d4edd78e9a6a8958ec0f352b550e5a5eb235967ced05de",
     "64x64x64": "ecd8f29e5a126d3901f477e395ac7befb5484ff75b1d4ccf975ec68983d61740"}
+# flash attention: the JAX kernel tests' sweep (B, S, Hq, Hkv, D) (MHA,
+# GQA with a ragged S, MQA, S below a block), its masks, and its
+# tolerances: fp32 at rtol 2e-4 / atol 2e-5; bf16 at 0.08 (one bf16
+# rounding of the output after sums taken in another order)
+FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 300, 8, 1, 32),
+                (2, 64, 6, 2, 128)]
+FLASH_MASKS = [dict(causal=True), dict(causal=False),
+               dict(causal=True, window=37), dict(causal=True, q_offset=29)]
+FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5
+FLASH_BF16_TOL = 0.08
+BF16_OPS_PER_S = 989e12         # tensor cores, dense bf16
+# the zoo's serving path: Qwen1.5-4B at full width and depth (bf16,
+# random weights from seed 0) behind ServingEngine, two bursts of
+# (requests, prompt length, max_batch)
+ZOO_ARCH = "qwen1.5-4b"
+ZOO_BURSTS = [(64, 32, 8), (8, 2048, 4)]
+# the card against the CPU port on the same weights: Qwen1.5-4B at full
+# width, 2 layers, fp32 (TF32 off). Both sides sum 2560- and 6912-long
+# products in their own order; the logits (|logit| up to ~6) are held at
+# the whole-model bound of 1e-4, and the greedy tokens must be equal.
+ZOO_CPU_RTOL, ZOO_CPU_ATOL = 1e-4, 1e-4
 # the paper-LSTM training runs of the main path (CLI defaults: AAPL,
 # 1430 days, batch 32, seed 0; EVL weight 0.5)
 SERIAL_ITERATIONS = 300
@@ -117,15 +143,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the kernels of the paper LSTM's paths (a training step launches each)
+PAPER_KERNELS = ("lstm_cell", "lstm_cell_bwd", "evl_forward", "evl_backward")
+
+
 def counters():
     """Every kernel launch counter of the port, by kernel name."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.evl import kernel as evl_kernel
     from repro_torch.kernels.lstm import kernel as lstm_kernel
 
     return {"lstm_cell": lstm_kernel.LAUNCHES,
             "lstm_cell_bwd": lstm_kernel.BWD_LAUNCHES,
             "evl_forward": evl_kernel.EVL_LAUNCHES,
-            "evl_backward": evl_kernel.EVL_BWD_LAUNCHES}
+            "evl_backward": evl_kernel.EVL_BWD_LAUNCHES,
+            "flash_attention": attn_kernel.FLASH_LAUNCHES}
+
+
+def paper_counts() -> dict:
+    """Launches so far of the paper LSTM's kernels."""
+    return {k: c.total for k, c in counters().items() if k in PAPER_KERNELS}
 
 
 def reset_counters() -> None:
@@ -141,10 +178,12 @@ def read_counters() -> dict:
 def no_plain_version_on_the_card():
     """Record every call of a plain version from the kernel wrappers with
     a tensor on the card; the caller checks that there was none."""
+    import repro_torch.kernels.attention.ops as attn_ops
     import repro_torch.kernels.evl.ops as evl_ops
     import repro_torch.kernels.lstm.ops as lstm_ops
 
-    names = [(lstm_ops, "lstm_cell_ref"), (evl_ops, "evl_loss_ref")]
+    names = [(lstm_ops, "lstm_cell_ref"), (evl_ops, "evl_loss_ref"),
+             (attn_ops, "attention_ref")]
     calls: list[str] = []
     saved = {(m, n): getattr(m, n) for m, n in names}
     for (mod, name), fn in saved.items():
@@ -278,16 +317,19 @@ def build_kernels() -> None:
     """Phase 1: build every kernel library from the checkout, one nvcc
     each, all at once."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.evl import kernel as evl_kernel
     from repro_torch.kernels.lstm import kernel as lstm_kernel
 
-    libs = {**lstm_kernel.LIBRARIES, **evl_kernel.LIBRARIES}
+    libs = {**lstm_kernel.LIBRARIES, **evl_kernel.LIBRARIES,
+            **attn_kernel.LIBRARIES}
     cached = {n: build.library_path(n, s).exists() for n, s in libs.items()}
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     lstm_kernel.smem_bytes(5, 64)          # loads each library
     lstm_kernel.bwd_smem_bytes(64)
     evl_kernel._library()
+    attn_kernel._library()
     for name, path in paths.items():
         print(f"[build] {name}: {'cached' if cached[name] else 'built'} -> "
               f"{path.relative_to(ROOT)}")
@@ -505,7 +547,7 @@ def check_gradients(train_ds) -> None:
         loss_g, grads_g = value_and_grad(loss_fn, params_to(params, "cuda"),
                                          to_device(batch, "cuda"))
         torch.cuda.synchronize()
-    launched = {k: sum(v.values()) for k, v in read_counters().items()}
+    launched = paper_counts()
     loss_c, grads_c = value_and_grad(loss_fn, params, to_device(batch, "cpu"))
     check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
     check(all(n > 0 for n in launched.values()),
@@ -721,14 +763,14 @@ def train_main_path(data, tag: str):
     reset_counters()
     with no_plain_version_on_the_card() as plain_calls:
         for name, fn, kw, iters, n_cmp in runs:
-            before = {k: c.total for k, c in counters().items()}
+            before = paper_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = fn(train_ds, test_ds, iterations=iters, device="cuda",
                      **kw, **common)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launched = {k: c.total - before[k] for k, c in counters().items()}
+            launched = {k: n - before[k] for k, n in paper_counts().items()}
             hist = np.asarray(res.loss_history)
             check(np.all(np.isfinite(hist)) and np.isfinite(res.test_mse),
                   f"{name}: non-finite loss or test MSE")
@@ -790,7 +832,7 @@ def run_clis(window: int) -> None:
     res = train.main(["--arch", "paper-lstm", "--workers", "4",
                       "--iterations", "200", "--evl-weight", "0.5",
                       "--device", "cuda"])
-    launched = {k: c.total for k, c in counters().items()}
+    launched = paper_counts()
     check(np.isfinite(res.test_mse) and res.communications > 0,
           "python -m repro_torch.launch.train gave no trained model")
     check(all(n > 0 for n in launched.values()),
@@ -814,8 +856,8 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                                               lstm_cell_fwd_ref,
                                               lstm_cell_ref)
 
-    rows = {name: {} for name in counters()}
-    errs = {name: 0.0 for name in counters()}
+    rows = {name: {} for name in PAPER_KERNELS}
+    errs = {name: 0.0 for name in PAPER_KERNELS}
 
     def hold(name, shape, got, want, rtol, atol):
         """|kernel - plain| at one shape of the path, within tolerance."""
@@ -981,12 +1023,13 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
     return rows, every, errs
 
 
-def profile(label: str, drive, tag: str) -> None:
+def profile(label: str, drive, tag: str):
     """The device's busy share (kernel time from ``torch.profiler`` over
     wall time) while ``drive()`` runs. Only the device's own events are
     summed: a CPU op (``aten::bmm``, an autograd node) also carries the
     device time of the kernels it launched, and adding it too would count
-    those kernels twice."""
+    those kernels twice. Returns (wall us, busy us, [(us, count, kernel
+    name)] largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1008,6 +1051,7 @@ def profile(label: str, drive, tag: str) -> None:
     print(f"[profile] {tag}: {label}: wall {wall_us:.0f} us, device "
           f"busy {device_us:.1f} us = {100 * device_us / wall_us:.2f} % "
           f"(idle {100 - 100 * device_us / wall_us:.2f} %); top: {top}")
+    return wall_us, device_us, kernels
 
 
 def profile_serving(fc, payloads, sessions, tag: str) -> None:
@@ -1068,6 +1112,301 @@ def profile_training(train_ds, tag: str) -> None:
           f"{n / 15:.1f} per local step ({read_counters()})")
 
 
+def attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed=0):
+    """q [B, Sq, Hq, D], k, v [B, Skv, Hkv, D] from a seeded generator
+    on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(B, s, h, D, generator=g,
+                             device="cuda").to(dtype)
+                 for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+
+
+def flash_bound(B, Sq, Skv, Hq, Hkv, D, itemsize=2):
+    """Causal flash attention (q_offset 0): 4 B Hq D operations per
+    causal (query, key) pair at the bf16 tensor-core peak; q, k, v read
+    once and o written once at the memory rate."""
+    pairs = sum(min(i + 1, Skv) for i in range(Sq))
+    ops = 4 * B * Hq * D * pairs
+    nbytes = itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash() -> float:
+    """Phase 9: flash attention against its plain version on the card,
+    over the JAX kernel tests' sweep with the causal, non-causal,
+    window=37, q_offset and kv_valid masks, in fp32 and bf16; and rows
+    of B = 1 launches bit for bit the rows of a B = 8 launch at the short
+    prompt's shape. Returns the largest |kernel - plain| (fp32)."""
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for B, S, Hq, Hkv, D in FLASH_SHAPES:
+        for mask in FLASH_MASKS + [dict(causal=False, kv_valid=S - 13)]:
+            for dt in worst:
+                n += 1
+                q, k, v = attn_inputs(B, S, S, Hq, Hkv, D, dt, seed=n)
+                got = flash_attention(q, k, v, **mask).float()
+                want = attention_ref(q, k, v, **mask).float()
+                err = float((got - want).abs().max())
+                worst[dt] = max(worst[dt], err)
+                rtol, atol = ((FLASH_RTOL, FLASH_ATOL) if dt == torch.float32
+                              else (FLASH_BF16_TOL, FLASH_BF16_TOL))
+                check(torch.allclose(got, want, rtol=rtol, atol=atol),
+                      f"flash attention disagrees with its plain version "
+                      f"at {(B, S, Hq, Hkv, D)} {mask} {dt}: max err {err}")
+    q, k, v = attn_inputs(8, 32, 32, 20, 20, 128, torch.bfloat16, seed=99)
+    full = flash_attention(q, k, v, causal=True)
+    for b in range(8):
+        one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
+        check(torch.equal(one[0], full[b]),
+              f"flash attention row {b} of a B=8 launch != its B=1 launch")
+    print(f"[check] flash attention vs plain over {n} cases (the JAX sweep "
+          f"x causal, full, window 37, q_offset 29, kv_valid x fp32, bf16): "
+          f"max |kernel - plain| fp32 {worst[torch.float32]:.3e} (rtol "
+          f"{FLASH_RTOL}, atol {FLASH_ATOL}), bf16 "
+          f"{worst[torch.bfloat16]:.3e} (tol {FLASH_BF16_TOL}); rows of B=1 "
+          f"launches == rows of a B=8 launch bitwise (8x32x20x128 bf16)")
+    return worst[torch.float32]
+
+
+def zoo_serve_main_path(tag: str):
+    """Phase 10, the zoo's serving path: Qwen1.5-4B at full width and
+    depth (bf16, random weights from seed 0) behind ``ServingEngine``: 64
+    requests of 32 tokens (max_batch 8), then 8 of 2048 (max_batch 4).
+    Launch counts are zeroed just before each burst and read just after;
+    the flash kernel must run once per layer per predict flush, and no
+    plain version on a card tensor. Returns the forecaster, the flash
+    launches by shape, and the init's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.serving import (BatcherConfig, ModelRegistry,
+                                     ServingEngine, build_zoo_forecaster)
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fc = build_zoo_forecaster(ZOO_ARCH, seed=0, reduced=False,
+                              device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = fc.cfg
+    leaves = tree_leaves(fc.params)
+    n_params = sum(t.numel() for t in leaves)
+    check(cfg == get_config(ZOO_ARCH) and cfg.n_layers == 40
+          and cfg.d_model == 2560 and all(t.dtype == torch.bfloat16
+                                          and t.is_cuda for t in leaves),
+          f"{ZOO_ARCH} is not served at full width in bf16 on the card")
+    print(f"[zoo] {ZOO_ARCH}: {n_params} parameters ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+          f"{cfg.padded_vocab}, bf16) drawn on the card and calibrated in "
+          f"{init_s:.2f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    registry = ModelRegistry()
+    registry.register(ZOO_ARCH, fc)
+    launches: dict = {}
+    for i, (n_req, plen, max_batch) in enumerate(ZOO_BURSTS):
+        toks = synthetic_token_batch(n_req, plen, cfg.vocab, seed=i)
+        with ServingEngine(registry, BatcherConfig(
+                max_batch=max_batch, max_wait_ms=2.0,
+                length_buckets=(plen,))) as engine:
+            t0 = time.perf_counter()
+            n_warm = engine.warmup(ZOO_ARCH, lengths=(plen,))
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            engine.telemetry.reset_clock()
+            reset_counters()
+            with no_plain_version_on_the_card() as plain_calls:
+                t0 = time.perf_counter()
+                futs = [engine.submit(ZOO_ARCH, t, client_id=f"client-{j}")
+                        for j, t in enumerate(toks)]
+                results = [f.result(timeout=600.0) for f in futs]
+                wall = time.perf_counter() - t0
+            got = read_counters()
+            snap = engine.telemetry.snapshot()
+        flushes = snap["batches"]
+        n_flash = sum(got["flash_attention"].values())
+        res = np.asarray(results, np.float64)
+        check(not plain_calls, f"plain versions ran on the card: "
+                               f"{plain_calls}")
+        check(snap["requests"] == n_req and res.shape == (n_req, 2),
+              f"burst {i}: {snap['requests']} of {n_req} requests served")
+        check(n_flash == cfg.n_layers * flushes,
+              f"burst {i}: {n_flash} flash launches for {flushes} predict "
+              f"flushes of a {cfg.n_layers}-layer model")
+        check(all(n == 0 for k, v in got.items() if k != "flash_attention"
+                  for n in v.values()), f"other kernels launched: {got}")
+        check(np.all(np.isfinite(res)) and np.all(res[:, 0] == np.round(
+            res[:, 0])) and np.all((res[:, 0] >= 0) & (res[:, 0] < cfg.vocab))
+              and np.all((res[:, 1] >= 0) & (res[:, 1] <= 1)),
+              f"burst {i}: a reply is not a token and a probability")
+        same = "not compared (partial flushes)"
+        if flushes * max_batch == n_req:
+            # every flush was full: flush j served requests [j*mb, (j+1)*mb)
+            direct = np.concatenate([np.stack(fc.predict(
+                toks[j:j + max_batch]), 1) for j in range(0, n_req,
+                                                          max_batch)])
+            check(np.array_equal(direct[:, 0], res[:, 0])
+                  and np.allclose(direct[:, 1], res[:, 1], atol=1e-6),
+                  f"burst {i}: served replies != predict of the same "
+                  f"batches")
+            bits = np.array_equal(direct, res)
+            same = (f"== predict of the same batches (tokens equal, p "
+                    f"{'bitwise' if bits else 'within 1e-6'})")
+        for shape, n in got["flash_attention"].items():
+            launches[shape] = launches.get(shape, 0) + n
+        print(f"[zoo] {tag}: burst {i}: {n_req} requests of {plen} tokens "
+              f"(max_batch {max_batch}) in {wall * 1e3:.1f} ms: "
+              f"{snap['throughput_rps']:.2f} req/s, {n_req * plen / wall:.0f} "
+              f"prompt tokens/s, p50 {snap['p50_ms']:.1f} ms, p95 "
+              f"{snap['p95_ms']:.1f} ms; {flushes} predict flushes, "
+              f"{n_flash} flash launches = {n_flash / flushes:.1f} per flush "
+              f"by (B, Sq, Skv, Hq, Hkv, D) {got['flash_attention']}; "
+              f"replies {same}; no plain version on the card; warmup "
+              f"({n_warm} shapes) {warm_s:.2f} s; distinct tokens "
+              f"{len(set(res[:, 0]))}, p in [{res[:, 1].min():.4f}, "
+              f"{res[:, 1].max():.4f}]")
+    return fc, launches, init_s
+
+
+def zoo_card_vs_cpu(tag: str) -> float:
+    """Phase 11: Qwen1.5-4B at full width, 2 layers, fp32: the same
+    weights served on the card and by the port on the CPU give the same
+    greedy tokens and logits within the stated tolerance, over 8 windows
+    of 32 tokens. Returns the largest |logit difference|."""
+    import dataclasses
+
+    from repro_torch.checkpoint.convert import params_to
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving import ZooForecaster
+
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), n_layers=2,
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    cpu_params = params_to(params, "cpu")
+    toks = synthetic_token_batch(8, 32, cfg.vocab, seed=3)
+    tok_g, _ = ZooForecaster(cfg=cfg, params=params, device="cuda").predict(
+        toks)
+    tok_c, _ = ZooForecaster(cfg=cfg, params=cpu_params,
+                             device="cpu").predict(toks)
+    logits_g = model.forward(params, torch.as_tensor(
+        toks, dtype=torch.long, device="cuda"))[0].cpu()
+    logits_c = model.forward(cpu_params, torch.as_tensor(
+        toks, dtype=torch.long))[0]
+    err = float((logits_g - logits_c).abs().max())
+    check(np.array_equal(tok_g, tok_c),
+          f"greedy tokens on the card {tok_g} != on the CPU {tok_c}")
+    check(torch.allclose(logits_g, logits_c, rtol=ZOO_CPU_RTOL,
+                         atol=ZOO_CPU_ATOL),
+          f"logits on the card vs the CPU: max |diff| {err}")
+    print(f"[zoo] {tag}: {ZOO_ARCH} full width, 2 layers, fp32, same weights "
+          f"on the card and the CPU port, 8 windows of 32 tokens: greedy "
+          f"tokens equal {tok_g.astype(int).tolist()}; logits max |diff| "
+          f"{err:.3e} (max |logit| {float(logits_c.abs().max()):.2f}; rtol "
+          f"{ZOO_CPU_RTOL}, atol {ZOO_CPU_ATOL})")
+    return err
+
+
+def zoo_cli() -> None:
+    """Phase 12: the serve CLI with the full-width zoo arch on the card."""
+    from repro_torch.launch import serve
+
+    out = serve.main(["--model", ZOO_ARCH, "--no-reduced", "--requests", "16",
+                      "--max-batch", "8", "--device", "cuda"])
+    check(out["traffic"]["requests"] == 16,
+          "python -m repro_torch.launch.serve --model qwen1.5-4b "
+          "--no-reduced did not serve every request")
+    print(f"[cli] repro_torch.launch.serve --model {ZOO_ARCH} --no-reduced "
+          f"--requests 16 --max-batch 8 --device cuda: ok")
+
+
+def time_flash(launches: dict, tag: str):
+    """Phase 13: flash attention at every (B, S) shape of the zoo's path
+    (bf16, causal), held against its plain version there, then its
+    device time beside the plain version's, one
+    ``scaled_dot_product_attention`` call's (never called by the port)
+    and its bound. Returns rows by shape and the largest |kernel -
+    plain|."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    rows, worst = {}, 0.0
+    shapes = set(launches) | {(8, 32, 32, 20, 20, 128),
+                              (4, 2048, 2048, 20, 20, 128)}
+    for shape in sorted(shapes):
+        B, Sq, Skv, Hq, Hkv, D = shape
+        q, k, v = attn_inputs(B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
+                              seed=B * 7 + Sq)
+        got = attn_kernel.flash_attention_cuda(q, k, v, True, None, 0, Skv)
+        want = attention_ref(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        check(torch.allclose(got.float(), want.float(), rtol=FLASH_BF16_TOL,
+                             atol=FLASH_BF16_TOL),
+              f"flash attention disagrees with its plain version at the "
+              f"path's shape {shape}: max err {err}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        check(torch.allclose(lib.transpose(1, 2).float(), want.float(),
+                             rtol=FLASH_BF16_TOL, atol=FLASH_BF16_TOL),
+              f"scaled_dot_product_attention is not the same function at "
+              f"{shape}")
+        big = Sq >= 1024
+        inner, reps = (3, 5) if big else (50, 21)
+        bnd, by = flash_bound(*shape)
+        rows[shape] = {
+            "ms": graph_ms(lambda: attn_kernel.flash_attention_cuda(
+                q, k, v, True, None, 0, Skv), inner, reps),
+            "plain_ms": graph_ms(lambda: attention_ref(q, k, v, causal=True),
+                                 inner, reps),
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), inner, reps),
+            "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+        r = rows[shape]
+        print(f"[time] {tag}: flash_attention {shape} bf16 causal: kernel "
+              f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"scaled_dot_product_attention {r['library_ms'] * 1e3:.2f} us, "
+              f"bound {r['bound_ms'] * 1e3:.3f} us ({by}) = "
+              f"{100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time; "
+              f"|kernel - plain| {err:.3e}; {launches.get(shape, 0)} "
+              f"launches on the main path")
+    return rows, worst
+
+
+def profile_zoo(fc, tag: str) -> None:
+    """Phase 14, where a zoo flush's time goes: one predict flush at each
+    prompt length, the device's busy share, and the flash kernel's and
+    the matrix products' shares of it."""
+    from repro_torch.data.tokens import synthetic_token_batch
+
+    for n_req, plen, max_batch in ZOO_BURSTS:
+        toks = synthetic_token_batch(max_batch, plen, fc.cfg.vocab, seed=5)
+        fc.predict(toks)
+        wall, busy, kernels = profile(
+            f"one predict flush of {max_batch} x {plen} tokens",
+            lambda: fc.predict(toks), tag)
+        flash = sum(us for us, _, name in kernels if "flash_kernel" in name)
+        gemm = sum(us for us, _, name in kernels
+                   if "flash_kernel" not in name
+                   and any(w in name.lower() for w in (
+                       "nvjet", "gemm", "cutlass", "xmma")))
+        print(f"[profile] {tag}: flush of {max_batch} x {plen}: flash "
+              f"attention {flash:.1f} us = {100 * flash / busy:.2f} % of the "
+              f"busy time, matrix products (projections, MLP, LM head) "
+              f"{gemm:.1f} us = {100 * gemm / busy:.2f} %, the rest "
+              f"{busy - flash - gemm:.1f} us = "
+              f"{100 * (busy - flash - gemm) / busy:.2f} %")
+
+
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
     each shape on the main paths. The backward's line adds the kernel
@@ -1093,6 +1432,14 @@ def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     return entry
 
 
+def timed(label: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -1103,25 +1450,41 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     tag = f"{name} | {card}"
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
-    build_kernels()
-    errs = {"lstm_cell": check_forward(), "lstm_cell_bwd": check_backward()}
-    errs["evl_forward"], errs["evl_backward"] = check_evl()
-    data = training_data()
-    check_gradients(data[0])
-    fc = check_forecaster()
-    serve_launches, payloads, sessions = serve_main_path(fc, tag)
-    train_launches = train_main_path(data, tag)
-    run_clis(fc.window)
-    rows, every, path_errs = time_kernels(serve_launches, train_launches,
-                                          tag)
-    errs = {k: max(errs[k], path_errs[k]) for k in errs}
-    profile_serving(fc, payloads, sessions, tag)
-    profile_training(data[0], tag)
+    timed("build", build_kernels)
+    errs = {"lstm_cell": timed("check lstm_cell", check_forward),
+            "lstm_cell_bwd": timed("check lstm_cell_bwd", check_backward)}
+    errs["evl_forward"], errs["evl_backward"] = timed("check evl", check_evl)
+    errs["flash_attention"] = timed("check flash_attention", check_flash)
+    data = timed("training data", training_data)
+    timed("check gradients", check_gradients, data[0])
+    fc = timed("check forecaster", check_forecaster)
+    serve_launches, payloads, sessions = timed(
+        "serve paper-lstm", serve_main_path, fc, tag)
+    train_launches = timed("train paper-lstm", train_main_path, data, tag)
+    timed("paper-lstm CLIs", run_clis, fc.window)
+    rows, every, path_errs = timed("time paper-lstm kernels", time_kernels,
+                                   serve_launches, train_launches, tag)
+    errs = {k: max(errs[k], path_errs.get(k, 0.0)) for k in errs}
+    timed("profile paper-lstm serving", profile_serving, fc, payloads,
+          sessions, tag)
+    timed("profile paper-lstm training", profile_training, data[0], tag)
+    zoo_fc, flash_launches, init_s = timed(
+        f"serve {ZOO_ARCH}", zoo_serve_main_path, tag)
+    timed(f"{ZOO_ARCH} card vs CPU", zoo_card_vs_cpu, tag)
+    timed(f"{ZOO_ARCH} CLI", zoo_cli)
+    rows["flash_attention"], flash_err = timed(
+        "time flash_attention", time_flash, flash_launches, tag)
+    every["flash_attention"] = flash_launches
+    errs["flash_attention"] = max(errs["flash_attention"], flash_err)
+    timed(f"profile {ZOO_ARCH} serving", profile_zoo, zoo_fc, tag)
+    print(f"[zoo] {ZOO_ARCH} init (draw on the card + calibrate): "
+          f"{init_s:.2f} s")
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
     meta = {
         "lstm_cell": (csrc.format("lstm", "lstm_cell.cu"),
@@ -1131,9 +1494,12 @@ def main() -> None:
         "evl_forward": (csrc.format("evl", "evl.cu"),
                         "src/repro/kernels/evl/kernel.py:20"),
         "evl_backward": (csrc.format("evl", "evl.cu"),
-                         "src/repro/kernels/evl/kernel.py:20")}
+                         "src/repro/kernels/evl/kernel.py:20"),
+        "flash_attention": (csrc.format("attention", "flash_attention.cu"),
+                            "src/repro/kernels/attention/kernel.py:34")}
     entries = [kernel_entry(k, *meta[k], rows[k], every[k], errs[k])
                for k in meta]
+    print(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,12 @@ the local-SGD trainer works on, the way the JAX package's
 weights reach the port's trainers as
 ``params_from_numpy(jax.tree_util.tree_map(np.asarray, params))``
 (their ``init_params``), and worker-stacked as ``stack_workers(that, W)``.
+
+``zoo_params_from_numpy`` takes the model zoo's params
+(``repro.models.transformer.init_lm``, numpy-leaved, stacked [L, ...]
+layer leaves) to the port's nest of the same keys and shapes, each leaf
+cast to the config's dtype on ``device``. numpy has no bf16, so a bf16
+config's params arrive as fp32 arrays and are cast leaf by leaf.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import stack_workers, tree_map
 
 __all__ = ["params_from_numpy", "params_to", "params_to_numpy",
-           "stack_workers", "tree_map"]
+           "stack_workers", "tree_map", "zoo_params_from_numpy"]
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -42,3 +48,12 @@ def params_to(tree, device):
     """The same nest with every tensor on ``device`` (no copy where a
     tensor is already there)."""
     return tree_map(lambda t: t.to(device), tree)
+
+
+def zoo_params_from_numpy(cfg, tree, device="cuda"):
+    """A zoo arch's numpy-leaved params nest -> the same nest of tensors
+    in ``cfg``'s dtype (bf16 or fp32) on ``device``."""
+    device = resolve_device(device)
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return tree_map(lambda a: torch.tensor(np.asarray(a)).to(
+        device=device, dtype=dtype), tree)

@@ -14,8 +14,11 @@ Kernels ported so far:
            (replaces repro/kernels/lstm/kernel.py)
     evl  — the Extreme Value Loss with its reduction, and dL/du
            (replaces repro/kernels/evl/kernel.py)
+    attention — flash attention with GQA and its masks
+           (replaces repro/kernels/attention/kernel.py)
 """
+from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.kernels.evl.ops import evl_loss
 from repro_torch.kernels.lstm.ops import lstm_cell
 
-__all__ = ["evl_loss", "lstm_cell"]
+__all__ = ["evl_loss", "flash_attention", "lstm_cell"]

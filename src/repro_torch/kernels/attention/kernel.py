@@ -1,0 +1,64 @@
+"""Binding of the hand-written CUDA flash attention
+(``csrc/flash_attention.cu``).
+
+Built with ``nvcc`` for ``sm_90a`` at first use
+(``repro_torch.kernels.build``) and called through ``ctypes``, as the
+LSTM and EVL kernels are: pointers, the (batch, seq, head) strides of
+q, k, v and the output, and the current stream go in; the C function
+returns ``cudaGetLastError()``, raised here if it is not 0.
+``FLASH_LAUNCHES`` counts the launches by (B, Sq, Skv, Hq, Hkv, D).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import LaunchCounter
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
+LIBRARIES = {"flash_attention": SOURCES}
+# the head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 80, 128)
+
+FLASH_LAUNCHES = LaunchCounter()
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("flash_attention", SOURCES)
+    fn = lib.flash_attention_forward
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 4 + [_L] * 12 + [_I] * 11
+                       + [ctypes.c_float, _P])
+        fn.restype = _I
+    return lib
+
+
+def flash_attention_cuda(q, k, v, causal: bool, window, q_offset: int,
+                         kv_valid: int):
+    """Launch on validated CUDA tensors (see ``ops``): q [B, Sq, Hq, D];
+    k, v [B, Skv, Hkv, D]; one dtype, fp32 or bf16; last dim contiguous.
+    Returns a fresh [B, Sq, Hq, D] output in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = q.new_empty((B, Sq, Hq, D))
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    rc = lib.flash_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        B, Sq, Skv, Hq, Hkv, D, int(q.dtype == torch.bfloat16), int(causal),
+        0 if window is None else int(window), int(q_offset), int(kv_valid),
+        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed at "
+                           f"B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} "
+                           f"D={D} {q.dtype}: cudaError {rc}")
+    FLASH_LAUNCHES.add((B, Sq, Skv, Hq, Hkv, D))
+    return out

@@ -14,7 +14,7 @@ for the kernel route and ``"torch"`` for the plain one. Kernel launches
 themselves are counted by each kernel's binding
 (``repro_torch.kernels.lstm.kernel.LAUNCHES`` and ``BWD_LAUNCHES``,
 ``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` and
-``EVL_BWD_LAUNCHES``).
+``EVL_BWD_LAUNCHES``, ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import threading
 
 import torch
 
+from repro_torch.kernels.attention.ops import \
+    flash_attention as _flash_attention
 from repro_torch.kernels.evl.ops import evl_loss as _evl_loss
 from repro_torch.kernels.lstm.ops import lstm_cell as _lstm_cell
 
@@ -110,3 +112,12 @@ def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,
     autograd), CPU tensors the plain version
     (``kernels.evl.ops.evl_loss``)."""
     return _evl_loss(u, v, beta0, beta1, gamma, eps, reduce)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    q_offset: int = 0, kv_valid=None):
+    """The routed flash attention: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv,
+    D]. CUDA tensors run the hand-written kernel, CPU tensors the plain
+    version (``kernels.attention.ops.flash_attention``)."""
+    return _flash_attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_valid=kv_valid)

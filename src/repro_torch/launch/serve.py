@@ -1,6 +1,6 @@
-"""Serving launcher: hosts the paper LSTM behind the micro-batching
-engine on the card and replays a simulated many-client traffic trace
-against it.
+"""Serving launcher: hosts the paper LSTM or a zoo arch behind the
+micro-batching engine on the card and replays a simulated many-client
+traffic trace against it.
 
     # stream stock windows from 32 synthetic clients, then 20 ticks of
     # O(1) session steps from 8 of them through the decode slots
@@ -9,6 +9,12 @@ against it.
 
     # the same on the CPU (plain PyTorch path, no kernel)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+    # a zoo arch at full width on the card (Qwen1.5-4B, bf16), serving
+    # next-token forecasts over synthetic 32-token prompts; without
+    # --no-reduced it hosts the reduced (2-layer, CPU smoke) config
+    PYTHONPATH=src python -m repro_torch.launch.serve --model qwen1.5-4b \
+        --no-reduced --requests 64 --max-batch 8 --prompt-len 32
 
 Single process only; the sharded mesh, process workers, ensembles and
 the durable state directory of ``repro.launch.serve`` wait for later
@@ -46,14 +52,23 @@ def _precision_recall(alerts: np.ndarray, labels: np.ndarray):
 def main(argv: list[str] | None = None) -> dict:
     """Run the CLI; returns the traffic and session telemetry snapshots
     (``{"traffic": ..., "sessions": ... or None}``)."""
+    from repro_torch.configs import list_archs
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="paper-lstm", choices=["paper-lstm"],
-                    help="the model to host (the port serves the paper "
-                    "LSTM so far)")
+    ap.add_argument("--model", default="paper-lstm",
+                    choices=["paper-lstm", *list_archs()],
+                    help="the model to host: the paper LSTM or a zoo arch "
+                    "the port runs")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the reduced (CPU smoke) zoo config; "
+                    "--no-reduced hosts the full config")
     ap.add_argument("--clients", type=int, default=32)
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--max-batch", type=int, default=32)
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="tokens per request of a zoo arch")
     ap.add_argument("--sessions", action="store_true",
                     help="also demo O(1) per-step session serving")
     ap.add_argument("--alert-threshold", type=float, default=0.9)
@@ -70,21 +85,32 @@ def main(argv: list[str] | None = None) -> dict:
     from repro_torch.obs import Tracer
     from repro_torch.serving import (BatcherConfig, ModelRegistry,
                                      ServingEngine, Telemetry,
-                                     build_lstm_forecaster)
+                                     build_lstm_forecaster,
+                                     build_zoo_forecaster)
 
     registry = ModelRegistry()
-    fc = build_lstm_forecaster(seed=args.seed, device=args.device)
+    if args.model == "paper-lstm":
+        fc = build_lstm_forecaster(seed=args.seed, device=args.device)
+    else:
+        fc = build_zoo_forecaster(args.model, seed=args.seed,
+                                  reduced=args.reduced, device=args.device)
     registry.register(args.model, fc)
     print(f"hosting {args.model!r} on {fc.device}")
 
-    streams = _traffic_datasets(args.clients, fc.window, args.seed)
-    payloads, labels = [], []
-    for i in range(args.requests):
-        ds = streams[i % args.clients]
-        j = i % len(ds)
-        payloads.append(ds.x[j])
-        labels.append(int(ds.v[j]))
-    labels = np.asarray(labels)
+    labels = np.zeros((0,), np.int64)
+    if fc.feature_dim:                      # window-stream (LSTM) traffic
+        streams = _traffic_datasets(args.clients, fc.window, args.seed)
+        payloads, labels_list = [], []
+        for i in range(args.requests):
+            ds = streams[i % args.clients]
+            j = i % len(ds)
+            payloads.append(ds.x[j])
+            labels_list.append(int(ds.v[j]))
+        labels = np.asarray(labels_list)
+    else:                                   # token traffic for zoo archs
+        from repro_torch.data.tokens import synthetic_token_batch
+        payloads = list(synthetic_token_batch(
+            args.requests, args.prompt_len, fc.cfg.vocab, seed=args.seed))
 
     # bucket exactly the lengths this trace contains: no padding waste
     lengths = tuple(sorted({p.shape[0] for p in payloads}))
@@ -104,7 +130,7 @@ def main(argv: list[str] | None = None) -> dict:
         results = [f.result(timeout=60.0) for f in futures]
         wall = time.time() - t0
         snap = engine.telemetry.snapshot()
-        if args.sessions:
+        if args.sessions and fc.feature_dim:
             # engine-resident sessions over the decode slots: carries
             # stay in device lanes between ticks, and each tick's steps
             # flush as ONE generate instead of one call per client

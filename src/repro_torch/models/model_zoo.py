@@ -1,0 +1,46 @@
+"""``build_model(cfg)``: one functional handle over the zoo's
+architectures (``repro.models.model_zoo``).
+
+``init`` and ``forward`` run for the dense family; ``loss`` waits for
+zoo training, ``prefill``, ``decode_step`` and ``init_cache`` for the
+decode path, and raise until their slice (ROADMAP "Next").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tfm
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    init: Callable            # (generator) -> params
+    forward: Callable         # (params, tokens, frames=None) -> (logits, aux)
+    loss: Callable            # (params, tokens, frames=None) -> scalar
+    prefill: Callable         # (params, tokens, frames=None) -> (logits, cache)
+    decode_step: Callable     # (params, token, cache) -> (logits, cache)
+    init_cache: Callable      # (batch, max_len) -> cache
+
+
+def _later(what: str, item: str) -> Callable:
+    def fn(*args, **kwargs):
+        raise tfm.not_ported(what, item)
+    return fn
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda generator: tfm.init_lm(cfg, generator),
+        forward=lambda p, t, frames=None: tfm.lm_forward(cfg, p, t, frames),
+        loss=_later("lm_loss", "zoo training"),
+        prefill=_later("lm_prefill", "the decode path"),
+        decode_step=_later("lm_decode_step", "the decode path"),
+        init_cache=_later("init_cache", "the decode path"),
+    )

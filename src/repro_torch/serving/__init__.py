@@ -1,13 +1,15 @@
-"""Streaming forecast serving on the card: the paper LSTM behind a
-forecaster interface (``forecaster``), device-resident decode slots and
-session cache (``sessions``), a versioned model registry
-(``registry``), the micro-batching engine (``engine``) and its
-telemetry (``telemetry``)."""
+"""Streaming forecast serving on the card: the paper LSTM and the zoo's
+dense LMs behind one forecaster interface (``forecaster``),
+device-resident decode slots and session cache (``sessions``), a
+versioned model registry (``registry``), the micro-batching engine
+(``engine``) and its telemetry (``telemetry``)."""
 
 from repro_torch.serving.engine import (BatcherConfig, EngineShard,
                                         ServingEngine)
 from repro_torch.serving.forecaster import (DecodeSlots, LSTMForecaster,
-                                            build_lstm_forecaster)
+                                            ZooForecaster,
+                                            build_lstm_forecaster,
+                                            build_zoo_forecaster)
 from repro_torch.serving.registry import ModelRegistry, RegistryEntry
 from repro_torch.serving.sessions import (RecurrentSessionRunner,
                                           SessionCache)
@@ -24,5 +26,7 @@ __all__ = [
     "ServingEngine",
     "SessionCache",
     "Telemetry",
+    "ZooForecaster",
     "build_lstm_forecaster",
+    "build_zoo_forecaster",
 ]

@@ -1,6 +1,8 @@
 """Dynamic micro-batching engine: a request queue drained by a worker
 thread that groups requests by (model, length bucket), right-pads them
-into fixed bucket shapes, and runs one ``predict`` per batch.
+into fixed bucket shapes, and runs one ``predict`` per batch. A window
+is [T, F] features (the paper LSTM) or [T] int32 token ids (a zoo LM,
+whose ``feature_dim`` is 0), as in ``repro.serving.engine``.
 
 Flush policy: a group is dispatched as soon as it holds ``max_batch``
 requests, or when its oldest request has waited ``max_wait_ms``. Shapes
@@ -271,7 +273,8 @@ class EngineShard:
     # -- client API --------------------------------------------------------
     def submit(self, model_key: str, window,
                client_id: str | None = None, trace=None) -> Future:
-        """Enqueue one window ([T, F] features); returns a Future
+        """Enqueue one window: [T, F] features, or [T] int token ids for
+        a model without a feature axis (a zoo LM); returns a Future
         resolving to (forecast, p_extreme) scalars. ``client_id`` feeds
         per-client telemetry; ``trace`` is a caller's Trace (with none,
         the engine's tracer records the request)."""
@@ -280,10 +283,12 @@ class EngineShard:
             payload = np.asarray(window)
             fc = self.registry.get(model_key)
             F = fc.feature_dim
-            if payload.ndim != 2 or payload.shape[0] < 1 \
-                    or payload.shape[1] != F:
-                raise ValueError(f"{model_key!r} expects windows of shape "
-                                 f"[T>=1, {F}], got {payload.shape}")
+            if payload.ndim != (2 if F else 1) or payload.shape[0] < 1 \
+                    or (F and payload.shape[1] != F):
+                raise ValueError(
+                    f"{model_key!r} expects windows of shape "
+                    f"{f'[T>=1, {F}]' if F else '[T>=1]'}, got "
+                    f"{payload.shape}")
         except Exception:
             self._reject("predict", model_key, trace, t_tr)
             raise
@@ -363,7 +368,8 @@ class EngineShard:
         n = 0
         for t in {self.config.bucket_len(x) for x in lens}:
             for b in batches:
-                zeros = [np.zeros((t, fc.feature_dim), np.float32)] * b
+                zeros = [np.zeros(self._payload_shape(fc, t),
+                                  self._payload_dtype(fc))] * b
                 fc.predict(*self._padded(fc, zeros, [t] * b, b, t))
                 n += 1
         if hasattr(fc, "warm_decode") and fc.feature_dim:
@@ -373,10 +379,18 @@ class EngineShard:
 
     # -- batching internals ------------------------------------------------
     @staticmethod
-    def _padded(fc, payloads, lengths, bucket_b: int, bucket_t: int):
+    def _payload_shape(fc, t: int):
+        return (t, fc.feature_dim) if fc.feature_dim else (t,)
+
+    @staticmethod
+    def _payload_dtype(fc):
+        return np.float32 if fc.feature_dim else np.int32
+
+    def _padded(self, fc, payloads, lengths, bucket_b: int, bucket_t: int):
         """Stack variable-length payloads into one right-padded batch of
-        shape [bucket_b, bucket_t, F]; padded rows get length 1."""
-        x = np.zeros((bucket_b, bucket_t, fc.feature_dim), np.float32)
+        shape [bucket_b, bucket_t, ...]; padded rows get length 1."""
+        x = np.zeros((bucket_b,) + self._payload_shape(fc, bucket_t),
+                     self._payload_dtype(fc))
         out_len = np.ones((bucket_b,), np.int32)
         for i, (p, t) in enumerate(zip(payloads, lengths)):
             x[i, :t] = p

@@ -1,10 +1,18 @@
-"""The paper LSTM behind the serving interface: ``predict(windows,
-lengths) -> (forecast, extreme_probability)`` plus O(1) streaming with
-explicit carries and device-resident decode slots.
+"""One serving interface over the port's models: ``predict(windows,
+lengths) -> (forecast, extreme_probability)``.
 
-The forecast is the next-step normalized close; the extreme probability
-fuses the EVL sigmoid head with the EVT tail machinery of
-``repro_torch.extreme`` (eq. 3 GEV depth-into-tail) by noisy-OR.
+``LSTMForecaster`` serves the paper LSTM, with O(1) streaming by
+explicit carries and device-resident decode slots besides.
+``ZooForecaster`` serves a zoo arch (so far the dense family, e.g.
+Qwen1.5-4B) as next-token prediction over right-padded token windows:
+the forecast is the greedy next token and the extreme probability the
+EVT-calibrated surprisal of it; every layer's attention runs through
+the hand-written CUDA flash-attention kernel on the card.
+
+For the LSTM, the forecast is the next-step normalized close; the
+extreme probability fuses the EVL sigmoid head with the EVT tail
+machinery of ``repro_torch.extreme`` (eq. 3 GEV depth-into-tail) by
+noisy-OR.
 
 Every call runs eagerly on ``device`` (the card unless the caller asks
 for the CPU). Each LSTM step goes through the hand-written CUDA cell on
@@ -27,7 +35,9 @@ results come back in one device-to-host copy.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
@@ -394,4 +404,114 @@ def build_lstm_forecaster(seed: int = 0, cfg: RNNConfig | None = None,
         ohlcv = load_stock(calibrate_ticker, n_days=n_days)
         ds = make_windows(ohlcv, window=cfg.window)
         fc.calibrate(ds.x)
+    return fc
+
+
+@dataclasses.dataclass
+class ZooForecaster:
+    """A zoo arch behind the serving interface
+    (``repro.serving.forecaster.ZooForecaster``): the forecast is the
+    greedy next token after each window, the extreme probability its
+    surprisal judged against the EVT tail fitted by ``calibrate``.
+    ``params`` are moved to ``device``."""
+
+    cfg: Any                     # repro_torch.configs.base.ArchConfig
+    params: PyTree
+    tail: dict | None = None
+    gamma: float = 5.0
+    version: int = 0
+    published_at: float | None = None
+    device: Any = "cuda"
+    kind: str = dataclasses.field(default="zoo", init=False)
+
+    def __post_init__(self):
+        from repro_torch.models.model_zoo import build_model
+
+        self.device = resolve_device(self.device)
+        self.params = params_to(self.params, self.device)
+        self._model = build_model(self.cfg)
+
+    @property
+    def window(self) -> int:
+        return 32                # default serving context bucket
+
+    @property
+    def feature_dim(self) -> int:
+        return 0                 # token ids, no feature axis
+
+    def _forward(self, windows, lengths):
+        """(greedy token [B], surprisal [B]) on the device for int token
+        windows [B, T] (right-padded) and their true lengths. Like the
+        JAX package, the log-softmax runs in the logits' dtype over the
+        real vocab (padding ids sliced off) at each row's last real
+        position."""
+        tokens = torch.as_tensor(np.asarray(windows, np.int64),
+                                 device=self.device)
+        B, T = tokens.shape
+        lens = np.full((B,), T, np.int64) if lengths is None \
+            else np.asarray(lengths, np.int64)
+        last_pos = torch.as_tensor(lens - 1, device=self.device)
+        logits, _ = self._model.forward(self.params, tokens)
+        last = logits[torch.arange(B, device=self.device), last_pos]
+        last = last[:, :self.cfg.vocab]
+        logp = torch.log_softmax(last, dim=-1)
+        tok = torch.argmax(last, dim=-1)
+        surprisal = -torch.gather(logp, 1, tok[:, None])[:, 0]
+        return tok, surprisal
+
+    def predict(self, windows, lengths=None):
+        """windows int [B, T] token ids (right-padded), lengths [B] true
+        lengths. Returns (next_token [B] as float32, p_extreme [B]) as
+        numpy arrays, in one device-to-host copy."""
+        tok, surprisal = self._forward(windows, lengths)
+        p = _alert_probability(surprisal, self.tail, self.gamma)
+        return _to_host(tok.to(torch.float32), p)
+
+    def calibrate(self, windows, quantile: float = 0.95) -> "ZooForecaster":
+        """Fit the EVT tail on this model's surprisal over full-length
+        reference windows."""
+        _, surprisal = self._forward(windows, None)
+        self.tail = fit_tail(surprisal.to(torch.float32).cpu(), q=quantile)
+        return self
+
+    def with_params(self, params: PyTree) -> "ZooForecaster":
+        """Unpublished successor serving ``params`` with this model's
+        calibration carried over (the hot-swap constructor): a shallow
+        copy sharing the model handle."""
+        clone = copy.copy(self)
+        clone.params = params_to(params, self.device)
+        clone.version = 0
+        clone.published_at = None
+        return clone
+
+
+def build_zoo_forecaster(arch: str, seed: int = 0, reduced: bool = True,
+                         calibrate_batch: int = 8,
+                         device="cuda") -> ZooForecaster:
+    """A zoo arch served on ``device``: the full config, or its reduced
+    CPU-smoke variant; random weights drawn from a ``torch.Generator``
+    on ``device`` seeded with ``seed`` (on the card the model is drawn
+    there, with no copy on the host; the CPU and the card give different
+    weights for one seed); EVT-calibrated on ``calibrate_batch``
+    synthetic token windows. Prints the init's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced as reduce_cfg
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = reduce_cfg(cfg)
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(seed))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"init {cfg.name} ({cfg.param_count() / 1e6:.1f} M params, "
+          f"{cfg.dtype}) on {device}: {time.perf_counter() - t0:.2f} s")
+    fc = ZooForecaster(cfg=cfg, params=params, device=device)
+    if calibrate_batch:
+        fc.calibrate(synthetic_token_batch(calibrate_batch, fc.window,
+                                           cfg.vocab, seed=seed))
     return fc

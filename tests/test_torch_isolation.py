@@ -14,11 +14,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.checkpoint.convert import (params_from_numpy,
+                                           zoo_params_from_numpy)
 from repro_torch.launch import serve, train
 from repro_torch.models.rnn import init_rnn
-from repro_torch.serving.forecaster import (LSTMForecaster,
-                                            build_lstm_forecaster)
+from repro_torch.serving.forecaster import (LSTMForecaster, ZooForecaster,
+                                            build_lstm_forecaster,
+                                            build_zoo_forecaster)
 from repro_torch.training.loop import train_rnn_local_sgd, train_rnn_serial
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -54,17 +56,26 @@ def test_port_package_is_complete():
             "optim/optimizers.py", "training/loop.py", "training/metrics.py",
             "data/sharding.py", "extreme/evl.py", "launch/train.py",
             "tree.py"} <= names
+    # the zoo serving slice's modules
+    assert {"configs/base.py", "configs/qwen1_5_4b.py", "models/mlp.py",
+            "models/attention.py", "models/transformer.py",
+            "models/model_zoo.py", "data/tokens.py",
+            "kernels/attention/ref.py", "kernels/attention/kernel.py",
+            "kernels/attention/ops.py"} <= names
     for src in ("kernels/lstm/csrc/lstm_cell.cu",
                 "kernels/lstm/csrc/lstm_cell_bwd.cu",
-                "kernels/evl/csrc/evl.cu"):
+                "kernels/evl/csrc/evl.cu",
+                "kernels/attention/csrc/flash_attention.cu"):
         assert (ROOT / "src/repro_torch" / src).is_file()
 
 
 def test_entry_points_default_to_cuda():
     for fn in (build_lstm_forecaster, init_rnn, params_from_numpy,
-               train_rnn_serial, train_rnn_local_sgd):
+               train_rnn_serial, train_rnn_local_sgd, build_zoo_forecaster,
+               zoo_params_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    assert LSTMForecaster.__dataclass_fields__["device"].default == "cuda"
+    for fc in (LSTMForecaster, ZooForecaster):
+        assert fc.__dataclass_fields__["device"].default == "cuda"
     for cli in (serve, train):
         tree = ast.parse(inspect.getsource(cli))
         defaults = [kw.value.value for node in ast.walk(tree)
@@ -92,6 +103,8 @@ def test_without_a_card_chip_smoke_and_cli_fail(tmp_path):
     out = _run([str(lone)], tmp_path)
     assert out.returncode != 0 and '"ok": true' not in out.stdout
     for cli in (["-m", "repro_torch.launch.serve", "--requests", "1"],
+                ["-m", "repro_torch.launch.serve", "--model", "qwen1.5-4b",
+                 "--requests", "1"],
                 ["-m", "repro_torch.launch.train", "--iterations", "1"]):
         out = _run(cli, ROOT)
         assert out.returncode != 0
