@@ -96,15 +96,20 @@ SERVING_SLICE_DIGESTS = {
     "32x64x64": "72efe52a6d4959c3e5d4edd78e9a6a8958ec0f352b550e5a5eb235967ced05de",
     "64x64x64": "ecd8f29e5a126d3901f477e395ac7befb5484ff75b1d4ccf975ec68983d61740"}
 # flash attention: the JAX kernel tests' sweep (B, S, Hq, Hkv, D) (MHA,
-# GQA with a ragged S, MQA, S below a block), its masks, and its
-# tolerances: fp32 at rtol 2e-4 / atol 2e-5; bf16 at 0.08 (one bf16
-# rounding of the output after sums taken in another order)
+# GQA with a ragged S, MQA, S below a block), its masks, and its fp32
+# tolerances, rtol 2e-4 / atol 2e-5. In bf16 the kernel and the plain
+# version both work in fp32 on the same bf16 inputs and round the output
+# once, so they differ by at most one bf16 step of the output, 2^-7 of
+# its size: rtol 1e-2, with atol 1e-4 for outputs near 0 (a row of the
+# 2048-token path has outputs of size about 0.04). The JAX tests' 0.08
+# is kept for scaled_dot_product_attention only, which rounds P to bf16.
 FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 300, 8, 1, 32),
                 (2, 64, 6, 2, 128)]
 FLASH_MASKS = [dict(causal=True), dict(causal=False),
                dict(causal=True, window=37), dict(causal=True, q_offset=29)]
 FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5
-FLASH_BF16_TOL = 0.08
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 1e-4
+LIBRARY_BF16_TOL = 0.08
 BF16_OPS_PER_S = 989e12         # tensor cores, dense bf16
 # the zoo's serving path: Qwen1.5-4B at full width and depth (bf16,
 # random weights from seed 0) behind ServingEngine, two bursts of
@@ -1154,7 +1159,7 @@ def check_flash() -> float:
                 err = float((got - want).abs().max())
                 worst[dt] = max(worst[dt], err)
                 rtol, atol = ((FLASH_RTOL, FLASH_ATOL) if dt == torch.float32
-                              else (FLASH_BF16_TOL, FLASH_BF16_TOL))
+                              else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
                 check(torch.allclose(got, want, rtol=rtol, atol=atol),
                       f"flash attention disagrees with its plain version "
                       f"at {(B, S, Hq, Hkv, D)} {mask} {dt}: max err {err}")
@@ -1168,7 +1173,8 @@ def check_flash() -> float:
           f"x causal, full, window 37, q_offset 29, kv_valid x fp32, bf16): "
           f"max |kernel - plain| fp32 {worst[torch.float32]:.3e} (rtol "
           f"{FLASH_RTOL}, atol {FLASH_ATOL}), bf16 "
-          f"{worst[torch.bfloat16]:.3e} (tol {FLASH_BF16_TOL}); rows of B=1 "
+          f"{worst[torch.bfloat16]:.3e} (rtol {FLASH_BF16_RTOL}, atol "
+          f"{FLASH_BF16_ATOL}); rows of B=1 "
           f"launches == rows of a B=8 launch bitwise (8x32x20x128 bf16)")
     return worst[torch.float32]
 
@@ -1329,14 +1335,16 @@ def zoo_cli() -> None:
 
 def time_flash(launches: dict, tag: str):
     """Phase 13: flash attention at every (B, S) shape of the zoo's path
-    (bf16, causal), held against its plain version there, then its
-    device time beside the plain version's, one
+    (causal), held against its plain version there through the wrapper
+    the path runs, in bf16 and on fp32 copies of the same inputs; then
+    its device time (bf16) beside the plain version's, one
     ``scaled_dot_product_attention`` call's (never called by the port)
     and its bound. Returns rows by shape and the largest |kernel -
     plain|."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.attention.ref import attention_ref
 
     rows, worst = {}, 0.0
@@ -1346,20 +1354,30 @@ def time_flash(launches: dict, tag: str):
         B, Sq, Skv, Hq, Hkv, D = shape
         q, k, v = attn_inputs(B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
                               seed=B * 7 + Sq)
-        got = attn_kernel.flash_attention_cuda(q, k, v, True, None, 0, Skv)
-        want = attention_ref(q, k, v, causal=True)
-        err = float((got.float() - want.float()).abs().max())
+        errs = {}
+        for dt, rtol, atol in ((torch.bfloat16, FLASH_BF16_RTOL,
+                                FLASH_BF16_ATOL),
+                               (torch.float32, FLASH_RTOL, FLASH_ATOL)):
+            a, b, c = (t.to(dt) for t in (q, k, v))
+            got = flash_attention(a, b, c, causal=True).float()
+            want = attention_ref(a, b, c, causal=True).float()
+            errs[dt] = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=rtol, atol=atol),
+                  f"flash attention disagrees with its plain version at the "
+                  f"path's shape {shape} in {dt}: max err {errs[dt]} (rtol "
+                  f"{rtol}, atol {atol})")
+            if dt == torch.bfloat16:
+                want_bf16 = want
+            del a, b, c, got, want
+        err = max(errs.values())
         worst = max(worst, err)
-        check(torch.allclose(got.float(), want.float(), rtol=FLASH_BF16_TOL,
-                             atol=FLASH_BF16_TOL),
-              f"flash attention disagrees with its plain version at the "
-              f"path's shape {shape}: max err {err}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        check(torch.allclose(lib.transpose(1, 2).float(), want.float(),
-                             rtol=FLASH_BF16_TOL, atol=FLASH_BF16_TOL),
+        lib_err = float((lib.transpose(1, 2).float() - want_bf16).abs().max())
+        check(lib_err <= LIBRARY_BF16_TOL,
               f"scaled_dot_product_attention is not the same function at "
-              f"{shape}")
+              f"{shape}: max err {lib_err}")
+        del lib, want_bf16
         big = Sq >= 1024
         inner, reps = (3, 5) if big else (50, 21)
         bnd, by = flash_bound(*shape)
@@ -1377,7 +1395,11 @@ def time_flash(launches: dict, tag: str):
               f"scaled_dot_product_attention {r['library_ms'] * 1e3:.2f} us, "
               f"bound {r['bound_ms'] * 1e3:.3f} us ({by}) = "
               f"{100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time; "
-              f"|kernel - plain| {err:.3e}; {launches.get(shape, 0)} "
+              f"|kernel - plain| bf16 {errs[torch.bfloat16]:.3e} (rtol "
+              f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}), fp32 "
+              f"{errs[torch.float32]:.3e} (rtol {FLASH_RTOL}, atol "
+              f"{FLASH_ATOL}); |sdpa - plain| bf16 {lib_err:.3e}; "
+              f"{launches.get(shape, 0)} "
               f"launches on the main path")
     return rows, worst
 

@@ -43,6 +43,14 @@ def _check(q, k, v, window, q_offset, kv_valid) -> None:
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
+    # with a window, the last query row sees the keys in (pos - window,
+    # kv_end): empty once the window has slid past the last valid key
+    kv_end = k.shape[1] if kv_valid is None else kv_valid
+    if window is not None and q.shape[1] \
+            and q_offset + q.shape[1] - window >= kv_end:
+        raise ValueError(f"flash_attention: window {window} leaves query "
+                         f"position {q_offset + q.shape[1] - 1} no key "
+                         f"below {kv_end}")
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"flash_attention: q, k, v must share one device, "

@@ -10,53 +10,17 @@ the kernel chooses its own tiles, so the JAX function's ``q_block`` /
 probabilities with v in fp32, where ``blocked_attention`` first rounds
 them to v's dtype (bf16 on the card's path), as the TPU kernel does not.
 
-``reference_attention`` is the naive oracle, for tests only.
+The naive oracle of the JAX package (``reference_attention``) is the
+kernel's plain version here, ``kernels.attention.ref.attention_ref``.
 ``decode_attention`` comes with the decode path (ROADMAP "Next").
 """
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.attention.ref import NEG_INF
 
-
-def blocked_attention(q, k, v, *, causal: bool = True,
-                      window: int | None = None, q_offset: int = 0):
-    """Online-softmax attention.
-
-    Args:
-        q: [B, Sq, Hq, D]
-        k, v: [B, Skv, Hkv, D], Hq % Hkv == 0 (GQA).
-        causal: apply the causal mask (query position = q_offset + index).
-        window: sliding-window size (keys within [pos-window+1, pos]).
-        q_offset: absolute position of q[0] (decode / chunked prefill).
-
-    Returns [B, Sq, Hq, D] in q.dtype.
-    """
-    return dispatch.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
-
-
-def reference_attention(q, k, v, *, causal: bool = True,
-                        window: int | None = None, q_offset: int = 0):
-    """Naive O(S^2) oracle with ``torch.softmax``, tests only."""
-    B, Sq, Hq, D = q.shape
-    Hkv = k.shape[2]
-    G = Hq // Hkv
-    Skv = k.shape[1]
-    qh = q.reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qh.to(torch.float32),
-                     k.to(torch.float32)) * (D ** -0.5)
-    qpos = q_offset + torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Skv, device=q.device)
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.to(torch.float32))
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+# q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D], Hq % Hkv == 0 (GQA); causal,
+# a sliding ``window`` (keys in [pos - window + 1, pos]) and ``q_offset``
+# (the absolute position of q[0]) as in the JAX function; [B, Sq, Hq, D]
+# in q's dtype
+blocked_attention = dispatch.flash_attention

@@ -6,9 +6,11 @@ GQA with a ragged S, MQA, S below a block) with the causal, non-causal,
 ``blocked_attention`` vs JAX's; the wrapper's checks and device route;
 and, on a card, the hand-written CUDA kernel vs the plain version.
 
-Tolerances are the JAX kernel tests': rtol 2e-4 / atol 2e-5 in fp32,
-0.08 in bf16 (one bf16 rounding of the output, after sums taken in
-another order). The JAX package is imported inside the parity tests
+Tolerances against JAX are the JAX kernel tests': rtol 2e-4 / atol
+2e-5 in fp32, 0.08 in bf16 (one bf16 rounding of the output, after sums
+taken in another order). On a card the kernel and its plain version both
+work in fp32 on the same bf16 inputs, so in bf16 they differ by one bf16
+step of the output at most: rtol 1e-2 (above 2^-7), atol 1e-4. The JAX package is imported inside the parity tests
 only, so that the ``cuda`` tests also run on a machine with a card and
 no jax: ``python -m pytest -q -m cuda tests/test_torch_attention.py``."""
 
@@ -24,6 +26,7 @@ from repro_torch.models import attention as tattn
 
 RTOL, ATOL = 2e-4, 2e-5       # tests/test_kernels.py, fp32
 BF16_TOL = 0.08               # tests/test_kernels.py, bf16
+CARD_BF16_RTOL, CARD_BF16_ATOL = 1e-2, 1e-4   # kernel vs plain, bf16
 
 # tests/test_kernels.py's flash sweep: (B, S, Hq, Hkv, D)
 SHAPES = [(1, 128, 4, 4, 64),     # MHA, aligned
@@ -138,7 +141,7 @@ def test_blocked_attention_matches_jax(kwargs):
                                       **kwargs)
     np.testing.assert_allclose(got, np.asarray(blocked), rtol=RTOL,
                                atol=ATOL)
-    naive = tattn.reference_attention(*_t(q, k, v), **kwargs).numpy()
+    naive = attention_ref(*_t(q, k, v), **kwargs).numpy()
     np.testing.assert_allclose(
         naive, np.asarray(jattn.reference_attention(jq, jk, jv, **kwargs)),
         rtol=RTOL, atol=ATOL)
@@ -175,6 +178,30 @@ def test_wrapper_rejects_bad_arguments():
         flash_attention(q, k.to("meta"), v)
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(causal=False, window=5, q_offset=100),
+    dict(causal=False, window=5, q_offset=4, kv_valid=10),
+    dict(causal=True, window=3, q_offset=2, kv_valid=2)],
+    ids=["past_keys", "past_kv_valid", "causal_past_kv_valid"])
+def test_wrapper_rejects_a_window_that_leaves_a_row_no_key(kwargs):
+    """A row whose window lies past the last valid key has no softmax
+    (the kernel would write 0, the plain version a mean of v), so the
+    wrapper refuses it on every device."""
+    q, k, v = _t(*_qkv(1, 16, 4, 2, 32, seed=8))
+    with pytest.raises(ValueError, match="no key"):
+        flash_attention(q, k, v, **kwargs)
+
+
+def test_window_edge_row_sees_the_last_valid_key():
+    """At the edge the wrapper accepts, the last row's window holds
+    exactly the last valid key, so its output is that key's value."""
+    q, k, v = _t(*_qkv(1, 16, 4, 2, 32, seed=9))
+    out = flash_attention(q[:, :4], k, v, causal=False, window=5,
+                          q_offset=10, kv_valid=10)
+    torch.testing.assert_close(out[:, -1], v[:, 9].repeat_interleave(2, 1),
+                               rtol=RTOL, atol=ATOL)
+
+
 # ------------------------------------------------------------ on a card --
 
 def _card():
@@ -198,7 +225,7 @@ def test_cuda_kernel_matches_plain_version(shape, kwargs, dtype):
     assert got.dtype == dt and got.shape == q.shape
     want = attention_ref(q, k, v, **kwargs)
     tol = dict(rtol=RTOL, atol=ATOL) if dtype == "float32" \
-        else dict(rtol=BF16_TOL, atol=BF16_TOL)
+        else dict(rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
