@@ -8,8 +8,10 @@ It builds the hand-written CUDA kernels from the sources in the
 checkout (one ``nvcc`` per library, all started together) and holds
 each against its plain PyTorch version on the card: the LSTM cell's
 forward (with the local-SGD worker dim) and backward, the EVL loss's
-forward and backward, and flash attention (the JAX kernel tests' sweep
-and masks, fp32 and bf16). It checks the forecaster's bitwise step ==
+forward and backward, flash attention (the JAX kernel tests' sweep and
+masks, fp32 and bf16) and the Mamba2 SSD chunk scan (the JAX sweep, the
+reduced config's and the serving path's shapes, at fast, slow and
+clipped decay, fp32 and bf16). It checks the forecaster's bitwise step ==
 replay == generate contract and that a training step puts real
 gradients on every LSTM weight. Then it drives the port's three main
 paths: serving the paper LSTM (full width, random weights from seed 0)
@@ -19,7 +21,9 @@ and 1, EVL on) through ``repro_torch.training`` and the
 ``repro_torch.launch.train`` CLI; and serving the zoo's Qwen1.5-4B at
 full width and depth (bf16) through ``ServingEngine`` (a burst of short
 prompts, then one of 2048-token prompts) and the serve CLI, with the
-same model cut to 2 layers in fp32 held against the port on the CPU.
+same model cut to 2 layers in fp32 held against the port on the CPU;
+and the same for the zoo's Mamba2-370M, whose every layer runs the SSD
+kernel.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -121,6 +125,35 @@ ZOO_BURSTS = [(64, 32, 8), (8, 2048, 4)]
 # products in their own order; the logits (|logit| up to ~6) are held at
 # the whole-model bound of 1e-4, and the greedy tokens must be equal.
 ZOO_CPU_RTOL, ZOO_CPU_ATOL = 1e-4, 1e-4
+# the SSD chunk scan: the JAX kernel tests' sweep (B, L, H, P, N, chunk),
+# the reduced Mamba2's (16 heads of 32, state 32, chunk 16: a ragged L
+# and the serving window), and Mamba2-370M's serving path (32 heads of
+# 64, state 128, chunk 128: 8 x 32 and 4 x 2048 tokens)
+SSD_SWEEP = [(1, 64, 2, 16, 8, 16), (2, 96, 3, 16, 8, 32),
+             (1, 100, 1, 32, 16, 32), (2, 128, 4, 64, 32, 128)]
+SSD_REDUCED = [(1, 20, 16, 32, 32, 16), (8, 32, 16, 32, 32, 16)]
+SSD_PATH = [(8, 32, 32, 64, 128, 128), (4, 2048, 32, 64, 128, 128)]
+# three draws of the decay a: the JAX tests' -U(0.01, 0.5), under which
+# the state carried from chunk to chunk decays to nothing; a slow
+# -U(1e-4, 1e-2), where it dominates y; and slow with the last step of
+# every chunk at dt's clip of 100 (a = -100), where exp above the
+# diagonal overflows to inf and only a select keeps NaN out. (A clipped
+# step mid-chunk leaves the rows after it at |cum| ~ 100, where the
+# order in which cum is summed alone moves y by ~2e-5 in fp32, past the
+# bound below: the kernel and torch.cumsum on the card sum in different
+# orders.)
+SSD_DRAWS = ("sweep", "slow", "clip")
+# fp32: the JAX kernel tests' bound; bf16 y: one bf16 step (both sides
+# work in fp32 on the same bf16 inputs and round y once); the state is
+# fp32 in both cases
+SSD_RTOL, SSD_ATOL = 1e-4, 1e-5
+SSD_BF16_RTOL, SSD_BF16_ATOL = 1e-2, 1e-4
+# the zoo's SSM: Mamba2-370M at full width and depth (bf16, random
+# weights from seed 0), through the same two bursts; its card-vs-CPU
+# copy (2 layers, fp32) noises the leaves the init sets to constants
+MAMBA_ARCH = "mamba2-370m"
+MAMBA_NOISE = {"A_log": 0.5, "dt_bias": 0.5, "conv_b": 0.2, "D": 0.2,
+               "norm_w": 0.2, "w": 0.2}
 # the paper-LSTM training runs of the main path (CLI defaults: AAPL,
 # 1430 days, batch 32, seed 0; EVL weight 0.5)
 SERIAL_ITERATIONS = 300
@@ -157,12 +190,14 @@ def counters():
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.evl import kernel as evl_kernel
     from repro_torch.kernels.lstm import kernel as lstm_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
 
     return {"lstm_cell": lstm_kernel.LAUNCHES,
             "lstm_cell_bwd": lstm_kernel.BWD_LAUNCHES,
             "evl_forward": evl_kernel.EVL_LAUNCHES,
             "evl_backward": evl_kernel.EVL_BWD_LAUNCHES,
-            "flash_attention": attn_kernel.FLASH_LAUNCHES}
+            "flash_attention": attn_kernel.FLASH_LAUNCHES,
+            "ssd_scan": ssd_kernel.SSD_LAUNCHES}
 
 
 def paper_counts() -> dict:
@@ -186,9 +221,10 @@ def no_plain_version_on_the_card():
     import repro_torch.kernels.attention.ops as attn_ops
     import repro_torch.kernels.evl.ops as evl_ops
     import repro_torch.kernels.lstm.ops as lstm_ops
+    import repro_torch.kernels.ssd.ops as ssd_ops
 
     names = [(lstm_ops, "lstm_cell_ref"), (evl_ops, "evl_loss_ref"),
-             (attn_ops, "attention_ref")]
+             (attn_ops, "attention_ref"), (ssd_ops, "ssd_scan_ref")]
     calls: list[str] = []
     saved = {(m, n): getattr(m, n) for m, n in names}
     for (mod, name), fn in saved.items():
@@ -325,9 +361,10 @@ def build_kernels() -> None:
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.evl import kernel as evl_kernel
     from repro_torch.kernels.lstm import kernel as lstm_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
 
     libs = {**lstm_kernel.LIBRARIES, **evl_kernel.LIBRARIES,
-            **attn_kernel.LIBRARIES}
+            **attn_kernel.LIBRARIES, **ssd_kernel.LIBRARIES}
     cached = {n: build.library_path(n, s).exists() for n, s in libs.items()}
     t0 = time.perf_counter()
     paths = build.build_all(libs)
@@ -335,6 +372,12 @@ def build_kernels() -> None:
     lstm_kernel.bwd_smem_bytes(64)
     evl_kernel._library()
     attn_kernel._library()
+    # the wrapper's shared-memory check and the kernel's launch agree
+    for K, P, N in ((128, 64, 128), (16, 32, 32), (16, 16, 8)):
+        got = ssd_kernel._library().ssd_scan_smem_bytes(K, P, N)
+        check(got == ssd_kernel.smem_bytes(K, P, N),
+              f"ssd_scan shared memory at {(K, P, N)}: the source says "
+              f"{got}, the wrapper {ssd_kernel.smem_bytes(K, P, N)}")
     for name, path in paths.items():
         print(f"[build] {name}: {'cached' if cached[name] else 'built'} -> "
               f"{path.relative_to(ROOT)}")
@@ -1179,41 +1222,229 @@ def check_flash() -> float:
     return worst[torch.float32]
 
 
-def zoo_serve_main_path(tag: str):
-    """Phase 10, the zoo's serving path: Qwen1.5-4B at full width and
-    depth (bf16, random weights from seed 0) behind ``ServingEngine``: 64
-    requests of 32 tokens (max_batch 8), then 8 of 2048 (max_batch 4).
-    Launch counts are zeroed just before each burst and read just after;
-    the flash kernel must run once per layer per predict flush, and no
-    plain version on a card tensor. Returns the forecaster, the flash
+def ssd_inputs(B, L, H, P, N, kind, dtype, chunk, seed=0):
+    """xd [B, L, H, P], a [B, L, H] (fp32), B_, C_ [B, L, N] from a seeded
+    generator on the card, a drawn as ``kind`` (``SSD_DRAWS``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lo, hi = (0.01, 0.5) if kind == "sweep" else (1e-4, 1e-2)
+    a = -(lo + (hi - lo) * torch.rand(B, L, H, generator=g, device="cuda"))
+    if kind == "clip":                  # each chunk's last row
+        a[:, chunk - 1::chunk] = -100.0
+        a[:, L - 1] = -100.0
+    if kind == "clip-mid":              # a random row of every 128
+        offset = int(torch.randint(0, min(L, 128), (1,), generator=g,
+                                   device="cuda"))
+        a[:, offset::128] = -100.0
+    xd = 0.1 * torch.randn(B, L, H, P, generator=g, device="cuda")
+    Bm = 0.3 * torch.randn(B, L, N, generator=g, device="cuda")
+    Cm = 0.3 * torch.randn(B, L, N, generator=g, device="cuda")
+    return xd.to(dtype), a, Bm.to(dtype), Cm.to(dtype)
+
+
+def ssd_bound(B, L, H, P, N, K, itemsize=2):
+    """The SSD scan: xd and y, B_ and C_ (``itemsize`` bytes), a and the
+    final state (fp32) each moved once at the memory rate; the products
+    this L needs, chunk by chunk over its r valid rows: C B^T and the
+    masked mix with xd on the r (r + 1) / 2 pairs j <= i, C state^T and
+    the state update (2 r N P each), at the tensor cores' bf16 peak (the
+    fp32 peak for fp32 inputs)."""
+    nbytes = itemsize * (2 * B * L * H * P + 2 * B * L * N) \
+        + 4 * (B * L * H + B * H * P * N)
+    ops = 0
+    for t0 in range(0, L, K):
+        r = min(K, L - t0)
+        pairs = r * (r + 1) // 2
+        ops += B * H * (2 * pairs * (N + P) + 4 * r * N * P)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_case(args, chunk):
+    """|kernel - plain| and the RMS of the plain output, for y and the
+    state, through the wrapper the path runs; checks both against their
+    bounds and for finite values."""
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    y, s = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want_y, want_s = ssd_scan_ref(*args, chunk)
+    y, want_y = y.float(), want_y.float()
+    bf16 = args[0].dtype == torch.bfloat16
+    rtol, atol = ((SSD_BF16_RTOL, SSD_BF16_ATOL) if bf16
+                  else (SSD_RTOL, SSD_ATOL))
+    out = {"y": (float((y - want_y).abs().max()),
+                 float(want_y.pow(2).mean().sqrt())),
+           "state": (float((s - want_s).abs().max()),
+                     float(want_s.pow(2).mean().sqrt()))}
+    shape = tuple(args[0].shape) + (args[2].shape[-1], chunk)
+    check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+          f"ssd_scan {shape} {args[0].dtype}: a value is not finite")
+    check(torch.allclose(y, want_y, rtol=rtol, atol=atol),
+          f"ssd_scan y disagrees with its plain version at {shape} "
+          f"{args[0].dtype}: max err {out['y'][0]} (rtol {rtol}, atol {atol})")
+    check(torch.allclose(s, want_s, rtol=SSD_RTOL, atol=SSD_ATOL),
+          f"ssd_scan state disagrees with its plain version at {shape} "
+          f"{args[0].dtype}: max err {out['state'][0]}")
+    return out
+
+
+def check_ssd() -> float:
+    """Phase 9b: the SSD scan against its plain version on the card,
+    through ``ops.ssd_scan``: the JAX kernel tests' sweep (a ragged L
+    included), the reduced Mamba2's shapes and the serving path's two, at
+    the three decays, in fp32 and bf16, each error printed beside the RMS
+    of what it compares; and rows of B = 1 launches bit for bit the rows
+    of a B = 8 launch. Returns the largest |kernel - plain|."""
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    worst, n = 0.0, 0
+    for B, L, H, P, N, K in SSD_SWEEP + SSD_REDUCED + SSD_PATH:
+        parts = []
+        for kind in SSD_DRAWS:
+            for dt in (torch.float32, torch.bfloat16):
+                n += 1
+                errs = ssd_case(ssd_inputs(B, L, H, P, N, kind, dt, K,
+                                           seed=n), K)
+                worst = max(worst, errs["y"][0], errs["state"][0])
+                parts.append(
+                    f"{kind} {str(dt)[6:]} y {errs['y'][0]:.2e} (rms "
+                    f"{errs['y'][1]:.2e}) state {errs['state'][0]:.2e} (rms "
+                    f"{errs['state'][1]:.2e})")
+        print(f"[check] ssd_scan {(B, L, H, P, N, K)} max |kernel - plain|: "
+              + "; ".join(parts))
+    # reported, not held to a bound: a clipped step mid-chunk, where the
+    # kernel's and torch.cumsum's summation orders alone differ by about
+    # the fp32 atol (see SSD_DRAWS)
+    mid = []
+    for B, L, H, P, N, K in SSD_PATH:
+        args = ssd_inputs(B, L, H, P, N, "clip-mid", torch.float32, K,
+                          seed=200 + L)
+        y, s = ssd_scan(*args, chunk=K)
+        want_y, want_s = ssd_scan_ref(*args, K)
+        check(bool(torch.isfinite(y).all()), "ssd_scan: NaN at clip-mid")
+        mid.append(f"{(B, L, H, P, N, K)} y "
+                   f"{float((y - want_y).abs().max()):.2e} (rms "
+                   f"{float(want_y.pow(2).mean().sqrt()):.2e}) state "
+                   f"{float((s - want_s).abs().max()):.2e}")
+    print("[check] ssd_scan fp32 at a mid-chunk clip (reported, not held): "
+          + "; ".join(mid))
+    for L in (32, 160):                 # one ragged chunk; two chunks
+        args = ssd_inputs(8, L, 32, 64, 128, "slow", torch.bfloat16, 128,
+                          seed=100 + L)
+        y, s = ssd_scan(*args, chunk=128)
+        for b in range(8):
+            one_y, one_s = ssd_scan(*(t[b:b + 1] for t in args), chunk=128)
+            check(torch.equal(one_y[0], y[b]) and torch.equal(one_s[0], s[b]),
+                  f"ssd_scan row {b} of a B=8 launch != its B=1 launch "
+                  f"(L {L})")
+    print(f"[check] ssd_scan vs plain over {n} cases (bounds: fp32 rtol "
+          f"{SSD_RTOL} atol {SSD_ATOL}; bf16 y rtol {SSD_BF16_RTOL} atol "
+          f"{SSD_BF16_ATOL}, state fp32): max |kernel - plain| {worst:.3e}; "
+          f"rows of B=1 launches == rows of a B=8 launch bitwise (y and "
+          f"state, 8 x 32 and 8 x 160 x 32 x 64 x 128 bf16)")
+    return worst
+
+
+def time_ssd(launches: dict, tag: str):
+    """Phase 13b: the SSD scan at every shape of Mamba2-370M's serving
+    path, held against its plain version there through the wrapper in
+    bf16 and on fp32 copies of the same inputs; then its device time
+    (bf16) beside the plain version's and its bound (no single PyTorch
+    call computes this scan). Returns rows by shape and the largest
+    |kernel - plain|."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    rows, worst = {}, 0.0
+    for shape in sorted(set(launches) | set(SSD_PATH)):
+        B, L, H, P, N, K = shape
+        xd, a, Bm, Cm = ssd_inputs(B, L, H, P, N, "sweep", torch.bfloat16,
+                                   K, seed=B * 7 + L)
+        errs = {dt: ssd_case((xd.to(dt), a, Bm.to(dt), Cm.to(dt)), K)
+                for dt in (torch.bfloat16, torch.float32)}
+        err = max(e[0] for v in errs.values() for e in v.values())
+        worst = max(worst, err)
+        inner, reps = (3, 5) if L >= 1024 else (50, 21)
+        bnd, by = ssd_bound(*shape)
+        rows[shape] = {
+            "ms": graph_ms(lambda: ssd_kernel.ssd_scan_cuda(xd, a, Bm, Cm, K),
+                           inner, reps),
+            "plain_ms": graph_ms(lambda: ssd_scan_ref(xd, a, Bm, Cm, K),
+                                 inner, reps),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "max_abs_err": err}
+        r = rows[shape]
+        e16, e32 = errs[torch.bfloat16], errs[torch.float32]
+        print(f"[time] {tag}: ssd_scan {shape} bf16: kernel "
+              f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"bound {r['bound_ms'] * 1e3:.3f} us ({by}) = "
+              f"{100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time; "
+              f"|kernel - plain| bf16 y {e16['y'][0]:.3e} (rms "
+              f"{e16['y'][1]:.3e}), fp32 y {e32['y'][0]:.3e} (rms "
+              f"{e32['y'][1]:.3e}), state {e16['state'][0]:.3e} / "
+              f"{e32['state'][0]:.3e} (rms {e32['state'][1]:.3e}); "
+              f"{launches.get(shape, 0)} launches on the main path")
+    return rows, worst
+
+
+def named_leaves(tree, name=None):
+    """(key, tensor) for every leaf of a params nest, the key the leaf's
+    own name in its dict."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in named_leaves(v, k)]
+    return [(name, tree)]
+
+
+def describe(cfg) -> str:
+    if cfg.family == "ssm":
+        return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+                f"{cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+                f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
+                f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab} "
+                f"padded to {cfg.padded_vocab}")
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+            f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+            f"padded to {cfg.padded_vocab}")
+
+
+def zoo_serve_main_path(arch: str, kernel: str, tag: str):
+    """Phase 10, a zoo serving path: ``arch`` (Qwen1.5-4B, then
+    Mamba2-370M) at full width and depth (bf16, but for the leaves the
+    JAX init keeps in fp32; random weights from seed 0) behind
+    ``ServingEngine``: 64 requests of 32 tokens (max_batch 8), then 8 of
+    2048 (max_batch 4). Launch counts are zeroed just before each burst
+    and read just after; ``kernel`` (flash attention, the SSD scan) must
+    run once per layer per predict flush, no other kernel at all, and no
+    plain version on a card tensor. Returns the forecaster, the kernel's
     launches by shape, and the init's seconds."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models.transformer import FP32_LEAVES
     from repro_torch.serving import (BatcherConfig, ModelRegistry,
                                      ServingEngine, build_zoo_forecaster)
-    from repro_torch.tree import tree_leaves
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fc = build_zoo_forecaster(ZOO_ARCH, seed=0, reduced=False,
-                              device="cuda")
+    fc = build_zoo_forecaster(arch, seed=0, reduced=False, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = fc.cfg
-    leaves = tree_leaves(fc.params)
-    n_params = sum(t.numel() for t in leaves)
-    check(cfg == get_config(ZOO_ARCH) and cfg.n_layers == 40
-          and cfg.d_model == 2560 and all(t.dtype == torch.bfloat16
-                                          and t.is_cuda for t in leaves),
-          f"{ZOO_ARCH} is not served at full width in bf16 on the card")
-    print(f"[zoo] {ZOO_ARCH}: {n_params} parameters ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
-          f"{cfg.padded_vocab}, bf16) drawn on the card and calibrated in "
-          f"{init_s:.2f} s; device memory allocated "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    leaves = named_leaves(fc.params)
+    n_params = sum(t.numel() for _, t in leaves)
+    check(cfg == get_config(arch) and cfg.dtype == "bfloat16"
+          and all(t.is_cuda and t.dtype == (torch.float32 if k in FP32_LEAVES
+                                            else torch.bfloat16)
+                  for k, t in leaves),
+          f"{arch} is not served at full width in bf16 on the card")
+    print(f"[zoo] {arch}: {n_params} parameters ({describe(cfg)}, bf16"
+          f"{'; dt_bias, A_log fp32' if cfg.family == 'ssm' else ''}) drawn "
+          f"on the card and calibrated in {init_s:.2f} s; device memory "
+          f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     registry = ModelRegistry()
-    registry.register(ZOO_ARCH, fc)
+    registry.register(arch, fc)
     launches: dict = {}
     for i, (n_req, plen, max_batch) in enumerate(ZOO_BURSTS):
         toks = synthetic_token_batch(n_req, plen, cfg.vocab, seed=i)
@@ -1221,30 +1452,30 @@ def zoo_serve_main_path(tag: str):
                 max_batch=max_batch, max_wait_ms=2.0,
                 length_buckets=(plen,))) as engine:
             t0 = time.perf_counter()
-            n_warm = engine.warmup(ZOO_ARCH, lengths=(plen,))
+            n_warm = engine.warmup(arch, lengths=(plen,))
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
             engine.telemetry.reset_clock()
             reset_counters()
             with no_plain_version_on_the_card() as plain_calls:
                 t0 = time.perf_counter()
-                futs = [engine.submit(ZOO_ARCH, t, client_id=f"client-{j}")
+                futs = [engine.submit(arch, t, client_id=f"client-{j}")
                         for j, t in enumerate(toks)]
                 results = [f.result(timeout=600.0) for f in futs]
                 wall = time.perf_counter() - t0
             got = read_counters()
             snap = engine.telemetry.snapshot()
         flushes = snap["batches"]
-        n_flash = sum(got["flash_attention"].values())
+        n_kern = sum(got[kernel].values())
         res = np.asarray(results, np.float64)
         check(not plain_calls, f"plain versions ran on the card: "
                                f"{plain_calls}")
         check(snap["requests"] == n_req and res.shape == (n_req, 2),
               f"burst {i}: {snap['requests']} of {n_req} requests served")
-        check(n_flash == cfg.n_layers * flushes,
-              f"burst {i}: {n_flash} flash launches for {flushes} predict "
+        check(n_kern == cfg.n_layers * flushes,
+              f"burst {i}: {n_kern} {kernel} launches for {flushes} predict "
               f"flushes of a {cfg.n_layers}-layer model")
-        check(all(n == 0 for k, v in got.items() if k != "flash_attention"
+        check(all(n == 0 for k, v in got.items() if k != kernel
                   for n in v.values()), f"other kernels launched: {got}")
         check(np.all(np.isfinite(res)) and np.all(res[:, 0] == np.round(
             res[:, 0])) and np.all((res[:, 0] >= 0) & (res[:, 0] < cfg.vocab))
@@ -1263,15 +1494,16 @@ def zoo_serve_main_path(tag: str):
             bits = np.array_equal(direct, res)
             same = (f"== predict of the same batches (tokens equal, p "
                     f"{'bitwise' if bits else 'within 1e-6'})")
-        for shape, n in got["flash_attention"].items():
+        for shape, n in got[kernel].items():
             launches[shape] = launches.get(shape, 0) + n
-        print(f"[zoo] {tag}: burst {i}: {n_req} requests of {plen} tokens "
+        print(f"[zoo] {tag}: {arch} burst {i}: {n_req} requests of {plen} "
+              f"tokens "
               f"(max_batch {max_batch}) in {wall * 1e3:.1f} ms: "
               f"{snap['throughput_rps']:.2f} req/s, {n_req * plen / wall:.0f} "
               f"prompt tokens/s, p50 {snap['p50_ms']:.1f} ms, p95 "
               f"{snap['p95_ms']:.1f} ms; {flushes} predict flushes, "
-              f"{n_flash} flash launches = {n_flash / flushes:.1f} per flush "
-              f"by (B, Sq, Skv, Hq, Hkv, D) {got['flash_attention']}; "
+              f"{n_kern} {kernel} launches = {n_kern / flushes:.1f} per flush "
+              f"by shape {got[kernel]}; "
               f"replies {same}; no plain version on the card; warmup "
               f"({n_warm} shapes) {warm_s:.2f} s; distinct tokens "
               f"{len(set(res[:, 0]))}, p in [{res[:, 1].min():.4f}, "
@@ -1279,11 +1511,13 @@ def zoo_serve_main_path(tag: str):
     return fc, launches, init_s
 
 
-def zoo_card_vs_cpu(tag: str) -> float:
-    """Phase 11: Qwen1.5-4B at full width, 2 layers, fp32: the same
-    weights served on the card and by the port on the CPU give the same
-    greedy tokens and logits within the stated tolerance, over 8 windows
-    of 32 tokens. Returns the largest |logit difference|."""
+def zoo_card_vs_cpu(arch: str, tag: str, noise=None) -> float:
+    """Phase 11: ``arch`` at full width, 2 layers, fp32: the same weights
+    served on the card and by the port on the CPU give the same greedy
+    tokens and logits within the stated tolerance, over 8 windows of 32
+    tokens. ``noise`` (leaf name -> scale) adds seeded noise on the card
+    to the leaves the init sets to constants first. Returns the largest
+    |logit difference|."""
     import dataclasses
 
     from repro_torch.checkpoint.convert import params_to
@@ -1292,10 +1526,14 @@ def zoo_card_vs_cpu(tag: str) -> float:
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serving import ZooForecaster
 
-    cfg = dataclasses.replace(get_config(ZOO_ARCH), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     model = build_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = model.init(g)
+    for name, t in named_leaves(params):
+        if noise and name in noise:
+            t.add_(noise[name] * torch.randn(t.shape, generator=g,
+                                             device="cuda"))
     cpu_params = params_to(params, "cpu")
     toks = synthetic_token_batch(8, 32, cfg.vocab, seed=3)
     tok_g, _ = ZooForecaster(cfg=cfg, params=params, device="cuda").predict(
@@ -1312,7 +1550,8 @@ def zoo_card_vs_cpu(tag: str) -> float:
     check(torch.allclose(logits_g, logits_c, rtol=ZOO_CPU_RTOL,
                          atol=ZOO_CPU_ATOL),
           f"logits on the card vs the CPU: max |diff| {err}")
-    print(f"[zoo] {tag}: {ZOO_ARCH} full width, 2 layers, fp32, same weights "
+    print(f"[zoo] {tag}: {arch} full width, 2 layers, fp32, same weights "
+          f"{'(noised: ' + ', '.join(noise) + ') ' if noise else ''}"
           f"on the card and the CPU port, 8 windows of 32 tokens: greedy "
           f"tokens equal {tok_g.astype(int).tolist()}; logits max |diff| "
           f"{err:.3e} (max |logit| {float(logits_c.abs().max()):.2f}; rtol "
@@ -1320,17 +1559,21 @@ def zoo_card_vs_cpu(tag: str) -> float:
     return err
 
 
-def zoo_cli() -> None:
-    """Phase 12: the serve CLI with the full-width zoo arch on the card."""
+def zoo_cli(arch: str, kernel: str) -> None:
+    """Phase 12: the serve CLI with a full-width zoo arch on the card,
+    through its kernel."""
     from repro_torch.launch import serve
 
-    out = serve.main(["--model", ZOO_ARCH, "--no-reduced", "--requests", "16",
+    reset_counters()
+    out = serve.main(["--model", arch, "--no-reduced", "--requests", "16",
                       "--max-batch", "8", "--device", "cuda"])
-    check(out["traffic"]["requests"] == 16,
-          "python -m repro_torch.launch.serve --model qwen1.5-4b "
-          "--no-reduced did not serve every request")
-    print(f"[cli] repro_torch.launch.serve --model {ZOO_ARCH} --no-reduced "
-          f"--requests 16 --max-batch 8 --device cuda: ok")
+    n = counters()[kernel].total
+    check(out["traffic"]["requests"] == 16 and n > 0,
+          f"python -m repro_torch.launch.serve --model {arch} --no-reduced "
+          f"did not serve every request through {kernel} ({n} launches)")
+    print(f"[cli] repro_torch.launch.serve --model {arch} --no-reduced "
+          f"--requests 16 --max-batch 8 --device cuda: ok, {n} {kernel} "
+          f"launches")
 
 
 def time_flash(launches: dict, tag: str):
@@ -1404,10 +1647,11 @@ def time_flash(launches: dict, tag: str):
     return rows, worst
 
 
-def profile_zoo(fc, tag: str) -> None:
+def profile_zoo(fc, kernel: str, symbol: str, tag: str) -> None:
     """Phase 14, where a zoo flush's time goes: one predict flush at each
-    prompt length, the device's busy share, and the flash kernel's and
-    the matrix products' shares of it."""
+    prompt length, the device's busy share, and the shares of the
+    model's kernel (``symbol`` in the device kernel's name) and of the
+    matrix products."""
     from repro_torch.data.tokens import synthetic_token_batch
 
     for n_req, plen, max_batch in ZOO_BURSTS:
@@ -1416,17 +1660,17 @@ def profile_zoo(fc, tag: str) -> None:
         wall, busy, kernels = profile(
             f"one predict flush of {max_batch} x {plen} tokens",
             lambda: fc.predict(toks), tag)
-        flash = sum(us for us, _, name in kernels if "flash_kernel" in name)
+        own = sum(us for us, _, name in kernels if symbol in name)
         gemm = sum(us for us, _, name in kernels
-                   if "flash_kernel" not in name
+                   if symbol not in name
                    and any(w in name.lower() for w in (
                        "nvjet", "gemm", "cutlass", "xmma")))
-        print(f"[profile] {tag}: flush of {max_batch} x {plen}: flash "
-              f"attention {flash:.1f} us = {100 * flash / busy:.2f} % of the "
-              f"busy time, matrix products (projections, MLP, LM head) "
+        print(f"[profile] {tag}: {fc.cfg.name} flush of {max_batch} x "
+              f"{plen}: {kernel} {own:.1f} us = {100 * own / busy:.2f} % of "
+              f"the busy time, matrix products (projections, MLP, LM head) "
               f"{gemm:.1f} us = {100 * gemm / busy:.2f} %, the rest "
-              f"{busy - flash - gemm:.1f} us = "
-              f"{100 * (busy - flash - gemm) / busy:.2f} %")
+              f"{busy - own - gemm:.1f} us = "
+              f"{100 * (busy - own - gemm) / busy:.2f} %")
 
 
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
@@ -1483,6 +1727,7 @@ def main() -> None:
             "lstm_cell_bwd": timed("check lstm_cell_bwd", check_backward)}
     errs["evl_forward"], errs["evl_backward"] = timed("check evl", check_evl)
     errs["flash_attention"] = timed("check flash_attention", check_flash)
+    errs["ssd_scan"] = timed("check ssd_scan", check_ssd)
     data = timed("training data", training_data)
     timed("check gradients", check_gradients, data[0])
     fc = timed("check forecaster", check_forecaster)
@@ -1497,16 +1742,33 @@ def main() -> None:
           sessions, tag)
     timed("profile paper-lstm training", profile_training, data[0], tag)
     zoo_fc, flash_launches, init_s = timed(
-        f"serve {ZOO_ARCH}", zoo_serve_main_path, tag)
-    timed(f"{ZOO_ARCH} card vs CPU", zoo_card_vs_cpu, tag)
-    timed(f"{ZOO_ARCH} CLI", zoo_cli)
+        f"serve {ZOO_ARCH}", zoo_serve_main_path, ZOO_ARCH, "flash_attention",
+        tag)
+    timed(f"{ZOO_ARCH} card vs CPU", zoo_card_vs_cpu, ZOO_ARCH, tag)
+    timed(f"{ZOO_ARCH} CLI", zoo_cli, ZOO_ARCH, "flash_attention")
     rows["flash_attention"], flash_err = timed(
         "time flash_attention", time_flash, flash_launches, tag)
     every["flash_attention"] = flash_launches
     errs["flash_attention"] = max(errs["flash_attention"], flash_err)
-    timed(f"profile {ZOO_ARCH} serving", profile_zoo, zoo_fc, tag)
+    timed(f"profile {ZOO_ARCH} serving", profile_zoo, zoo_fc,
+          "flash_attention", "flash_kernel", tag)
     print(f"[zoo] {ZOO_ARCH} init (draw on the card + calibrate): "
           f"{init_s:.2f} s")
+    del zoo_fc
+    mamba_fc, ssd_launches, mamba_init_s = timed(
+        f"serve {MAMBA_ARCH}", zoo_serve_main_path, MAMBA_ARCH, "ssd_scan",
+        tag)
+    timed(f"{MAMBA_ARCH} card vs CPU", zoo_card_vs_cpu, MAMBA_ARCH, tag,
+          MAMBA_NOISE)
+    timed(f"{MAMBA_ARCH} CLI", zoo_cli, MAMBA_ARCH, "ssd_scan")
+    rows["ssd_scan"], ssd_err = timed("time ssd_scan", time_ssd,
+                                      ssd_launches, tag)
+    every["ssd_scan"] = ssd_launches
+    errs["ssd_scan"] = max(errs["ssd_scan"], ssd_err)
+    timed(f"profile {MAMBA_ARCH} serving", profile_zoo, mamba_fc, "ssd_scan",
+          "ssd_kernel", tag)
+    print(f"[zoo] {MAMBA_ARCH} init (draw on the card + calibrate): "
+          f"{mamba_init_s:.2f} s")
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
     meta = {
         "lstm_cell": (csrc.format("lstm", "lstm_cell.cu"),
@@ -1518,7 +1780,9 @@ def main() -> None:
         "evl_backward": (csrc.format("evl", "evl.cu"),
                          "src/repro/kernels/evl/kernel.py:20"),
         "flash_attention": (csrc.format("attention", "flash_attention.cu"),
-                            "src/repro/kernels/attention/kernel.py:34")}
+                            "src/repro/kernels/attention/kernel.py:34"),
+        "ssd_scan": (csrc.format("ssd", "ssd_scan.cu"),
+                     "src/repro/kernels/ssd/kernel.py:27")}
     entries = [kernel_entry(k, *meta[k], rows[k], every[k], errs[k])
                for k in meta]
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s")

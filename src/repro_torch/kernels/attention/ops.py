@@ -7,7 +7,9 @@ or raises; a CPU tensor goes to the plain version
 (``ref.attention_ref``). The TPU wrapper's padding of S to its blocks
 and folding of heads into the batch have no counterpart: the kernel
 reads the [B, S, H, D] tensors through their strides and masks its own
-ragged edges.
+ragged edges. The kernel has no backward yet, so on the card an input
+that requires grad, while grad is enabled, is refused; the CPU route
+differentiates.
 """
 
 from __future__ import annotations
@@ -85,6 +87,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_valid=kv_valid)
     _check_cuda(q, k, v)
+    # the kernel writes its output through ctypes, outside autograd: a
+    # gradient through it would be lost without a word, so refuse it
+    # until the kernel has a backward
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention kernel has no backward yet: "
+                           "call it on the card under torch.no_grad(), or "
+                           "differentiate on the CPU")
     return kernel.flash_attention_cuda(
         q, k, v, causal, window, q_offset,
         k.shape[1] if kv_valid is None else kv_valid)

@@ -14,7 +14,8 @@ for the kernel route and ``"torch"`` for the plain one. Kernel launches
 themselves are counted by each kernel's binding
 (``repro_torch.kernels.lstm.kernel.LAUNCHES`` and ``BWD_LAUNCHES``,
 ``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` and
-``EVL_BWD_LAUNCHES``, ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``).
+``EVL_BWD_LAUNCHES``, ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``,
+``repro_torch.kernels.ssd.kernel.SSD_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from repro_torch.kernels.attention.ops import \
     flash_attention as _flash_attention
 from repro_torch.kernels.evl.ops import evl_loss as _evl_loss
 from repro_torch.kernels.lstm.ops import lstm_cell as _lstm_cell
+from repro_torch.kernels.ssd.ops import ssd_scan as _ssd_scan
 
 _lock = threading.Lock()
 _collectors: list["DispatchCounts"] = []
@@ -121,3 +123,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     version (``kernels.attention.ops.flash_attention``)."""
     return _flash_attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, kv_valid=kv_valid)
+
+
+def ssd_scan(xd, a, B_, C_, chunk: int = 128):
+    """The routed SSD chunk scan from a zero state: xd [B, L, H, P];
+    a [B, L, H] float32; B_, C_ [B, L, N]. CUDA tensors run the
+    hand-written kernel, CPU tensors the plain version
+    (``kernels.ssd.ops.ssd_scan``). Returns (y, final state)."""
+    return _ssd_scan(xd, a, B_, C_, chunk)

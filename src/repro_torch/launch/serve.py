@@ -16,6 +16,13 @@ traffic trace against it.
     PYTHONPATH=src python -m repro_torch.launch.serve --model qwen1.5-4b \
         --no-reduced --requests 64 --max-batch 8 --prompt-len 32
 
+    # Mamba2-370M at full width on the card (bf16, every layer's scan
+    # through the CUDA SSD kernel); on the CPU, reduced:
+    PYTHONPATH=src python -m repro_torch.launch.serve --model mamba2-370m \
+        --no-reduced --requests 64 --max-batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --model mamba2-370m \
+        --device cpu --requests 32 --max-batch 8
+
 Single process only; the sharded mesh, process workers, ensembles and
 the durable state directory of ``repro.launch.serve`` wait for later
 slices of the port.

@@ -1,5 +1,6 @@
-"""Transformer zoo, dense half (``repro.models.transformer``): the
-decoder LM of the ``dense`` family, its init and its forward.
+"""Transformer zoo (``repro.models.transformer``): the decoder LM of the
+``dense`` family and the Mamba2 stack of the ``ssm`` family, their init
+and their forward.
 
     params = init_lm(cfg, generator)                 # leaves on its device
     logits, aux = lm_forward(cfg, params, tokens)    # serve (predict)
@@ -26,13 +27,18 @@ from repro_torch.models.attention import blocked_attention
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        embed_init, norm_param, rms_norm)
 from repro_torch.models.mlp import mlp_apply
+from repro_torch.models.ssm import mamba2_apply
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
 # the ROADMAP "Next" item that ports each family the port lacks
-_LATER = {"ssm": "SSD with Mamba2-370M", "hybrid": "Zamba2",
-          "moe": "MoE", "vlm": "audio and VLM", "audio": "audio and VLM"}
+_LATER = {"hybrid": "Zamba2", "moe": "MoE", "vlm": "audio and VLM",
+          "audio": "audio and VLM"}
+# the families the port runs
+_PORTED = ("dense", "ssm")
+# leaves the JAX init keeps in float32 whatever the config's dtype
+FP32_LEAVES = ("dt_bias", "A_log")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -40,9 +46,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
                                f"{item})")
 
 
-def _require_dense(cfg: ArchConfig) -> None:
+def _require_ported(cfg: ArchConfig) -> None:
     family = "moe" if cfg.n_experts else cfg.family
-    if family != "dense":
+    if family not in _PORTED:
         raise not_ported(f"the {family!r} family ({cfg.name})",
                          _LATER.get(family, family))
 
@@ -83,6 +89,23 @@ def _init_mlp(g, cfg: ArchConfig, dt):
     return p
 
 
+def _init_ssm_block(g, cfg: ArchConfig, dt):
+    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * N
+    dev = g.device
+    return {
+        "in_proj": dense_init(g, (d, 2 * di + 2 * N + H), dt, dev),
+        "conv_w": dense_init(g, (conv_dim, cfg.ssm_conv), dt, dev,
+                             scale=1.0),
+        "conv_b": torch.zeros((conv_dim,), dtype=dt, device=dev),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "A_log": torch.zeros((H,), dtype=torch.float32, device=dev),  # A = -1
+        "D": torch.ones((H,), dtype=dt, device=dev),
+        "norm_w": torch.ones((di,), dtype=dt, device=dev),
+        "out_proj": dense_init(g, (di, d), dt, dev, scale=1.0),
+    }
+
+
 def _init_decoder_layer(g, cfg: ArchConfig, dt):
     return {"norm1": norm_param(cfg.norm, cfg.d_model, dt, g.device),
             "attn": _init_attn(g, cfg, dt),
@@ -102,19 +125,27 @@ def _stack(fn, n: int):
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator) -> PyTree:
-    """Random params of a dense decoder LM, in the config's dtype, drawn
-    from ``generator`` on its own device (a CUDA generator draws on the
-    card, each leaf in fp32 and cast, one layer at a time)."""
-    _require_dense(cfg)
+    """Random params of a dense decoder LM or a Mamba2 stack, in the
+    config's dtype (``dt_bias`` and ``A_log`` in float32, as in the JAX
+    package), drawn from ``generator`` on its own device (a CUDA
+    generator draws on the card, each leaf in fp32 and cast, one layer
+    at a time)."""
+    _require_ported(cfg)
     dt = _dtype(cfg)
     V, d = cfg.padded_vocab, cfg.d_model
     dev = generator.device
+
+    def layer():
+        if cfg.family == "ssm":
+            return {"norm1": norm_param(cfg.norm, d, dt, dev),
+                    "ssm": _init_ssm_block(generator, cfg, dt)}
+        return _init_decoder_layer(generator, cfg, dt)
+
     return {
         "embed": embed_init(generator, (V, d), dt, dev),
         "final_norm": norm_param(cfg.norm, d, dt, dev),
         "lm_head": dense_init(generator, (d, V), dt, dev),
-        "layers": _stack(lambda: _init_decoder_layer(generator, cfg, dt),
-                         cfg.n_layers),
+        "layers": _stack(layer, cfg.n_layers),
     }
 
 
@@ -161,6 +192,12 @@ def _decoder_block(cfg: ArchConfig, lp, x, positions, window):
     return x + out, aux
 
 
+def _ssm_block(cfg: ArchConfig, lp, x):
+    h = apply_norm(x, lp["norm1"], cfg.norm)
+    return x + mamba2_apply(lp["ssm"], h, head_dim=cfg.ssm_head_dim,
+                            ssm_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
+
+
 def _effective_window(cfg: ArchConfig, seq_len: int):
     """SWA window for this forward: the arch's own window if it has one,
     else the long-context variant's window when seq_len is huge."""
@@ -176,21 +213,25 @@ def _embed(cfg: ArchConfig, params, tokens):
 
 
 def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
-    """Forward of a dense decoder LM over every position.
+    """Forward of a dense decoder LM or a Mamba2 stack over every
+    position.
 
     tokens: integer [B, S] on the params' device. Returns (logits
     [B, S, padded_vocab] in the config's dtype, aux_loss: a float32
     zero, the MoE load-balance loss of the families to come).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     window = _effective_window(cfg, S)
     layers = params["layers"]
     for i in range(tree_leaves(layers)[0].shape[0]):
-        x, _ = _decoder_block(cfg, tree_map(lambda t: t[i], layers), x,
-                              positions, window)
+        lp = tree_map(lambda t: t[i], layers)
+        if cfg.family == "ssm":
+            x = _ssm_block(cfg, lp, x)
+        else:
+            x, _ = _decoder_block(cfg, lp, x, positions, window)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     logits = x @ params["lm_head"]
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -3,11 +3,13 @@ lengths) -> (forecast, extreme_probability)``.
 
 ``LSTMForecaster`` serves the paper LSTM, with O(1) streaming by
 explicit carries and device-resident decode slots besides.
-``ZooForecaster`` serves a zoo arch (so far the dense family, e.g.
-Qwen1.5-4B) as next-token prediction over right-padded token windows:
-the forecast is the greedy next token and the extreme probability the
-EVT-calibrated surprisal of it; every layer's attention runs through
-the hand-written CUDA flash-attention kernel on the card.
+``ZooForecaster`` serves a zoo arch (so far the dense and ssm
+families: Qwen1.5-4B, Mamba2-370M) as next-token prediction over
+right-padded token windows: the forecast is the greedy next token and
+the extreme probability the EVT-calibrated surprisal of it. On the card
+every dense layer's attention runs through the hand-written CUDA
+flash-attention kernel, and every Mamba2 layer's scan through the
+hand-written CUDA SSD kernel.
 
 For the LSTM, the forecast is the next-step normalized close; the
 extreme probability fuses the EVL sigmoid head with the EVT tail

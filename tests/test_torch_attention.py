@@ -256,3 +256,46 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q[..., :16], k[..., :16], v[..., :16])
     assert flash_kernel.FLASH_LAUNCHES.total == before
+
+
+def test_cpu_route_differentiates_like_jax():
+    """The plain route is the one that carries gradients (the kernel has
+    none yet): d(sum of out * w)/d(q, k, v) against jax.grad of the
+    reference's oracle."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.attention.ref import attention_ref as jref
+
+    q, k, v = _qkv(1, 24, 4, 2, 32, seed=11)
+    w = np.random.default_rng(12).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    (flash_attention(tq, tk, tv, causal=True) * torch.from_numpy(w)).sum() \
+        .backward()
+    want = jax.grad(lambda a, b, c: jnp.sum(jref(a, b, c, causal=True) * w),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for t, g in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_gradients():
+    """The kernel's output has no grad_fn, so a gradient through it would
+    vanish silently: the wrapper raises instead, launches nothing, runs
+    under no_grad, and the CPU route of the same inputs differentiates."""
+    _card()
+    q, k, v = (t.cuda() for t in _t(*_qkv(1, 16, 4, 2, 32, seed=13)))
+    before = flash_kernel.FLASH_LAUNCHES.total
+    for leaf in range(3):
+        args = [q, k, v]
+        args[leaf] = args[leaf].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(*args, causal=True)
+    assert flash_kernel.FLASH_LAUNCHES.total == before
+    with torch.no_grad():
+        out = flash_attention(q.clone().requires_grad_(), k, v, causal=True)
+    assert flash_kernel.FLASH_LAUNCHES.total == before + 1
+    assert not out.requires_grad
+    cq = q.cpu().requires_grad_()
+    flash_attention(cq, k.cpu(), v.cpu(), causal=True).sum().backward()
+    assert cq.grad is not None and torch.all(torch.isfinite(cq.grad))

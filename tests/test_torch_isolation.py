@@ -62,10 +62,14 @@ def test_port_package_is_complete():
             "models/model_zoo.py", "data/tokens.py",
             "kernels/attention/ref.py", "kernels/attention/kernel.py",
             "kernels/attention/ops.py"} <= names
+    # the Mamba2 serving slice's modules
+    assert {"configs/mamba2_370m.py", "models/ssm.py", "kernels/ssd/ref.py",
+            "kernels/ssd/kernel.py", "kernels/ssd/ops.py"} <= names
     for src in ("kernels/lstm/csrc/lstm_cell.cu",
                 "kernels/lstm/csrc/lstm_cell_bwd.cu",
                 "kernels/evl/csrc/evl.cu",
-                "kernels/attention/csrc/flash_attention.cu"):
+                "kernels/attention/csrc/flash_attention.cu",
+                "kernels/ssd/csrc/ssd_scan.cu"):
         assert (ROOT / "src/repro_torch" / src).is_file()
 
 
