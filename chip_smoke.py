@@ -11,7 +11,8 @@ forward (with the local-SGD worker dim) and backward, the EVL loss's
 forward and backward, flash attention (the JAX kernel tests' sweep and
 masks, fp32 and bf16) and the Mamba2 SSD chunk scan (the JAX sweep, the
 reduced config's and the serving path's shapes, at fast, slow and
-clipped decay, fp32 and bf16). It checks the forecaster's bitwise step ==
+clipped decay, fp32 and bf16; at a clip mid-chunk, kernel and plain
+version each against float64). It checks the forecaster's bitwise step ==
 replay == generate contract and that a training step puts real
 gradients on every LSTM weight. Then it drives the port's three main
 paths: serving the paper LSTM (full width, random weights from seed 0)
@@ -137,12 +138,18 @@ SSD_PATH = [(8, 32, 32, 64, 128, 128), (4, 2048, 32, 64, 128, 128)]
 # the state carried from chunk to chunk decays to nothing; a slow
 # -U(1e-4, 1e-2), where it dominates y; and slow with the last step of
 # every chunk at dt's clip of 100 (a = -100), where exp above the
-# diagonal overflows to inf and only a select keeps NaN out. (A clipped
-# step mid-chunk leaves the rows after it at |cum| ~ 100, where the
-# order in which cum is summed alone moves y by ~2e-5 in fp32, past the
-# bound below: the kernel and torch.cumsum on the card sum in different
-# orders.)
+# diagonal overflows to inf and only a select keeps NaN out.
 SSD_DRAWS = ("sweep", "slow", "clip")
+# a fourth, ``clip-mid``: a clipped step at a random row of the chunk.
+# The rows after it share |cum| ~ 100, and cum_i - cum_j keeps only the
+# digits those share, so the fp32 rounding of cum alone moves y by some
+# 1e-5, in the kernel and in the plain version alike: their difference
+# is no measure of either. Both are read against a float64 run of the
+# plain version on the same inputs instead, and the kernel's error must
+# stay within SSD_F64_FACTOR times the plain fp32 version's own (plus
+# SSD_F64_FLOOR, so that a case the plain version gets exactly cannot
+# fail on one rounding).
+SSD_F64_FACTOR, SSD_F64_FLOOR = 3.0, 1e-7
 # fp32: the JAX kernel tests' bound; bf16 y: one bf16 step (both sides
 # work in fp32 on the same bf16 inputs and round y once); the state is
 # fp32 in both cases
@@ -372,12 +379,7 @@ def build_kernels() -> None:
     lstm_kernel.bwd_smem_bytes(64)
     evl_kernel._library()
     attn_kernel._library()
-    # the wrapper's shared-memory check and the kernel's launch agree
-    for K, P, N in ((128, 64, 128), (16, 32, 32), (16, 16, 8)):
-        got = ssd_kernel._library().ssd_scan_smem_bytes(K, P, N)
-        check(got == ssd_kernel.smem_bytes(K, P, N),
-              f"ssd_scan shared memory at {(K, P, N)}: the source says "
-              f"{got}, the wrapper {ssd_kernel.smem_bytes(K, P, N)}")
+    ssd_kernel._library()
     for name, path in paths.items():
         print(f"[build] {name}: {'cached' if cached[name] else 'built'} -> "
               f"{path.relative_to(ROOT)}")
@@ -1290,15 +1292,44 @@ def ssd_case(args, chunk):
     return out
 
 
+def ssd_f64_case(args, chunk):
+    """The kernel's and the plain version's max errors against a float64
+    run of the plain version on the same inputs, for y and the state,
+    beside the RMS of the float64 values; the kernel's must stay within
+    SSD_F64_FACTOR times the plain version's, plus SSD_F64_FLOOR."""
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    got = ssd_scan(*args, chunk=chunk)
+    plain = ssd_scan_ref(*args, chunk)
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk)
+    torch.cuda.synchronize()
+    shape = tuple(args[0].shape) + (args[2].shape[-1], chunk)
+    out = {}
+    for i, part in enumerate(("y", "state")):
+        kern = float((got[i].double() - exact[i]).abs().max())
+        ref = float((plain[i].double() - exact[i]).abs().max())
+        out[part] = (kern, ref, float(exact[i].pow(2).mean().sqrt()))
+        check(bool(torch.isfinite(got[i]).all()),
+              f"ssd_scan {shape} {args[0].dtype}: {part} is not finite at "
+              f"a mid-chunk clip")
+        check(kern <= SSD_F64_FACTOR * ref + SSD_F64_FLOOR,
+              f"ssd_scan {part} at a mid-chunk clip {shape} {args[0].dtype}:"
+              f" {kern:.3e} from float64, past {SSD_F64_FACTOR} x the plain "
+              f"version's {ref:.3e} + {SSD_F64_FLOOR}")
+    return out
+
+
 def check_ssd() -> float:
     """Phase 9b: the SSD scan against its plain version on the card,
     through ``ops.ssd_scan``: the JAX kernel tests' sweep (a ragged L
     included), the reduced Mamba2's shapes and the serving path's two, at
     the three decays, in fp32 and bf16, each error printed beside the RMS
-    of what it compares; and rows of B = 1 launches bit for bit the rows
-    of a B = 8 launch. Returns the largest |kernel - plain|."""
+    of what it compares; the same shapes at a mid-chunk clip, kernel and
+    plain version each read against float64; and rows of B = 1 launches
+    bit for bit the rows of a B = 8 launch. Returns the largest
+    |kernel - plain|."""
     from repro_torch.kernels.ssd.ops import ssd_scan
-    from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
     worst, n = 0.0, 0
     for B, L, H, P, N, K in SSD_SWEEP + SSD_REDUCED + SSD_PATH:
@@ -1315,22 +1346,19 @@ def check_ssd() -> float:
                     f"{errs['state'][1]:.2e})")
         print(f"[check] ssd_scan {(B, L, H, P, N, K)} max |kernel - plain|: "
               + "; ".join(parts))
-    # reported, not held to a bound: a clipped step mid-chunk, where the
-    # kernel's and torch.cumsum's summation orders alone differ by about
-    # the fp32 atol (see SSD_DRAWS)
-    mid = []
-    for B, L, H, P, N, K in SSD_PATH:
-        args = ssd_inputs(B, L, H, P, N, "clip-mid", torch.float32, K,
-                          seed=200 + L)
-        y, s = ssd_scan(*args, chunk=K)
-        want_y, want_s = ssd_scan_ref(*args, K)
-        check(bool(torch.isfinite(y).all()), "ssd_scan: NaN at clip-mid")
-        mid.append(f"{(B, L, H, P, N, K)} y "
-                   f"{float((y - want_y).abs().max()):.2e} (rms "
-                   f"{float(want_y.pow(2).mean().sqrt()):.2e}) state "
-                   f"{float((s - want_s).abs().max()):.2e}")
-    print("[check] ssd_scan fp32 at a mid-chunk clip (reported, not held): "
-          + "; ".join(mid))
+    # a clipped step mid-chunk, both sides read against float64 (see
+    # SSD_F64_FACTOR)
+    for B, L, H, P, N, K in SSD_SWEEP + SSD_REDUCED + SSD_PATH:
+        parts = []
+        for dt in (torch.float32, torch.bfloat16):
+            errs = ssd_f64_case(ssd_inputs(B, L, H, P, N, "clip-mid", dt, K,
+                                           seed=200 + L + len(parts)), K)
+            parts.append(f"{str(dt)[6:]} " + " ".join(
+                f"{part} {k:.2e} (plain {r:.2e}, rms {rms:.2e})"
+                for part, (k, r, rms) in errs.items()))
+        print(f"[check] ssd_scan {(B, L, H, P, N, K)} at a mid-chunk clip, "
+              f"max |x - float64| of the kernel (and of the plain version): "
+              + "; ".join(parts))
     for L in (32, 160):                 # one ragged chunk; two chunks
         args = ssd_inputs(8, L, 32, 64, 128, "slow", torch.bfloat16, 128,
                           seed=100 + L)
@@ -1422,7 +1450,7 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
     launches by shape, and the init's seconds."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_token_batch
-    from repro_torch.models.transformer import FP32_LEAVES
+    from repro_torch.models.transformer import init_lm
     from repro_torch.serving import (BatcherConfig, ModelRegistry,
                                      ServingEngine, build_zoo_forecaster)
 
@@ -1434,13 +1462,17 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
     cfg = fc.cfg
     leaves = named_leaves(fc.params)
     n_params = sum(t.numel() for _, t in leaves)
+    like = named_leaves(init_lm(cfg, None))      # the init's dtypes
+    fp32 = sorted({k for k, t in like if t.dtype == torch.float32})
     check(cfg == get_config(arch) and cfg.dtype == "bfloat16"
-          and all(t.is_cuda and t.dtype == (torch.float32 if k in FP32_LEAVES
-                                            else torch.bfloat16)
-                  for k, t in leaves),
+          and [(k, t.shape, t.dtype) for k, t in leaves]
+          == [(k, t.shape, t.dtype) for k, t in like]
+          and all(t.is_cuda for _, t in leaves)
+          and set(fp32) == ({"dt_bias", "A_log"} if cfg.family == "ssm"
+                            else set()),
           f"{arch} is not served at full width in bf16 on the card")
     print(f"[zoo] {arch}: {n_params} parameters ({describe(cfg)}, bf16"
-          f"{'; dt_bias, A_log fp32' if cfg.family == 'ssm' else ''}) drawn "
+          f"{'; ' + ', '.join(fp32) + ' fp32' if fp32 else ''}) drawn "
           f"on the card and calibrated in {init_s:.2f} s; device memory "
           f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     registry = ModelRegistry()

@@ -15,11 +15,12 @@ weights reach the port's trainers as
 ``zoo_params_from_numpy`` takes the model zoo's params
 (``repro.models.transformer.init_lm``, numpy-leaved, stacked [L, ...]
 layer leaves) to the port's nest of the same keys and shapes on
-``device``, each leaf in the dtype the JAX init gives it: the config's
-dtype, except Mamba2's ``dt_bias`` and ``A_log``, which stay float32 in
-a bf16 model (``transformer.FP32_LEAVES``). numpy has no bf16, so a bf16
-config's params arrive as fp32 arrays (or as ``ml_dtypes`` bfloat16
-arrays, widened exactly to fp32 first) and are cast leaf by leaf.
+``device``, each leaf in the dtype the port's init gives it (read from
+``init_lm`` on the meta device): the config's dtype, except Mamba2's
+``dt_bias`` and ``A_log``, which stay float32 in a bf16 model, as in
+the JAX init. numpy has no bf16, so a bf16 config's params arrive as
+fp32 arrays (or as ``ml_dtypes`` bfloat16 arrays, widened exactly to
+fp32 first) and are cast leaf by leaf.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import FP32_LEAVES
+from repro_torch.models.transformer import init_lm
 from repro_torch.tree import stack_workers, tree_map
 
 __all__ = ["params_from_numpy", "params_to", "params_to_numpy",
@@ -56,23 +57,13 @@ def params_to(tree, device):
 
 def zoo_params_from_numpy(cfg, tree, device="cuda"):
     """A zoo arch's numpy-leaved params nest -> the same nest of tensors
-    on ``device``, in ``cfg``'s dtype (bf16 or fp32) but for the leaves
-    the JAX init keeps in float32."""
+    on ``device``, each leaf in the dtype of the port's init."""
     device = resolve_device(device)
-    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
-    def leaf(a, name):
+    def leaf(a, like):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":          # ml_dtypes: widen exactly
             a = a.astype(np.float32)
-        return torch.tensor(a).to(device=device, dtype=torch.float32
-                                  if name in FP32_LEAVES else dtype)
+        return torch.tensor(a).to(device=device, dtype=like.dtype)
 
-    def walk(node, name=None):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, name) for v in node)
-        return leaf(node, name)
-
-    return walk(tree)
+    return tree_map(leaf, tree, init_lm(cfg, None))

@@ -14,7 +14,11 @@
 //
 // The exp of the mask is taken only below the diagonal: above it
 // cum_i - cum_j > 0 can overflow expf to inf (a step at dt's clip of 100
-// gives a = -100), and a 0/1 mask times inf is NaN. The TPU wrapper pads
+// gives a = -100), and a 0/1 mask times inf is NaN. Past such a step
+// every later cum of the chunk is ~ -100, and cum_i - cum_j keeps only
+// the digits those share, so cum is summed in double and rounded once:
+// its fp32 error is then half an ulp, not the several ulps a float scan
+// gathers. The TPU wrapper pads
 // L to a multiple of K with a = 0 and xd = B = C = 0; here the last,
 // ragged chunk is masked instead: its rows past L are never loaded,
 // never enter a sum and are never written, which is what the padded
@@ -31,11 +35,13 @@
 // and cum. At K = 128, P = 64, N = 128 (Mamba2-370M) that is 214,016
 // bytes, above the 48 KB default, so the launch raises the block's limit
 // with cudaFuncSetAttribute (227 KB at most; the wrapper refuses shapes
-// past it). Every product is a dot product read from shared memory in a
-// fixed order, each thread owning whole outputs: one operand broadcast
-// across a warp, the other read at consecutive addresses. C B^T is
-// recomputed by each head of a batch row (B_ and C_ are shared by the
-// heads), and only for j <= i. cum is one warp's scan. A row's bits do
+// past it, and the launch returns the attribute's error for any shape
+// that still asks for more). Every product is a dot product read from
+// shared memory in a fixed order, each thread owning whole outputs: one
+// operand broadcast across a warp, the other read at consecutive
+// addresses. C B^T is recomputed by each head of a batch row (B_ and C_
+// are shared by the heads), and only for j <= i. cum is one warp's scan,
+// in double. A row's bits do
 // not depend on the batch width: no sum crosses a (batch, head) block.
 //
 // What bounds it on an H100. At the serving path's long prompt (B 4,
@@ -119,24 +125,25 @@ __global__ void __launch_bounds__(THREADS)
       cum[k] = ab[(long long)(t0 + k) * H];
     __syncthreads();
 
-    // cum: each lane of warp 0 sums its run of rows in order, then the
-    // lanes' totals are scanned across the warp
+    // cum: warp 0 scans in double and rounds each cum once to fp32
+    // (see the top): each lane totals its run of rows, the lanes' totals
+    // are scanned across the warp, then each lane writes its run's sums
     if (tid < 32) {
       const int per = (rows + 31) / 32;
       const int k0 = min(tid * per, rows), k1 = min(k0 + per, rows);
-      float s = 0.f;
-      for (int k = k0; k < k1; ++k) {
-        s += cum[k];
-        cum[k] = s;
-      }
-      float incl = s;
+      double s = 0.0;
+      for (int k = k0; k < k1; ++k) s += cum[k];
+      double incl = s;
       for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, o);
+        const double v = __shfl_up_sync(0xffffffffu, incl, o);
         if (tid >= o) incl += v;
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      for (int k = k0; k < k1; ++k) cum[k] += excl;
+      s = __shfl_up_sync(0xffffffffu, incl, 1);  // the rows before the run
+      if (tid == 0) s = 0.0;
+      for (int k = k0; k < k1; ++k) {
+        s += cum[k];
+        cum[k] = (float)s;
+      }
     }
     __syncthreads();
 
@@ -208,11 +215,6 @@ int launch(const void* xd, const float* a, const void* B, const void* C,
 }  // namespace
 
 extern "C" {
-
-// Shared memory one block takes at chunk K, head dim P, state N.
-long long ssd_scan_smem_bytes(int K, int P, int N) {
-  return (long long)smem_bytes(K, P, N);
-}
 
 // xd [B, L, H, P] and y [B, L, H, P] in one dtype (bf16 when ``bf16``,
 // else fp32), a [B, L, H] fp32, B_ and C_ [B, L, N] in xd's dtype, state

@@ -32,7 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def smem_bytes(chunk: int, head_dim: int, state: int) -> int:
     """Shared memory of one block: xd [K][P], B^T [N][K + 1], C [K][N],
     the state [N][P], 32 rows of masked scores [32][K] and cum [K], all
-    fp32 (``smem_bytes`` in the source)."""
+    fp32: a copy of ``smem_bytes`` in the source, so that the wrapper
+    refuses a shape past ``SMEM_LIMIT`` before it launches."""
     K, P, N = chunk, head_dim, state
     return 4 * (K * P + N * (K + 1) + K * N + N * P + min(K, _ROW_BLOCK) * K
                 + K)
@@ -44,8 +45,6 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [_P] * 6 + [_I] * 7 + [_P]
         fn.restype = _I
-        lib.ssd_scan_smem_bytes.argtypes = [_I] * 3
-        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

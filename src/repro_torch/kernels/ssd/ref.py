@@ -44,8 +44,10 @@ def ssd_scan_ref(xd, a, B_, C_, chunk: int = 128):
     """The chunked scan from a zero state: xd [B, L, H, P]; a [B, L, H]
     (float32); B_, C_ [B, L, N]. L is padded to a multiple of ``chunk``
     with a = 0 and xd = B_ = C_ = 0 (inert steps). Every chunk works in
-    float32; y is cast to xd's dtype chunk by chunk. Returns (y [B, L, H,
-    P] in xd's dtype, final state [B, H, P, N] float32)."""
+    float32 (in float64 when xd is float64: a reference against which
+    to read the float32 versions' own error); y is cast to xd's dtype
+    chunk by chunk. Returns (y [B, L, H, P] in xd's dtype, final state
+    [B, H, P, N] in the working dtype)."""
     Bsz, L, H, P = xd.shape
     N = B_.shape[-1]
     pad = (-L) % chunk
@@ -60,14 +62,14 @@ def ssd_scan_ref(xd, a, B_, C_, chunk: int = 128):
     Bc = B_.reshape(Bsz, nc, chunk, N)
     Cc = C_.reshape(Bsz, nc, chunk, N)
 
-    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
-                        device=xd.device)
+    work = torch.float64 if xd.dtype == torch.float64 else torch.float32
+    state = torch.zeros((Bsz, H, P, N), dtype=work, device=xd.device)
     ys = []
     for c in range(nc):
-        x32 = xc[:, c].to(torch.float32)                # [B, K, H, P]
-        a_hk = ac[:, c].to(torch.float32).transpose(1, 2)   # [B, H, K]
-        B32 = Bc[:, c].to(torch.float32)                # [B, K, N]
-        C32 = Cc[:, c].to(torch.float32)
+        x32 = xc[:, c].to(work)                         # [B, K, H, P]
+        a_hk = ac[:, c].to(work).transpose(1, 2)        # [B, H, K]
+        B32 = Bc[:, c].to(work)                         # [B, K, N]
+        C32 = Cc[:, c].to(work)
         cum = torch.cumsum(a_hk, dim=-1)
         Lmat = torch.exp(segsum(a_hk))                  # [B, H, K, K]
 

@@ -17,7 +17,16 @@ import torch
 # Initializers
 # -------------------------------------------------------------------------
 
-def _normal(generator: torch.Generator, shape, std: float, dtype, device):
+def init_device(generator: torch.Generator | None) -> torch.device:
+    """Where an init puts its leaves: on the generator's device, or on
+    the meta device (shapes and dtypes, no data) with no generator."""
+    return torch.device("meta") if generator is None else generator.device
+
+
+def _normal(generator: torch.Generator | None, shape, std: float, dtype,
+            device):
+    if generator is None:                       # the meta device: no draw
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     w = torch.randn(tuple(shape), generator=generator,
                     device=generator.device, dtype=torch.float32)
     return (w * std).to(dtype=dtype, device=device)

@@ -41,18 +41,18 @@ def ssd_chunked(xd, a, B_, C_, chunk: int = 128):
 
 
 def ssd_reference(xd, a, B_, C_):
-    """O(L) sequential oracle (tests only)."""
+    """O(L) sequential oracle (tests only), in float32 (in float64 when
+    xd is float64)."""
     Bsz, L, H, P = xd.shape
     N = B_.shape[-1]
-    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
-                        device=xd.device)
+    work = torch.float64 if xd.dtype == torch.float64 else torch.float32
+    state = torch.zeros((Bsz, H, P, N), dtype=work, device=xd.device)
     ys = []
     for t in range(L):
-        state = (state * torch.exp(a[:, t]).to(torch.float32)[..., None, None]
-                 + torch.einsum("bn,bhp->bhpn", B_[:, t].to(torch.float32),
-                                xd[:, t].to(torch.float32)))
-        ys.append(torch.einsum("bn,bhpn->bhp", C_[:, t].to(torch.float32),
-                               state))
+        state = (state * torch.exp(a[:, t]).to(work)[..., None, None]
+                 + torch.einsum("bn,bhp->bhpn", B_[:, t].to(work),
+                                xd[:, t].to(work)))
+        ys.append(torch.einsum("bn,bhpn->bhp", C_[:, t].to(work), state))
     return torch.stack(ys, dim=1).to(xd.dtype), state
 
 

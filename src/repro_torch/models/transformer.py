@@ -25,7 +25,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import blocked_attention
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
-                                       embed_init, norm_param, rms_norm)
+                                       embed_init, init_device, norm_param,
+                                       rms_norm)
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.ssm import mamba2_apply
 from repro_torch.tree import tree_leaves, tree_map
@@ -37,8 +38,6 @@ _LATER = {"hybrid": "Zamba2", "moe": "MoE", "vlm": "audio and VLM",
           "audio": "audio and VLM"}
 # the families the port runs
 _PORTED = ("dense", "ssm")
-# leaves the JAX init keeps in float32 whatever the config's dtype
-FP32_LEAVES = ("dt_bias", "A_log")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -63,7 +62,7 @@ def _dtype(cfg: ArchConfig):
 
 def _init_attn(g, cfg: ArchConfig, dt):
     H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    dev = g.device
+    dev = init_device(g)
     p = {
         "wq": dense_init(g, (d, H * hd), dt, dev),
         "wk": dense_init(g, (d, Hkv * hd), dt, dev),
@@ -81,18 +80,18 @@ def _init_attn(g, cfg: ArchConfig, dt):
 
 
 def _init_mlp(g, cfg: ArchConfig, dt):
-    d, f = cfg.d_model, cfg.d_ff
-    p = {"w1": dense_init(g, (d, f), dt, g.device),
-         "w2": dense_init(g, (f, d), dt, g.device)}
+    d, f, dev = cfg.d_model, cfg.d_ff, init_device(g)
+    p = {"w1": dense_init(g, (d, f), dt, dev),
+         "w2": dense_init(g, (f, d), dt, dev)}
     if cfg.gated_mlp:
-        p["w3"] = dense_init(g, (d, f), dt, g.device)
+        p["w3"] = dense_init(g, (d, f), dt, dev)
     return p
 
 
 def _init_ssm_block(g, cfg: ArchConfig, dt):
     d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * N
-    dev = g.device
+    dev = init_device(g)
     return {
         "in_proj": dense_init(g, (d, 2 * di + 2 * N + H), dt, dev),
         "conv_w": dense_init(g, (conv_dim, cfg.ssm_conv), dt, dev,
@@ -107,9 +106,10 @@ def _init_ssm_block(g, cfg: ArchConfig, dt):
 
 
 def _init_decoder_layer(g, cfg: ArchConfig, dt):
-    return {"norm1": norm_param(cfg.norm, cfg.d_model, dt, g.device),
+    dev = init_device(g)
+    return {"norm1": norm_param(cfg.norm, cfg.d_model, dt, dev),
             "attn": _init_attn(g, cfg, dt),
-            "norm2": norm_param(cfg.norm, cfg.d_model, dt, g.device),
+            "norm2": norm_param(cfg.norm, cfg.d_model, dt, dev),
             "mlp": _init_mlp(g, cfg, dt)}
 
 
@@ -124,16 +124,17 @@ def _stack(fn, n: int):
     return out
 
 
-def init_lm(cfg: ArchConfig, generator: torch.Generator) -> PyTree:
+def init_lm(cfg: ArchConfig, generator: torch.Generator | None) -> PyTree:
     """Random params of a dense decoder LM or a Mamba2 stack, in the
     config's dtype (``dt_bias`` and ``A_log`` in float32, as in the JAX
     package), drawn from ``generator`` on its own device (a CUDA
     generator draws on the card, each leaf in fp32 and cast, one layer
-    at a time)."""
+    at a time). With no generator the leaves lie on the meta device: the
+    tree's keys, shapes and dtypes, with no data."""
     _require_ported(cfg)
     dt = _dtype(cfg)
     V, d = cfg.padded_vocab, cfg.d_model
-    dev = generator.device
+    dev = init_device(generator)
 
     def layer():
         if cfg.family == "ssm":

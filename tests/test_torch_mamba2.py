@@ -201,6 +201,19 @@ def test_init_lm_tree_matches_jax(dtype):
     assert abs(std * cfg.d_model ** 0.5 - 1.0) < 0.05
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen1.5-4b"])
+def test_init_lm_on_the_meta_device_is_the_drawn_tree_without_data(arch,
+                                                                   dtype):
+    """With no generator, ``init_lm`` gives the drawn init's keys, shapes
+    and dtypes on the meta device: what the weight converter casts to."""
+    cfg = reduced(get_config(arch), dtype=dtype)
+    meta = init_lm(cfg, None)
+    assert all(t.is_meta for t in tree_leaves(meta))
+    assert _dtypes(meta) == _dtypes(
+        init_lm(cfg, torch.Generator().manual_seed(0)))
+
+
 def test_zoo_params_from_numpy_keeps_the_fp32_leaves():
     """Converting the JAX tree of a bf16 model gives each leaf the JAX
     leaf's own dtype (dt_bias and A_log float32, the rest bf16), with

@@ -23,7 +23,9 @@ Three draws of the decay a = dt * A:
   keeps only the digits of |cum| (both packages form it so), and the
   order in which cum is summed moves y by ~2e-5. The two packages sum
   it in the same order on the CPU and agree at 1e-5; on the card the
-  kernel and torch.cumsum do not, so the card's checks take ``clip``.
+  kernel and torch.cumsum do not, so there the kernel and the plain
+  version are each read against a float64 run of the plain version,
+  and the kernel's error must stay within 3x the plain version's.
 
 Tolerances are the JAX kernel tests': rtol 1e-4 / atol 1e-5 in fp32.
 On a card the kernel and its plain version both work in fp32 on the
@@ -140,6 +142,25 @@ def test_one_chunk_with_a_state_matches_jax(kind):
                            ssd_chunk_fused(xd, a, B_, C_, state)):
         _close(y.numpy(), want_y)
         _close(new_state.numpy(), want_s)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_float64_plain_version_is_the_recurrence(shape):
+    """The float64 run of the plain version, which the card's mid-chunk
+    clip check reads both fp32 versions against, is the step-by-step
+    recurrence in float64, and the fp32 run differs from it by no more
+    than the fp32 bound."""
+    chunk = shape[-1]
+    arrays = _draw(*shape[:5], "clip-mid", seed=4, chunk=chunk)
+    y, s = ssd_scan_ref(*(t.double() for t in _t(*arrays)), chunk)
+    assert y.dtype == s.dtype == torch.float64
+    y_seq, s_seq = ssm.ssd_reference(*(t.double() for t in _t(*arrays)))
+    assert y_seq.dtype == s_seq.dtype == torch.float64
+    _close(y.numpy(), y_seq.numpy(), rtol=1e-9, atol=1e-12)
+    _close(s.numpy(), s_seq.numpy(), rtol=1e-9, atol=1e-12)
+    y32, s32 = ssd_scan_ref(*_t(*arrays), chunk)
+    _close(y32.double().numpy(), y.numpy())
+    _close(s32.double().numpy(), s.numpy())
 
 
 def test_segsum_matches_jax():
@@ -325,6 +346,30 @@ def test_cuda_kernel_matches_plain_version(shape, kind, dtype):
     assert torch.all(torch.isfinite(y.float()))
     torch.testing.assert_close(y.float(), want_y.float(), **tol)
     torch.testing.assert_close(s, want_s, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES + [(8, 32, 32, 64, 128, 128),
+                                            (4, 2048, 32, 64, 128, 128)],
+                         ids=str)
+def test_cuda_kernel_at_a_mid_chunk_clip_is_as_close_to_float64(shape,
+                                                                 dtype):
+    """At a clipped step mid-chunk the kernel and the plain version are
+    each read against a float64 run of the plain version on the same
+    inputs; the kernel's error stays within 3x the plain version's (plus
+    1e-7, one rounding of a case the plain version gets exactly)."""
+    _card()
+    args = _cuda(_draw(*shape[:5], "clip-mid", seed=14, chunk=shape[-1]),
+                 getattr(torch, dtype))
+    got = ssd_scan(*args, chunk=shape[-1])
+    plain = ssd_scan_ref(*args, shape[-1])
+    exact = ssd_scan_ref(*(t.double() for t in args), shape[-1])
+    for g, p, e in zip(got, plain, exact):
+        assert torch.all(torch.isfinite(g))
+        kern = float((g.double() - e).abs().max())
+        ref = float((p.double() - e).abs().max())
+        assert kern <= 3.0 * ref + 1e-7, (kern, ref)
 
 
 @pytest.mark.cuda
