@@ -4,16 +4,18 @@ NVIDIA H100.
 
     python3 chip_smoke.py            # from the repo root, on the card
 
-It builds the hand-written CUDA kernels from the sources in the
-checkout (one ``nvcc`` per library, all started together) and holds
-each against its plain PyTorch version on the card: the LSTM cell's
-forward (with the local-SGD worker dim) and backward, the EVL loss's
-forward and backward, flash attention (the JAX kernel tests' sweep and
-masks, fp32 and bf16) and the Mamba2 SSD chunk scan (the JAX sweep, the
-reduced config's and the serving path's shapes, at fast, slow and
-clipped decay, fp32 and bf16; at a clip mid-chunk, kernel and plain
-version each against float64). It checks the forecaster's bitwise step ==
-replay == generate contract and that a training step puts real
+It builds the hand-written CUDA kernels from the sources in the checkout
+(one ``nvcc`` per library, all started together), shows from the flash
+library's SASS that its bf16 kernel issues wgmma (HGMMA) and TMA loads
+(UTMALDG), and holds each kernel against its plain PyTorch version on
+the card: the LSTM cell's forward (with the local-SGD worker dim) and
+backward, the EVL loss's forward and backward, flash attention (the JAX
+kernel tests' sweep and masks, and head dim 80; fp32 on the CUDA-core
+kernel, bf16 on the tensor-core one) and the Mamba2 SSD chunk scan (the
+JAX sweep, the reduced config's and the serving path's shapes, at fast,
+slow and clipped decay, fp32 and bf16; at a clip mid-chunk, kernel and
+plain version each against float64). It checks the forecaster's bitwise
+step == replay == generate contract and that a training step puts real
 gradients on every LSTM weight. Then it drives the port's three main
 paths: serving the paper LSTM (full width, random weights from seed 0)
 through ``ServingEngine`` and the ``repro_torch.launch.serve`` CLI;
@@ -42,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -101,21 +104,26 @@ SERVING_SLICE_DIGESTS = {
     "32x64x64": "72efe52a6d4959c3e5d4edd78e9a6a8958ec0f352b550e5a5eb235967ced05de",
     "64x64x64": "ecd8f29e5a126d3901f477e395ac7befb5484ff75b1d4ccf975ec68983d61740"}
 # flash attention: the JAX kernel tests' sweep (B, S, Hq, Hkv, D) (MHA,
-# GQA with a ragged S, MQA, S below a block), its masks, and its fp32
+# GQA with a ragged S, MQA, S below a block; and head dim 80, which the
+# bf16 kernel pads to two 64-column slabs), its masks, and its fp32
 # tolerances, rtol 2e-4 / atol 2e-5. In bf16 the kernel and the plain
-# version both work in fp32 on the same bf16 inputs and round the output
-# once, so they differ by at most one bf16 step of the output, 2^-7 of
-# its size: rtol 1e-2, with atol 1e-4 for outputs near 0 (a row of the
+# version both work in fp32 on the same bf16 inputs (the kernel's P.V on
+# two bf16 halves of P, good to about 2^-17) and round the output once,
+# so they differ by at most one bf16 step of the output, 2^-7 of its
+# size: rtol 1e-2, with atol 1e-4 for outputs near 0 (a row of the
 # 2048-token path has outputs of size about 0.04). The JAX tests' 0.08
 # is kept for scaled_dot_product_attention only, which rounds P to bf16.
 FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 300, 8, 1, 32),
-                (2, 64, 6, 2, 128)]
+                (2, 64, 6, 2, 128), (2, 77, 4, 4, 80)]
 FLASH_MASKS = [dict(causal=True), dict(causal=False),
                dict(causal=True, window=37), dict(causal=True, q_offset=29)]
 FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 1e-4
 LIBRARY_BF16_TOL = 0.08
 BF16_OPS_PER_S = 989e12         # tensor cores, dense bf16
+# device-kernel names: the bf16 flash kernel (wgmma, TMA), which the zoo's
+# bf16 path must run, and the fp32 CUDA-core one, which it must not
+FLASH_SYMBOL, FLASH_FP32_SYMBOL = "flash_fwd_wgmma", "flash_kernel"
 # the zoo's serving path: Qwen1.5-4B at full width and depth (bf16,
 # random weights from seed 0) behind ServingEngine, two bursts of
 # (requests, prompt length, max_batch)
@@ -385,6 +393,43 @@ def build_kernels() -> None:
               f"{path.relative_to(ROOT)}")
     print(f"[build] {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
+
+
+def check_flash_sass() -> None:
+    """Phase 1b: the bf16 flash kernel runs on the tensor cores, fed by
+    TMA: the flash library's SASS (``cuobjdump --dump-sass``) holds wgmma
+    (HGMMA) and TMA loads (UTMALDG) in each head dim's instantiation of
+    the bf16 kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    lib = build.library_path("flash_attention", attn_kernel.SOURCES)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "--dump-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {lib}: {out.stderr}")
+    counts: dict[str, list[int]] = {}
+    fn = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "UTMALDG" in line
+    hgmma = sum(c[0] for c in counts.values())
+    utmaldg = sum(c[1] for c in counts.values())
+    bf16 = {f: c for f, c in counts.items() if FLASH_SYMBOL in f}
+    print(f"[sass] flash_attention library: HGMMA {hgmma}, UTMALDG "
+          f"{utmaldg} instructions; in the bf16 kernel's "
+          f"{len(bf16)} instantiations (HGMMA, UTMALDG): "
+          f"{sorted(map(tuple, bf16.values()))}")
+    check(hgmma > 0 and utmaldg > 0,
+          f"the flash library issues no wgmma ({hgmma}) or no TMA load "
+          f"({utmaldg})")
+    check(len(bf16) == len(attn_kernel.HEAD_DIMS)
+          and all(h > 0 and u > 0 for h, u in bf16.values()),
+          f"an instantiation of {FLASH_SYMBOL} lacks wgmma or TMA: {bf16}")
 
 
 def check_forward() -> float:
@@ -1171,12 +1216,16 @@ def attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed=0):
                  for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
 
 
+def flash_ops(B, Sq, Skv, Hq, Hkv, D):
+    """Causal flash attention's operations (q_offset 0): 4 B Hq D per
+    causal (query, key) pair, two for q . k and two for p v."""
+    return 4 * B * Hq * D * sum(min(i + 1, Skv) for i in range(Sq))
+
+
 def flash_bound(B, Sq, Skv, Hq, Hkv, D, itemsize=2):
-    """Causal flash attention (q_offset 0): 4 B Hq D operations per
-    causal (query, key) pair at the bf16 tensor-core peak; q, k, v read
+    """Causal flash attention at the bf16 tensor-core peak; q, k, v read
     once and o written once at the memory rate."""
-    pairs = sum(min(i + 1, Skv) for i in range(Sq))
-    ops = 4 * B * Hq * D * pairs
+    ops = flash_ops(B, Sq, Skv, Hq, Hkv, D)
     nbytes = itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
@@ -1215,7 +1264,8 @@ def check_flash() -> float:
         check(torch.equal(one[0], full[b]),
               f"flash attention row {b} of a B=8 launch != its B=1 launch")
     print(f"[check] flash attention vs plain over {n} cases (the JAX sweep "
-          f"x causal, full, window 37, q_offset 29, kv_valid x fp32, bf16): "
+          f"and D 80 x causal, full, window 37, q_offset 29, kv_valid x "
+          f"fp32 on the CUDA-core kernel, bf16 on the wgmma one): "
           f"max |kernel - plain| fp32 {worst[torch.float32]:.3e} (rtol "
           f"{FLASH_RTOL}, atol {FLASH_ATOL}), bf16 "
           f"{worst[torch.bfloat16]:.3e} (rtol {FLASH_BF16_RTOL}, atol "
@@ -1665,8 +1715,11 @@ def time_flash(launches: dict, tag: str):
                 qt, kt, vt, is_causal=True), inner, reps),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
         r = rows[shape]
+        tflops = flash_ops(*shape) / (r["ms"] * 1e-3) / 1e12
         print(f"[time] {tag}: flash_attention {shape} bf16 causal: kernel "
-              f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"{r['ms'] * 1e3:.2f} us = {tflops:.1f} TFLOP/s (the bound's "
+              f"operations over its time), plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, "
               f"scaled_dot_product_attention {r['library_ms'] * 1e3:.2f} us, "
               f"bound {r['bound_ms'] * 1e3:.3f} us ({by}) = "
               f"{100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time; "
@@ -1679,11 +1732,14 @@ def time_flash(launches: dict, tag: str):
     return rows, worst
 
 
-def profile_zoo(fc, kernel: str, symbol: str, tag: str) -> None:
+def profile_zoo(fc, kernel: str, symbol: str, tag: str,
+                absent: str | None = None) -> None:
     """Phase 14, where a zoo flush's time goes: one predict flush at each
     prompt length, the device's busy share, and the shares of the
     model's kernel (``symbol`` in the device kernel's name) and of the
-    matrix products."""
+    matrix products. Fails if no device kernel of a flush holds
+    ``symbol`` (a renamed kernel must not read as 0 %), or one holds
+    ``absent``."""
     from repro_torch.data.tokens import synthetic_token_batch
 
     for n_req, plen, max_batch in ZOO_BURSTS:
@@ -1693,6 +1749,13 @@ def profile_zoo(fc, kernel: str, symbol: str, tag: str) -> None:
             f"one predict flush of {max_batch} x {plen} tokens",
             lambda: fc.predict(toks), tag)
         own = sum(us for us, _, name in kernels if symbol in name)
+        check(own > 0, f"{fc.cfg.name} flush of {max_batch} x {plen}: no "
+                       f"device kernel's name holds {symbol!r}: "
+                       f"{[name for _, _, name in kernels]}")
+        check(absent is None or not any(absent in name
+                                        for _, _, name in kernels),
+              f"{fc.cfg.name} flush of {max_batch} x {plen} ran "
+              f"{absent!r}")
         gemm = sum(us for us, _, name in kernels
                    if symbol not in name
                    and any(w in name.lower() for w in (
@@ -1755,6 +1818,7 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     timed("build", build_kernels)
+    timed("flash SASS", check_flash_sass)
     errs = {"lstm_cell": timed("check lstm_cell", check_forward),
             "lstm_cell_bwd": timed("check lstm_cell_bwd", check_backward)}
     errs["evl_forward"], errs["evl_backward"] = timed("check evl", check_evl)
@@ -1783,7 +1847,7 @@ def main() -> None:
     every["flash_attention"] = flash_launches
     errs["flash_attention"] = max(errs["flash_attention"], flash_err)
     timed(f"profile {ZOO_ARCH} serving", profile_zoo, zoo_fc,
-          "flash_attention", "flash_kernel", tag)
+          "flash_attention", FLASH_SYMBOL, tag, FLASH_FP32_SYMBOL)
     print(f"[zoo] {ZOO_ARCH} init (draw on the card + calibrate): "
           f"{init_s:.2f} s")
     del zoo_fc
@@ -1811,7 +1875,8 @@ def main() -> None:
                         "src/repro/kernels/evl/kernel.py:20"),
         "evl_backward": (csrc.format("evl", "evl.cu"),
                          "src/repro/kernels/evl/kernel.py:20"),
-        "flash_attention": (csrc.format("attention", "flash_attention.cu"),
+        "flash_attention": (csrc.format("attention",
+                                        "flash_attention_wgmma.cu"),
                             "src/repro/kernels/attention/kernel.py:34"),
         "ssd_scan": (csrc.format("ssd", "ssd_scan.cu"),
                      "src/repro/kernels/ssd/kernel.py:27")}

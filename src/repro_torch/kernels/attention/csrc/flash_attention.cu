@@ -1,11 +1,15 @@
-// Flash attention for Hopper (sm_90a): online softmax over key tiles,
-// GQA, and the causal, sliding-window, q_offset and kv_valid masks; bf16
-// or fp32 in and out, fp32 inside.
+// Flash attention for Hopper (sm_90a), the entry point of both routes:
+// bf16 q, k, v go to the tensor-core kernel of flash_attention_wgmma.cu
+// (wgmma fed by TMA); fp32 ones to the CUDA-core kernel below. The choice
+// is the dtype's and is made here, in flash_attention_forward: the tensor
+// cores have no fp32-exact product (TF32 keeps 10 bits of mantissa, and
+// the fp32 route is held to rtol 2e-4), so fp32 stays on fp32 FMAs, and no
+// bf16 input reaches them.
 //
 // Replaces the TPU kernel repro/kernels/attention/kernel.py::_flash_kernel
 // (launched by flash_attention_pallas, wrapped by
-// attention/ops.py::flash_attention). It computes what that kernel
-// computes, for q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D]:
+// attention/ops.py::flash_attention). Both kernels compute what that
+// kernel computes, for q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D]:
 //
 //   s   = (q . k) * D^-0.5 for every (query, key) pair, in fp32;
 //         -1e30 where a mask removes the pair: key >= kv_valid, key >
@@ -13,42 +17,33 @@
 //         query position q_offset + row;
 //   out = softmax(s) v, by the running max m, denominator l and
 //         accumulator acc (all fp32), the products with v on fp32
-//         probabilities, acc / max(l, 1e-30) stored in q's dtype.
+//         probabilities (the bf16 kernel: on their two bf16 halves, good
+//         to about 2^-17), acc / max(l, 1e-30) stored in q's dtype.
 //
 // Query head h reads kv head h / (Hq / Hkv), so GQA never copies k or v.
 // The tensors are read and written through their strides (the last dim
 // contiguous): the caller's [B, S, H, D] layout, no transposed copy.
 //
-// Design (simple and right first). One block of 128 threads per
+// The fp32 kernel (simple and right first). One block of 128 threads per
 // (batch x query head, tile of 64 query rows). The query tile is staged
-// once in shared memory as fp32; the block then walks the key tiles of
-// 32 keys in order, each staged in shared memory as fp32 (bf16 widened
-// on load), and keeps the running statistics of its rows in registers:
-// thread (ty, tx) owns rows ty + 16 i (i < 4), the scores of keys
-// tx + 8 j (j < 4) of the tile, and the accumulator columns tx + 8 c
-// (c < D / 8). A row's max and sum go across its 8 threads by warp
-// shuffles; the probabilities pass through a shared tile to the P.V
-// product. Key tiles that every row of the block masks (above the
-// diagonal, before the window, at or past kv_valid) are never loaded,
+// once in shared memory; the block then walks the key tiles of 32 keys in
+// order, each staged in shared memory, and keeps the running statistics
+// of its rows in registers: thread (ty, tx) owns rows ty + 16 i (i < 4),
+// the scores of keys tx + 8 j (j < 4) of the tile, and the accumulator
+// columns tx + 8 c (c < D / 8). A row's max and sum go across its 8
+// threads by warp shuffles; the probabilities pass through a shared tile
+// to the P.V product. Key tiles that every row of the block masks (above
+// the diagonal, before the window, at or past kv_valid) are never loaded,
 // the TPU kernel's block skip; the ragged edges (Sq, Skv not multiples of
 // the tiles) are masked here, not padded by the caller. Shared-memory
 // rows are padded (D + 1, 32 + 8 floats) so that the reads of a warp fall
-// in distinct banks. D is a template parameter: 32, 64, 80, 128.
-//
-// What bounds it on an H100. At the serving path's long prompt
-// (Qwen1.5-4B: S 2048, 20 heads of 128, causal, bf16) the work is
-// 4 * B * H * D * (causal pairs) operations against 8 * B * S * H * D
-// bytes of q, k, v and o: about 4,000 operations per byte, far above the
-// card's ~295, so operations bound it; at the short prompt (S 32) it is
-// bound by its launch. Like the TPU kernel it computes in fp32, here on
-// the CUDA cores (67 TFLOP/s at most, against 989 for bf16 on the tensor
-// cores), and its inner products read shared memory for every two to
-// four FMAs, so it runs well below even that. Tensor cores (wgmma) and
-// TMA-fed tile rings are the later work that closes the gap.
+// in distinct banks. D is a template parameter: 32, 64, 80, 128. It runs
+// on the CUDA cores (67 TFLOP/s of fp32 at most) behind shared-memory
+// loads; the serving path's model runs in bf16 and never reaches it
+// (chip_smoke.py's card-vs-CPU check of Qwen1.5-4B in fp32 does).
 //
 // The C entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,15 +65,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 template <int D>
 constexpr int smem_bytes() {
   return (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PS) * 4;
@@ -96,7 +82,7 @@ __device__ __forceinline__ float row_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_kernel(Params p) {
   constexpr int DP = D + 1;   // padded row stride of the q and k tiles
   constexpr int DC = D / 8;   // accumulator columns per thread
@@ -112,18 +98,19 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Params p) {
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb
-                + (h / p.group) * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb
-                + (h / p.group) * p.v_sh;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb
+                    + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb
+                    + (h / p.group) * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb
+                    + (h / p.group) * p.v_sh;
+  float* ob = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D;
     const int d = i - r * D;
     const int qi = q0 + r;
-    qs[r * DP + d] = qi < p.Sq ? load_f(qb + qi * p.q_ss + d) : 0.0f;
+    qs[r * DP + d] = qi < p.Sq ? qb[qi * p.q_ss + d] : 0.0f;
   }
 
   // the key tiles some row of this block may see
@@ -151,8 +138,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Params p) {
       const int d = i - r * D;
       const int kj = k0 + r;
       const bool in = kj < p.Skv;
-      ks[r * DP + d] = in ? load_f(kb + kj * p.k_ss + d) : 0.0f;
-      vs[r * D + d] = in ? load_f(vb + kj * p.v_ss + d) : 0.0f;
+      ks[r * DP + d] = in ? kb[kj * p.k_ss + d] : 0.0f;
+      vs[r * D + d] = in ? vb[kj * p.v_ss + d] : 0.0f;
     }
     __syncthreads();
 
@@ -222,35 +209,45 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Params p) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = ob + qi * p.o_ss;
+    float* orow = ob + qi * p.o_ss;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store_f(orow + tx + 8 * c, acc[i][c] / denom);
+    for (int c = 0; c < DC; ++c) orow[tx + 8 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * p.Hq, (p.Sq + BQ - 1) / BQ);
-  flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  flash_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t stream) {
+cudaError_t launch_fp32(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 80: return launch<T, 80>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 32: return launch<32>(p, B, stream);
+    case 64: return launch<64>(p, B, stream);
+    case 80: return launch<80>(p, B, stream);
+    case 128: return launch<128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+namespace flash_wgmma {
+cudaError_t forward(const void* q, const void* k, const void* v, void* o,
+                    long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_ss, long long k_sh,
+                    long long v_sb, long long v_ss, long long v_sh,
+                    long long o_sb, long long o_ss, long long o_sh, int B,
+                    int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                    int window, int q_offset, int kv_valid, float scale,
+                    cudaStream_t stream);  // flash_attention_wgmma.cu
+}
 
 extern "C" {
 
@@ -269,14 +266,18 @@ int flash_attention_forward(
     int window, int q_offset, int kv_valid, float scale, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return flash_wgmma::forward(q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, B,
+                                Sq, Skv, Hq, Hkv, D, causal, window, q_offset,
+                                kv_valid, scale, s);
   const Params p{q, k, v, o,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                  v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                  Sq, Skv, Hq, Hq / Hkv, causal, window, q_offset, kv_valid,
                  scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_d<__nv_bfloat16>(p, B, D, s)
-              : launch_d<float>(p, B, D, s);
+  return launch_fp32(p, B, D, s);
 }
 
 }  // extern "C"

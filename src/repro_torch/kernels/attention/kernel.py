@@ -1,5 +1,8 @@
-"""Binding of the hand-written CUDA flash attention
-(``csrc/flash_attention.cu``).
+"""Binding of the hand-written CUDA flash attention: one library of
+``csrc/flash_attention.cu`` (the entry point, and the fp32 kernel on the
+CUDA cores) and ``csrc/flash_attention_wgmma.cu`` (the bf16 kernel:
+wgmma on the tensor cores, fed by TMA), the entry point choosing by
+dtype.
 
 Built with ``nvcc`` for ``sm_90a`` at first use
 (``repro_torch.kernels.build``) and called through ``ctypes``, as the
@@ -19,7 +22,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import LaunchCounter
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu"]
 LIBRARIES = {"flash_attention": SOURCES}
 # the head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 80, 128)
@@ -29,8 +33,11 @@ FLASH_LAUNCHES = LaunchCounter()
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("flash_attention", SOURCES)
+def _library(name: str = "flash_attention",
+             sources: list[Path] = SOURCES) -> ctypes.CDLL:
+    """The loaded library (built first if needed); ``name`` and
+    ``sources`` name another build of the same entry point."""
+    lib = build.load(name, sources)
     fn = lib.flash_attention_forward
     if fn.argtypes is None:
         fn.argtypes = ([_P] * 4 + [_L] * 12 + [_I] * 11
@@ -39,17 +46,15 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_cuda(q, k, v, causal: bool, window, q_offset: int,
-                         kv_valid: int):
-    """Launch on validated CUDA tensors (see ``ops``): q [B, Sq, Hq, D];
-    k, v [B, Skv, Hkv, D]; one dtype, fp32 or bf16; last dim contiguous.
-    Returns a fresh [B, Sq, Hq, D] output in q's dtype."""
+def launch(lib: ctypes.CDLL, q, k, v, causal: bool, window, q_offset: int,
+           kv_valid: int):
+    """One launch of ``lib``'s entry point, uncounted; see
+    ``flash_attention_cuda``."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = q.new_empty((B, Sq, Hq, D))
     if out.numel() == 0:
         return out
-    lib = _library()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
@@ -60,5 +65,16 @@ def flash_attention_cuda(q, k, v, causal: bool, window, q_offset: int,
         raise RuntimeError(f"flash_attention kernel launch failed at "
                            f"B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} "
                            f"D={D} {q.dtype}: cudaError {rc}")
-    FLASH_LAUNCHES.add((B, Sq, Skv, Hq, Hkv, D))
+    return out
+
+
+def flash_attention_cuda(q, k, v, causal: bool, window, q_offset: int,
+                         kv_valid: int):
+    """Launch on validated CUDA tensors (see ``ops``): q [B, Sq, Hq, D];
+    k, v [B, Skv, Hkv, D]; one dtype, fp32 or bf16; last dim contiguous.
+    Returns a fresh [B, Sq, Hq, D] output in q's dtype."""
+    out = launch(_library(), q, k, v, causal, window, q_offset, kv_valid)
+    if out.numel():
+        B, Sq, Hq, D = q.shape
+        FLASH_LAUNCHES.add((B, Sq, k.shape[1], Hq, k.shape[2], D))
     return out

@@ -3,13 +3,17 @@ PyTorch version (what a CPU tensor runs) vs ``attention_ref`` and vs the
 Pallas kernel in interpret mode, over the JAX kernel tests' sweep (MHA,
 GQA with a ragged S, MQA, S below a block) with the causal, non-causal,
 ``window=37`` and ``q_offset`` masks; bf16; the zoo's
-``blocked_attention`` vs JAX's; the wrapper's checks and device route;
-and, on a card, the hand-written CUDA kernel vs the plain version.
+``blocked_attention`` vs JAX's; the wrapper's checks (TMA's layout
+rules among them) and device route; and, on a card, the hand-written
+CUDA kernels vs the plain version: fp32 on the CUDA-core kernel, bf16 on
+the tensor-core one at its tile edges, every head dim and the serving
+path's shape.
 
 Tolerances against JAX are the JAX kernel tests': rtol 2e-4 / atol
 2e-5 in fp32, 0.08 in bf16 (one bf16 rounding of the output, after sums
 taken in another order). On a card the kernel and its plain version both
-work in fp32 on the same bf16 inputs, so in bf16 they differ by one bf16
+work in fp32 on the same bf16 inputs (the bf16 kernel's P.V on two bf16
+halves of P, good to about 2^-17), so in bf16 they differ by one bf16
 step of the output at most: rtol 1e-2 (above 2^-7), atol 1e-4. The JAX package is imported inside the parity tests
 only, so that the ``cuda`` tests also run on a machine with a card and
 no jax: ``python -m pytest -q -m cuda tests/test_torch_attention.py``."""
@@ -229,11 +233,32 @@ def test_cuda_kernel_matches_plain_version(shape, kwargs, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+def test_tma_checks_refuse_a_misaligned_base_or_stride():
+    """The bf16 kernel's TMA rules, held on CPU tensors of the same
+    layouts: a view one element past a 16-byte boundary, and a head stride
+    of 33 bf16 (66 bytes), are refused; a size-1 dim's stride is free."""
+    from repro_torch.kernels.attention.ops import _check_tma
+
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(1, 16, 4, 2, 32,
+                                                       seed=14)))
+    _check_tma(q, k, v)
+    base = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check_tma(base[1:1 + q.numel()].view(q.shape), k, v)
+    wide = torch.zeros(1, 16, 2, 33, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        _check_tma(q, wide[..., :32], v)
+    one_head = torch.zeros(1, 16, 1, 40, dtype=torch.bfloat16)[..., :32]
+    _check_tma(q, one_head, one_head)
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_rows_do_not_depend_on_batch():
+@pytest.mark.parametrize("shape", [(8, 96, 4, 4, 128), (8, 32, 20, 20, 128)],
+                         ids=str)
+def test_cuda_kernel_rows_do_not_depend_on_batch(shape):
     _card()
     q, k, v = (t.cuda().to(torch.bfloat16)
-               for t in _t(*_qkv(8, 96, 4, 4, 128, seed=9)))
+               for t in _t(*_qkv(*shape, seed=9)))
     full = flash_attention(q, k, v, causal=True)
     for b in range(8):
         one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
@@ -256,6 +281,89 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q[..., :16], k[..., :16], v[..., :16])
     assert flash_kernel.FLASH_LAUNCHES.total == before
+
+
+# the bf16 kernel's edges: 64 query rows a consumer warpgroup, 128 a block
+# and 128 keys a K/V stage. (B, Sq, Skv, Hq, Hkv, q_offset): MHA, GQA and
+# MQA, S of 1, 63, 64, 65, 127, 129 and 200, and a chunk of 100 queries
+# at q_offset 160 over 260 keys
+EDGE_SHAPES = [(1, 1, 1, 2, 1, 0), (2, 63, 63, 4, 4, 0), (1, 64, 64, 4, 2, 0),
+               (2, 65, 65, 4, 1, 0), (1, 127, 127, 2, 2, 0),
+               (1, 129, 129, 4, 2, 0), (2, 200, 200, 4, 2, 0),
+               (2, 100, 260, 4, 2, 160)]
+# each mask; window 5 is narrower than one K/V stage; kv_valid is Skv - 13
+EDGE_MASKS = [dict(causal=True), dict(causal=False),
+              dict(causal=True, window=37), dict(causal=True, window=5),
+              dict(causal=False, kv_valid=-13)]
+_EDGE_IDS = ["causal", "full", "window37", "window5", "kv_valid"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("kwargs", EDGE_MASKS, ids=_EDGE_IDS)
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_cuda_bf16_kernel_at_tile_edges(shape, kwargs, D):
+    _card()
+    B, Sq, Skv, Hq, Hkv, q_offset = shape
+    kw = dict(kwargs, q_offset=q_offset)
+    if "kv_valid" in kw:
+        kw["kv_valid"] = max(1, Skv + kw["kv_valid"])
+    rng = np.random.default_rng(Sq * 1000 + Skv + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda().to(torch.bfloat16)
+               for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    before = flash_kernel.FLASH_LAUNCHES.total
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_kernel.FLASH_LAUNCHES.total == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, **kw).float(),
+                               rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_at_the_serving_paths_long_prompt():
+    """Qwen1.5-4B's 2048-token flush: 4 x 2048 x 20 heads of 128, causal,
+    against the plain version's 2048 x 2048 x 20 scores."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = (torch.randn(4, 2048, 20, 128, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_refuses_what_tma_cannot_read():
+    """A view at a 1-element offset (not 16-byte aligned) and a head
+    stride of 66 bytes raise before any launch; the fp32 kernel takes
+    both."""
+    _card()
+    q, k, v = (t.cuda() for t in _t(*_qkv(1, 16, 4, 2, 32, seed=16)))
+
+    def layouts(dtype):
+        """q at a 1-element offset, k with rows of 33 elements"""
+        base = torch.zeros(q.numel() + 8, dtype=dtype, device="cuda")
+        shifted = base[1:1 + q.numel()].view(q.shape)
+        shifted.copy_(q)
+        wide = torch.zeros(1, 16, 2, 33, dtype=dtype, device="cuda")
+        wide[..., :32] = k
+        return shifted, wide[..., :32], v.to(dtype)
+
+    sq, sk, sv = layouts(torch.bfloat16)
+    before = flash_kernel.FLASH_LAUNCHES.total
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(sq, sk.contiguous(), sv)
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        flash_attention(sq.clone(), sk, sv)
+    assert flash_kernel.FLASH_LAUNCHES.total == before
+    got = flash_attention(*layouts(torch.float32))
+    assert flash_kernel.FLASH_LAUNCHES.total == before + 1
+    torch.testing.assert_close(got, attention_ref(q, k, v), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_cpu_route_differentiates_like_jax():
