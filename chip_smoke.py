@@ -3,6 +3,8 @@
 NVIDIA H100.
 
     python3 chip_smoke.py            # from the repo root, on the card
+    python3 chip_smoke.py --flash-host       # flash's host cost per call
+    python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -33,7 +35,9 @@ each kernel beside its plain version, a PyTorch yardstick where one
 exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. With ``--flash-host`` or
+``--flash-ablation`` it runs only that probe of the flash kernel
+(``flash_host``, ``flash_ablation``) and prints no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -1729,7 +1733,144 @@ def time_flash(launches: dict, tag: str):
               f"{FLASH_ATOL}); |sdpa - plain| bf16 {lib_err:.3e}; "
               f"{launches.get(shape, 0)} "
               f"launches on the main path")
+    flash_host(tag)
     return rows, worst
+
+
+def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
+    """Host microseconds per eager flash call at the short prompt's
+    shape (bf16, causal): through the wrapper the path calls (checks,
+    route, binding) and through the binding alone. Read on the host's
+    clock over ``n`` calls with no sync between them, fewer than the
+    launch queue holds, so that the kernels cannot hold the host back;
+    ``reps`` such runs, the wrapper's and the binding's in turns, give
+    the least (the call's own cost: other work on the shared host only
+    adds) and the median. Uses only what the package had before its
+    bf16 kernel ran on the tensor cores, so that it also times an
+    earlier checkout (``--flash-host``)."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    B, Sq, Skv, Hq, Hkv, D = shape
+    q, k, v = attn_inputs(*shape, torch.bfloat16, seed=B * 7 + Sq)
+    calls = {"wrapper": lambda: flash_attention(q, k, v, causal=True),
+             "binding": lambda: attn_kernel.flash_attention_cuda(
+                 q, k, v, True, None, 0, Skv)}
+    times: dict = {name: [] for name in calls}
+    for _ in range(reps):
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[name].append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+    us = {name: (min(ts), statistics.median(ts))
+          for name, ts in times.items()}
+    print(f"[host] {tag}: flash_attention {shape} bf16 causal, us of host "
+          f"time per call, least / median of {reps} x {n} calls: wrapper "
+          f"{us['wrapper'][0]:.2f} / {us['wrapper'][1]:.2f}, binding "
+          f"{us['binding'][0]:.2f} / {us['binding'][1]:.2f}")
+    return us
+
+
+# what bounds the bf16 flash kernel (``--flash-ablation``): copies of
+# flash_attention_wgmma.cu with one step taken out, as text
+# substitutions, each of which must apply exactly once. An ablated
+# kernel computes a wrong result by design: it is timed, never checked
+# or used.
+FLASH_ABLATIONS = {
+    # P.V from P_hi alone: 4 products per (query, key, dim), not 6
+    "no P_lo": [("""    wgmma_pv(o, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3],
+             dv);
+""", "")],
+    # the scores go to P.V as they are: no mask, max, exp, sums or rescale
+    "no softmax": [("""                                               int wg_first) {
+""", """                                               int wg_first) {
+  if (k0 >= 0) return make_float2(1.0f, 1.0f);
+""")],
+    # the two consumers issue their products without handing the tensor
+    # cores to each other
+    "no turns": [
+        ('asm volatile("bar.sync %0, 256;" :: "r"(1 + wg) : "memory");',
+         "(void)wg;"),
+        ('asm volatile("bar.arrive %0, 256;" :: "r"(2 - wg) : "memory");',
+         "(void)wg;")],
+}
+
+
+def flash_ablation(card: str) -> None:
+    """``--flash-ablation``: the bf16 flash kernel's device time beside
+    each ablation's (``FLASH_ABLATIONS``) and
+    ``scaled_dot_product_attention``'s, at the serving path's shapes
+    (Qwen1.5-4B: 4 x 2048 and 8 x 32, 20 heads of 128, causal) and at 6 x
+    32, where the 120 blocks take one round of the SMs. Each library is
+    built from the checkout and called through a binding of its own,
+    outside the package; timed with ``graph_ms`` in turns (the kernel,
+    the ablations, then the same reversed). Prints one line per shape and
+    a JSON object of every time (us)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    csrc = ROOT / "src/repro_torch/kernels/attention/csrc"
+    text = (csrc / "flash_attention_wgmma.cu").read_text()
+    out_dir = build.BUILD_ROOT / "flash_ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {"kernel": ("flash_attention", attn_kernel.SOURCES)}
+    for name, subs in FLASH_ABLATIONS.items():
+        src = text
+        for old, new in subs:
+            check(src.count(old) == 1,
+                  f"ablation {name!r} does not apply once: {old!r}")
+            src = src.replace(old, new)
+        tag = "flash_ablation_" + name.replace(" ", "_")
+        path = out_dir / f"{tag}.cu"
+        path.write_text(src)
+        libs[name] = (tag, [csrc / "flash_attention.cu", path])
+    build.build_all(dict(libs.values()))
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fns = {}
+    for name, (tag, sources) in libs.items():
+        fn = build.load(tag, sources).flash_attention_forward
+        fn.argtypes = [P] * 4 + [L] * 12 + [I] * 11 + [ctypes.c_float, P]
+        fn.restype = I
+        fns[name] = fn
+
+    def launch(fn, q, k, v, out):
+        B, S, H, D = q.shape
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *strides, B, S, S, H, H, D, 1, 1, 0, 0, S, D ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"flash ablation launch failed: {rc}")
+
+    order = list(fns) + list(fns)[::-1]
+    times: dict = {}
+    for B, S in ((4, 2048), (8, 32), (6, 32)):
+        shape = (B, S, S, 20, 20, 128)
+        q, k, v = attn_inputs(*shape, torch.bfloat16, seed=B * 7 + S)
+        out = torch.empty_like(q)
+        inner, reps = (10, 11) if S >= 1024 else (50, 21)
+        row: dict = {n: [] for n in fns}
+        for n in order:
+            row[n].append(1e3 * graph_ms(
+                lambda: launch(fns[n], q, k, v, out), inner, reps))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["sdpa"] = [1e3 * graph_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            inner, reps)]
+        times["x".join(map(str, shape))] = row
+        print(f"[ablation] {card}: {shape} bf16 causal, bound "
+              f"{1e3 * flash_bound(*shape)[0]:.3f} us: " + "; ".join(
+                  f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
+                  for n, ts in row.items()))
+    print(json.dumps({"card": card, "us": times}))
 
 
 def profile_zoo(fc, kernel: str, symbol: str, tag: str,
@@ -1815,6 +1956,14 @@ def main() -> None:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     tag = f"{name} | {card}"
+    probes = {"--flash-host": lambda: flash_host(tag),
+              "--flash-ablation": lambda: flash_ablation(card)}
+    if sys.argv[1:]:
+        check(len(sys.argv) == 2 and sys.argv[1] in probes,
+              f"arguments {sys.argv[1:]}: give none, or one of "
+              f"{sorted(probes)}")
+        probes[sys.argv[1]]()
+        return
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     timed("build", build_kernels)

@@ -239,14 +239,14 @@ cudaError_t launch_fp32(const Params& p, int B, int D, cudaStream_t stream) {
 }  // namespace
 
 namespace flash_wgmma {
-cudaError_t forward(const void* q, const void* k, const void* v, void* o,
-                    long long q_sb, long long q_ss, long long q_sh,
-                    long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh,
-                    long long o_sb, long long o_ss, long long o_sh, int B,
-                    int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-                    int window, int q_offset, int kv_valid, float scale,
-                    cudaStream_t stream);  // flash_attention_wgmma.cu
+int forward(const void* q, const void* k, const void* v, void* o,
+            long long q_sb, long long q_ss, long long q_sh,
+            long long k_sb, long long k_ss, long long k_sh,
+            long long v_sb, long long v_ss, long long v_sh,
+            long long o_sb, long long o_ss, long long o_sh, int B,
+            int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+            int window, int q_offset, int kv_valid, float scale,
+            cudaStream_t stream);  // flash_attention_wgmma.cu
 }
 
 extern "C" {
@@ -255,7 +255,8 @@ extern "C" {
 // with its (batch, seq, head) strides in elements and the last dim
 // contiguous; all fp32 (bf16 = 0) or all bf16 (bf16 = 1). window <= 0
 // means no window. Returns cudaGetLastError() after the launch (0 when
-// there is nothing to launch).
+// there is nothing to launch), or, for bf16, -1, -2 or -3 when the
+// driver refuses q's, k's or v's tensor map (TMA's 16-byte rules).
 int flash_attention_forward(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_ss, long long q_sh,

@@ -75,22 +75,22 @@
 // 4 * B * H * D * (causal pairs) = 86 GFLOP against 168 MB of q, k, v
 // and o: operations bound it, 86.9 us at the bf16 tensor-core peak of 989
 // TFLOP/s. This kernel does 1.5x those products, plus the upper half of
-// each diagonal tile. Measured by tools/flash_ablation.py (H100 80GB
-// HBM3, 700 W): 251-258 us, 34-35 % of the bound and 1.5x
-// scaled_dot_product_attention's 170 us; without the P_lo product
-// 221-224 us, without the softmax 235-247 us, without the turns
-// 265-272 us. So the products themselves, 1.5x the function's, take most
-// of the time, and the softmax hides behind them but for some 5 %. At the
-// short prompt (8 x 32: 160 blocks, one to an SM at a time on 132 SMs)
-// 14.1-14.3 us against a 1.57 us bound.
+// each diagonal tile. Its times on an H100 (80GB HBM3, 700 W), beside
+// copies with the P_lo product, the softmax or the consumers' turns
+// taken out (`python3 chip_smoke.py --flash-ablation`), are in PERF.md
+// section 6: about a third of the bound, the products themselves taking
+// most of the time and the softmax hiding behind them but for some 5 %.
+// At the short prompt (8 x 32: 160 blocks, one to an SM at a time on
+// 132 SMs) the second round of blocks costs some 70 % of what the
+// first does.
 //
 // The tensor maps are encoded on the host per call from the pointers and
 // strides the binding passes (cuTensorMapEncodeTiled, taken through
 // cudaGetDriverEntryPointByVersion, so the library needs no -lcuda) and
 // reach the kernel as __grid_constant__ parameters. TMA wants 16-byte
-// aligned base pointers and 16-byte multiples for every stride: the
-// Python wrapper checks both and raises; an encoding the driver refuses
-// returns cudaErrorInvalidValue here.
+// aligned base pointers and 16-byte multiples for every stride; the
+// driver's encoder holds both, and an operand it refuses returns a code
+// of its own here, which the binding raises as a ValueError.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -640,22 +640,31 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 namespace flash_wgmma {
 
+// what forward returns when the driver refuses q's, k's or v's tensor
+// map: negative, so that no cudaError_t takes it (the binding's
+// TMA_REFUSED)
+constexpr int kTmaRefusedQ = -1, kTmaRefusedK = -2, kTmaRefusedV = -3;
+
 // bf16 q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], o [B, Sq, Hq, D],
 // strides in elements, last dim contiguous; D one of 32, 64, 80, 128.
-cudaError_t forward(const void* q, const void* k, const void* v, void* o,
-                    long long q_sb, long long q_ss, long long q_sh,
-                    long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh,
-                    long long o_sb, long long o_ss, long long o_sh, int B,
-                    int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-                    int window, int q_offset, int kv_valid, float scale,
-                    cudaStream_t stream) {
+// Returns the launch's cudaError_t, or a kTmaRefused code before any
+// launch.
+int forward(const void* q, const void* k, const void* v, void* o,
+            long long q_sb, long long q_ss, long long q_sh,
+            long long k_sb, long long k_ss, long long k_sh,
+            long long v_sb, long long v_ss, long long v_sh,
+            long long o_sb, long long o_ss, long long o_sh, int B,
+            int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+            int window, int q_offset, int kv_valid, float scale,
+            cudaStream_t stream) {
   if (encoder() == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, Hq, Sq, B, q_sh, q_ss, q_sb, BQ) ||
-      !make_map(&tk, k, D, Hkv, Skv, B, k_sh, k_ss, k_sb, BK) ||
-      !make_map(&tv, v, D, Hkv, Skv, B, v_sh, v_ss, v_sb, BK))
-    return cudaErrorInvalidValue;
+  if (!make_map(&tq, q, D, Hq, Sq, B, q_sh, q_ss, q_sb, BQ))
+    return kTmaRefusedQ;
+  if (!make_map(&tk, k, D, Hkv, Skv, B, k_sh, k_ss, k_sb, BK))
+    return kTmaRefusedK;
+  if (!make_map(&tv, v, D, Hkv, Skv, B, v_sh, v_ss, v_sb, BK))
+    return kTmaRefusedV;
   const Params p{o, o_sb, o_ss, o_sh, Sq, Hq, Hq / Hkv, causal, window,
                  q_offset, kv_valid, scale * LOG2E};
   switch (D) {

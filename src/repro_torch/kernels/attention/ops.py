@@ -6,7 +6,9 @@ tensor goes to the hand-written kernel (``kernel.flash_attention_cuda``)
 or raises; a CPU tensor goes to the plain version
 (``ref.attention_ref``). On the card bf16 runs on the tensor-core
 kernel, which reads q, k and v by TMA, so it also needs 16-byte aligned
-tensors whose strides are 16-byte multiples (``_check_tma``); fp32 runs
+tensors whose strides are 16-byte multiples: the driver refuses any
+other when the kernel's entry point encodes its tensor maps, and the
+binding raises a ``ValueError`` before anything is launched. fp32 runs
 on the CUDA-core kernel, which takes any stride. The TPU wrapper's
 padding of S to its blocks and folding of heads into the batch have no
 counterpart: the kernels read the [B, S, H, D] tensors through their
@@ -79,25 +81,6 @@ def _check_cuda(q, k, v) -> None:
                              f"last dim, {name} has stride {t.stride(3)}")
 
 
-def _check_tma(q, k, v) -> None:
-    """TMA's rules for the bf16 kernel's operands: a 16-byte aligned base
-    and (batch, seq, head) strides that are multiples of 16 bytes. A dim
-    of size 1 is never stepped over, so its stride is not held (the
-    kernel replaces it with the packed one)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention kernel (bf16, TMA) takes "
-                             f"16-byte aligned tensors: {name} starts "
-                             f"{t.data_ptr() % 16} bytes past a 16-byte "
-                             f"boundary")
-        for dim in range(3):
-            nbytes = t.stride(dim) * t.element_size()
-            if t.shape[dim] > 1 and nbytes % 16:
-                raise ValueError(f"flash_attention kernel (bf16, TMA) takes "
-                                 f"strides that are 16-byte multiples: "
-                                 f"{name}.stride({dim}) is {nbytes} bytes")
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_offset: int = 0, kv_valid=None):
     """Attention of q over the keys ``[0, kv_valid)`` (all of them by
@@ -109,8 +92,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_valid=kv_valid)
     _check_cuda(q, k, v)
-    if q.dtype == torch.bfloat16:
-        _check_tma(q, k, v)
     # the kernel writes its output through ctypes, outside autograd: a
     # gradient through it would be lost without a word, so refuse it
     # until the kernel has a backward

@@ -18,6 +18,8 @@ step of the output at most: rtol 1e-2 (above 2^-7), atol 1e-4. The JAX package i
 only, so that the ``cuda`` tests also run on a machine with a card and
 no jax: ``python -m pytest -q -m cuda tests/test_torch_attention.py``."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -234,22 +236,43 @@ def test_cuda_kernel_matches_plain_version(shape, kwargs, dtype):
 
 
 def test_tma_checks_refuse_a_misaligned_base_or_stride():
-    """The bf16 kernel's TMA rules, held on CPU tensors of the same
-    layouts: a view one element past a 16-byte boundary, and a head stride
-    of 33 bf16 (66 bytes), are refused; a size-1 dim's stride is free."""
-    from repro_torch.kernels.attention.ops import _check_tma
-
+    """The driver holds TMA's 16-byte rules when the entry point encodes
+    a bf16 operand's tensor map; the entry point then returns that
+    operand's refusal code, which the binding raises as a ValueError
+    naming the operand and its layout. Held here on CPU tensors of the
+    layouts the card refuses: a view one element past a 16-byte boundary,
+    and a head stride of 33 bf16 (66 bytes). 0 raises nothing, a CUDA
+    error a RuntimeError."""
     q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(1, 16, 4, 2, 32,
                                                        seed=14)))
-    _check_tma(q, k, v)
     base = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        _check_tma(base[1:1 + q.numel()].view(q.shape), k, v)
-    wide = torch.zeros(1, 16, 2, 33, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte multiples"):
-        _check_tma(q, wide[..., :32], v)
-    one_head = torch.zeros(1, 16, 1, 40, dtype=torch.bfloat16)[..., :32]
-    _check_tma(q, one_head, one_head)
+    shifted = base[1:1 + q.numel()].view(q.shape)
+    wide = torch.zeros(1, 16, 2, 33, dtype=torch.bfloat16)[..., :32]
+    flash_kernel.raise_for(0, q, k, v)
+    assert base.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="cannot read q: .* starts 2 bytes "
+                                         "past a 16-byte boundary"):
+        flash_kernel.raise_for(-1, shifted, k, v)
+    with pytest.raises(ValueError, match=r"cannot read k: .* strides are "
+                                         r"\[2112, 132, 66\] bytes"):
+        flash_kernel.raise_for(-2, q, wide, v)
+    with pytest.raises(ValueError, match="cannot read v"):
+        flash_kernel.raise_for(-3, q, k, wide)
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        flash_kernel.raise_for(1, q, k, v)
+
+
+def test_tma_refusal_codes_match_the_entry_point():
+    """The binding's refusal codes are the ones the CUDA source returns
+    (its constants, read from the text: the source builds on a card
+    only)."""
+    src = (flash_kernel.SOURCES[1]).read_text()
+    found = re.search(r"constexpr int kTmaRefusedQ = (-\d+), "
+                      r"kTmaRefusedK = (-\d+), kTmaRefusedV = (-\d+);", src)
+    assert found is not None
+    assert dict(zip(map(int, found.groups()), "qkv")) \
+        == flash_kernel.TMA_REFUSED
+    assert all(f"return kTmaRefused{n};" in src for n in "QKV")
 
 
 @pytest.mark.cuda
@@ -355,9 +378,9 @@ def test_cuda_bf16_kernel_refuses_what_tma_cannot_read():
 
     sq, sk, sv = layouts(torch.bfloat16)
     before = flash_kernel.FLASH_LAUNCHES.total
-    with pytest.raises(ValueError, match="16-byte aligned"):
+    with pytest.raises(ValueError, match="cannot read q: .* starts 2 bytes"):
         flash_attention(sq, sk.contiguous(), sv)
-    with pytest.raises(ValueError, match="16-byte multiples"):
+    with pytest.raises(ValueError, match="cannot read k: .* 66] bytes"):
         flash_attention(sq.clone(), sk, sv)
     assert flash_kernel.FLASH_LAUNCHES.total == before
     got = flash_attention(*layouts(torch.float32))
