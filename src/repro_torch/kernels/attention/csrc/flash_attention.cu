@@ -256,7 +256,7 @@ extern "C" {
 // contiguous; all fp32 (bf16 = 0) or all bf16 (bf16 = 1). window <= 0
 // means no window. Returns cudaGetLastError() after the launch (0 when
 // there is nothing to launch), or, for bf16, -1, -2 or -3 when the
-// driver refuses q's, k's or v's tensor map (TMA's 16-byte rules).
+// CUDA driver refuses q's, k's or v's tensor map (TMA's 16-byte rules).
 int flash_attention_forward(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_ss, long long q_sh,

@@ -89,8 +89,8 @@
 // cudaGetDriverEntryPointByVersion, so the library needs no -lcuda) and
 // reach the kernel as __grid_constant__ parameters. TMA wants 16-byte
 // aligned base pointers and 16-byte multiples for every stride; the
-// driver's encoder holds both, and an operand it refuses returns a code
-// of its own here, which the binding raises as a ValueError.
+// CUDA driver's encoder holds both, and an operand it refuses returns a
+// code of its own here, which the binding raises as a ValueError.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -640,8 +640,8 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 namespace flash_wgmma {
 
-// what forward returns when the driver refuses q's, k's or v's tensor
-// map: negative, so that no cudaError_t takes it (the binding's
+// what forward returns when the CUDA driver refuses q's, k's or v's
+// tensor map: negative, so that no cudaError_t takes it (the binding's
 // TMA_REFUSED)
 constexpr int kTmaRefusedQ = -1, kTmaRefusedK = -2, kTmaRefusedV = -3;
 

@@ -28,8 +28,8 @@ SOURCES = [_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu"]
 LIBRARIES = {"flash_attention": SOURCES}
 # the head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 80, 128)
-# the entry point's returns when the driver refuses to encode a bf16
-# operand's tensor map (TMA reads only 16-byte aligned tensors whose
+# the entry point's returns when the CUDA driver refuses to encode a
+# bf16 operand's tensor map (TMA reads only 16-byte aligned tensors whose
 # strides are 16-byte multiples), before anything is launched; cudaError
 # values are positive
 TMA_REFUSED = {-1: "q", -2: "k", -3: "v"}

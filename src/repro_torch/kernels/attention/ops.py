@@ -6,8 +6,8 @@ tensor goes to the hand-written kernel (``kernel.flash_attention_cuda``)
 or raises; a CPU tensor goes to the plain version
 (``ref.attention_ref``). On the card bf16 runs on the tensor-core
 kernel, which reads q, k and v by TMA, so it also needs 16-byte aligned
-tensors whose strides are 16-byte multiples: the driver refuses any
-other when the kernel's entry point encodes its tensor maps, and the
+tensors whose strides are 16-byte multiples: the CUDA driver refuses
+any other when the kernel's entry point encodes its tensor maps, and the
 binding raises a ``ValueError`` before anything is launched. fp32 runs
 on the CUDA-core kernel, which takes any stride. The TPU wrapper's
 padding of S to its blocks and folding of heads into the batch have no

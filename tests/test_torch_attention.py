@@ -14,9 +14,9 @@ Tolerances against JAX are the JAX kernel tests': rtol 2e-4 / atol
 taken in another order). On a card the kernel and its plain version both
 work in fp32 on the same bf16 inputs (the bf16 kernel's P.V on two bf16
 halves of P, good to about 2^-17), so in bf16 they differ by one bf16
-step of the output at most: rtol 1e-2 (above 2^-7), atol 1e-4. The JAX package is imported inside the parity tests
-only, so that the ``cuda`` tests also run on a machine with a card and
-no jax: ``python -m pytest -q -m cuda tests/test_torch_attention.py``."""
+step of the output at most: rtol 1e-2 (above 2^-7), atol 1e-4. The JAX
+package is imported inside the parity tests only, so that the ``cuda``
+tests also run on a machine with a card and no jax: ``python -m pytest -q -m cuda tests/test_torch_attention.py``."""
 
 import re
 
@@ -236,8 +236,8 @@ def test_cuda_kernel_matches_plain_version(shape, kwargs, dtype):
 
 
 def test_tma_checks_refuse_a_misaligned_base_or_stride():
-    """The driver holds TMA's 16-byte rules when the entry point encodes
-    a bf16 operand's tensor map; the entry point then returns that
+    """The CUDA driver holds TMA's 16-byte rules when the entry point
+    encodes a bf16 operand's tensor map; the entry point then returns that
     operand's refusal code, which the binding raises as a ValueError
     naming the operand and its layout. Held here on CPU tensors of the
     layouts the card refuses: a view one element past a 16-byte boundary,
