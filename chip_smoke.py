@@ -5,18 +5,20 @@ NVIDIA H100.
     python3 chip_smoke.py            # from the repo root, on the card
     python3 chip_smoke.py --flash-host       # flash's host cost per call
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
+    python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
-library's SASS that its bf16 kernel issues wgmma (HGMMA) and TMA loads
-(UTMALDG), and holds each kernel against its plain PyTorch version on
-the card: the LSTM cell's forward (with the local-SGD worker dim) and
-backward, the EVL loss's forward and backward, flash attention (the JAX
-kernel tests' sweep and masks, and head dim 80; fp32 on the CUDA-core
-kernel, bf16 on the tensor-core one) and the Mamba2 SSD chunk scan (the
-JAX sweep, the reduced config's and the serving path's shapes, at fast,
-slow and clipped decay, fp32 and bf16; at a clip mid-chunk, kernel and
-plain version each against float64). It checks the forecaster's bitwise
+and SSD libraries' SASS that their bf16 kernels issue wgmma (HGMMA) and
+TMA loads (UTMALDG), and holds each kernel against its plain PyTorch
+version on the card: the LSTM cell's forward (with the local-SGD worker
+dim) and backward, the EVL loss's forward and backward, flash attention
+(the JAX kernel tests' sweep and masks, and head dim 80; fp32 on the
+CUDA-core kernel, bf16 on the tensor-core one) and the Mamba2 SSD chunk
+scan (the JAX sweep, the reduced config's and the serving path's
+shapes, at fast, slow and clipped decay; fp32 on the CUDA-core kernel,
+bf16 on the tensor-core one; at a clip mid-chunk, kernel and plain
+version each against float64). It checks the forecaster's bitwise
 step == replay == generate contract and that a training step puts real
 gradients on every LSTM weight. Then it drives the port's three main
 paths: serving the paper LSTM (full width, random weights from seed 0)
@@ -35,9 +37,10 @@ each kernel beside its plain version, a PyTorch yardstick where one
 exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
-``{"ok": true, "device": {...}}``. With ``--flash-host`` or
-``--flash-ablation`` it runs only that probe of the flash kernel
-(``flash_host``, ``flash_ablation``) and prints no result.
+``{"ok": true, "device": {...}}``. With ``--flash-host``,
+``--flash-ablation`` or ``--ssd-ablation`` it runs only that probe
+(``flash_host``, ``flash_ablation``, ``ssd_ablation``) and prints no
+result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -167,6 +170,9 @@ SSD_F64_FACTOR, SSD_F64_FLOOR = 3.0, 1e-7
 # fp32 in both cases
 SSD_RTOL, SSD_ATOL = 1e-4, 1e-5
 SSD_BF16_RTOL, SSD_BF16_ATOL = 1e-2, 1e-4
+# device-kernel names: the bf16 SSD kernel (wgmma, TMA), which Mamba2's
+# bf16 path must run, and the fp32 CUDA-core one, which it must not
+SSD_SYMBOL, SSD_FP32_SYMBOL = "ssd_chunk_wgmma", "ssd_kernel"
 # the zoo's SSM: Mamba2-370M at full width and depth (bf16, random
 # weights from seed 0), through the same two bursts; its card-vs-CPU
 # copy (2 layers, fp32) noises the leaves the init sets to constants
@@ -399,15 +405,15 @@ def build_kernels() -> None:
           f"{time.perf_counter() - t0:.2f} s")
 
 
-def check_flash_sass() -> None:
-    """Phase 1b: the bf16 flash kernel runs on the tensor cores, fed by
-    TMA: the flash library's SASS (``cuobjdump --dump-sass``) holds wgmma
-    (HGMMA) and TMA loads (UTMALDG) in each head dim's instantiation of
-    the bf16 kernel."""
+def check_sass(label: str, library: str, sources, symbol: str,
+               instantiations: int) -> None:
+    """Phases 1b and 1c: a bf16 kernel runs on the tensor cores, fed by
+    TMA: the library's SASS (``cuobjdump --dump-sass``) holds wgmma
+    (HGMMA) and TMA loads (UTMALDG) in each of the ``instantiations`` of
+    the kernel whose name holds ``symbol``."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.attention import kernel as attn_kernel
 
-    lib = build.library_path("flash_attention", attn_kernel.SOURCES)
+    lib = build.library_path(library, sources)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-sass", str(lib)],
                          capture_output=True, text=True, timeout=300)
@@ -423,17 +429,35 @@ def check_flash_sass() -> None:
             counts[fn][1] += "UTMALDG" in line
     hgmma = sum(c[0] for c in counts.values())
     utmaldg = sum(c[1] for c in counts.values())
-    bf16 = {f: c for f, c in counts.items() if FLASH_SYMBOL in f}
-    print(f"[sass] flash_attention library: HGMMA {hgmma}, UTMALDG "
-          f"{utmaldg} instructions; in the bf16 kernel's "
-          f"{len(bf16)} instantiations (HGMMA, UTMALDG): "
+    bf16 = {f: c for f, c in counts.items() if symbol in f}
+    print(f"[sass] {library} library: HGMMA {hgmma}, UTMALDG {utmaldg} "
+          f"instructions; in the {label} kernel's {len(bf16)} "
+          f"instantiations (HGMMA, UTMALDG): "
           f"{sorted(map(tuple, bf16.values()))}")
     check(hgmma > 0 and utmaldg > 0,
-          f"the flash library issues no wgmma ({hgmma}) or no TMA load "
+          f"the {library} library issues no wgmma ({hgmma}) or no TMA load "
           f"({utmaldg})")
-    check(len(bf16) == len(attn_kernel.HEAD_DIMS)
+    check(len(bf16) == instantiations
           and all(h > 0 and u > 0 for h, u in bf16.values()),
-          f"an instantiation of {FLASH_SYMBOL} lacks wgmma or TMA: {bf16}")
+          f"an instantiation of {symbol} lacks wgmma or TMA, or one of "
+          f"{instantiations} is missing: {bf16}")
+
+
+def check_flash_sass() -> None:
+    """Phase 1b: the bf16 flash kernel, one instantiation a head dim."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    check_sass("bf16 flash", "flash_attention", attn_kernel.SOURCES,
+               FLASH_SYMBOL, len(attn_kernel.HEAD_DIMS))
+
+
+def check_ssd_sass() -> None:
+    """Phase 1c: the bf16 SSD kernel, one instantiation a chunk and
+    number of 64-column slabs of the state (1 or 2)."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+    check_sass("bf16 SSD", "ssd_scan", ssd_kernel.SOURCES, SSD_SYMBOL,
+               2 * len(ssd_kernel.BF16_CHUNKS))
 
 
 def check_forward() -> float:
@@ -1317,9 +1341,10 @@ def ssd_bound(B, L, H, P, N, K, itemsize=2):
 
 
 def ssd_case(args, chunk):
-    """|kernel - plain| and the RMS of the plain output, for y and the
-    state, through the wrapper the path runs; checks both against their
-    bounds and for finite values."""
+    """|kernel - plain|, the RMS of the plain output and the largest
+    share of the bound (|kernel - plain| / (atol + rtol |plain|)), for y
+    and the state, through the wrapper the path runs; checks both against
+    their bounds and for finite values."""
     from repro_torch.kernels.ssd.ops import ssd_scan
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
@@ -1331,9 +1356,13 @@ def ssd_case(args, chunk):
     rtol, atol = ((SSD_BF16_RTOL, SSD_BF16_ATOL) if bf16
                   else (SSD_RTOL, SSD_ATOL))
     out = {"y": (float((y - want_y).abs().max()),
-                 float(want_y.pow(2).mean().sqrt())),
+                 float(want_y.pow(2).mean().sqrt()),
+                 float(((y - want_y).abs() / (atol + rtol * want_y.abs()))
+                       .max())),
            "state": (float((s - want_s).abs().max()),
-                     float(want_s.pow(2).mean().sqrt()))}
+                     float(want_s.pow(2).mean().sqrt()),
+                     float(((s - want_s).abs()
+                            / (SSD_ATOL + SSD_RTOL * want_s.abs())).max()))}
     shape = tuple(args[0].shape) + (args[2].shape[-1], chunk)
     check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
           f"ssd_scan {shape} {args[0].dtype}: a value is not finite")
@@ -1385,7 +1414,7 @@ def check_ssd() -> float:
     |kernel - plain|."""
     from repro_torch.kernels.ssd.ops import ssd_scan
 
-    worst, n = 0.0, 0
+    worst, share, n = 0.0, 0.0, 0
     for B, L, H, P, N, K in SSD_SWEEP + SSD_REDUCED + SSD_PATH:
         parts = []
         for kind in SSD_DRAWS:
@@ -1394,10 +1423,13 @@ def check_ssd() -> float:
                 errs = ssd_case(ssd_inputs(B, L, H, P, N, kind, dt, K,
                                            seed=n), K)
                 worst = max(worst, errs["y"][0], errs["state"][0])
+                share = max(share, errs["y"][2], errs["state"][2])
                 parts.append(
                     f"{kind} {str(dt)[6:]} y {errs['y'][0]:.2e} (rms "
-                    f"{errs['y'][1]:.2e}) state {errs['state'][0]:.2e} (rms "
-                    f"{errs['state'][1]:.2e})")
+                    f"{errs['y'][1]:.2e}, {100 * errs['y'][2]:.1f} % of the "
+                    f"bound) state {errs['state'][0]:.2e} (rms "
+                    f"{errs['state'][1]:.2e}, {100 * errs['state'][2]:.1f} "
+                    f"%)")
         print(f"[check] ssd_scan {(B, L, H, P, N, K)} max |kernel - plain|: "
               + "; ".join(parts))
     # a clipped step mid-chunk, both sides read against float64 (see
@@ -1408,8 +1440,9 @@ def check_ssd() -> float:
             errs = ssd_f64_case(ssd_inputs(B, L, H, P, N, "clip-mid", dt, K,
                                            seed=200 + L + len(parts)), K)
             parts.append(f"{str(dt)[6:]} " + " ".join(
-                f"{part} {k:.2e} (plain {r:.2e}, rms {rms:.2e})"
-                for part, (k, r, rms) in errs.items()))
+                f"{part} {k:.2e} (plain {r:.2e}, rms {rms:.2e}; "
+                f"{100 * k / (SSD_F64_FACTOR * r + SSD_F64_FLOOR):.1f} % of "
+                f"the bound)" for part, (k, r, rms) in errs.items()))
         print(f"[check] ssd_scan {(B, L, H, P, N, K)} at a mid-chunk clip, "
               f"max |x - float64| of the kernel (and of the plain version): "
               + "; ".join(parts))
@@ -1424,7 +1457,8 @@ def check_ssd() -> float:
                   f"(L {L})")
     print(f"[check] ssd_scan vs plain over {n} cases (bounds: fp32 rtol "
           f"{SSD_RTOL} atol {SSD_ATOL}; bf16 y rtol {SSD_BF16_RTOL} atol "
-          f"{SSD_BF16_ATOL}, state fp32): max |kernel - plain| {worst:.3e}; "
+          f"{SSD_BF16_ATOL}, state fp32): max |kernel - plain| {worst:.3e}, "
+          f"at most {100 * share:.1f} % of the bound; "
           f"rows of B=1 launches == rows of a B=8 launch bitwise (y and "
           f"state, 8 x 32 and 8 x 160 x 32 x 64 x 128 bf16)")
     return worst
@@ -1775,6 +1809,42 @@ def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
     return us
 
 
+def ablation_entries(library: str, sources, ablations: dict, entry: str,
+                     argtypes) -> dict:
+    """The C entry point ``entry`` of the library and of a copy of it per
+    ablation, by name ("kernel" for the library itself): each copy is
+    the library's sources with the last one (the kernel's) edited by the
+    ablation's text substitutions, each of which must apply exactly once.
+    All are built from the checkout at once and bound here with
+    ``argtypes``, outside the package."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    out_dir = build.BUILD_ROOT / f"{library}_ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = sources[-1].read_text()
+    libs = {"kernel": (library, list(sources))}
+    for name, subs in ablations.items():
+        src = text
+        for old, new in subs:
+            check(src.count(old) == 1,
+                  f"ablation {name!r} does not apply once: {old!r}")
+            src = src.replace(old, new)
+        tag = f"{library}_ablation_" + name.replace(" ", "_")
+        path = out_dir / f"{tag}.cu"
+        path.write_text(src)
+        libs[name] = (tag, list(sources[:-1]) + [path])
+    build.build_all(dict(libs.values()))
+    fns = {}
+    for name, (tag, srcs) in libs.items():
+        fn = getattr(build.load(tag, srcs), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
 # what bounds the bf16 flash kernel (``--flash-ablation``): copies of
 # flash_attention_wgmma.cu with one step taken out, as text
 # substitutions, each of which must apply exactly once. An ablated
@@ -1814,32 +1884,13 @@ def flash_ablation(card: str) -> None:
 
     import torch.nn.functional as F
 
-    from repro_torch.kernels import build
     from repro_torch.kernels.attention import kernel as attn_kernel
 
-    csrc = ROOT / "src/repro_torch/kernels/attention/csrc"
-    text = (csrc / "flash_attention_wgmma.cu").read_text()
-    out_dir = build.BUILD_ROOT / "flash_ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {"kernel": ("flash_attention", attn_kernel.SOURCES)}
-    for name, subs in FLASH_ABLATIONS.items():
-        src = text
-        for old, new in subs:
-            check(src.count(old) == 1,
-                  f"ablation {name!r} does not apply once: {old!r}")
-            src = src.replace(old, new)
-        tag = "flash_ablation_" + name.replace(" ", "_")
-        path = out_dir / f"{tag}.cu"
-        path.write_text(src)
-        libs[name] = (tag, [csrc / "flash_attention.cu", path])
-    build.build_all(dict(libs.values()))
     P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fns = {}
-    for name, (tag, sources) in libs.items():
-        fn = build.load(tag, sources).flash_attention_forward
-        fn.argtypes = [P] * 4 + [L] * 12 + [I] * 11 + [ctypes.c_float, P]
-        fn.restype = I
-        fns[name] = fn
+    fns = ablation_entries(
+        "flash_attention", attn_kernel.SOURCES, FLASH_ABLATIONS,
+        "flash_attention_forward",
+        [P] * 4 + [L] * 12 + [I] * 11 + [ctypes.c_float, P])
 
     def launch(fn, q, k, v, out):
         B, S, H, D = q.shape
@@ -1868,6 +1919,82 @@ def flash_ablation(card: str) -> None:
         times["x".join(map(str, shape))] = row
         print(f"[ablation] {card}: {shape} bf16 causal, bound "
               f"{1e3 * flash_bound(*shape)[0]:.3f} us: " + "; ".join(
+                  f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
+                  for n, ts in row.items()))
+    print(json.dumps({"card": card, "us": times}))
+
+
+# what bounds the bf16 SSD kernel (``--ssd-ablation``): copies of
+# ssd_scan_wgmma.cu with one step taken out or cut down, as text
+# substitutions, each of which must apply exactly once. An ablated kernel
+# computes a wrong result by design: it is timed, never checked or used.
+SSD_ABLATIONS = {
+    # M = S o L without the exp: S's mask alone
+    "no exp in M": [("sc[j] * fast_exp(ci - cj.x)", "sc[j]"),
+                    ("sc[j + 1] * fast_exp(ci - cj.y)", "sc[j + 1]")],
+    # the exp of M by expf, as the producer's, not the MUFU unit's
+    "expf in M": [("sc[j] * fast_exp(ci - cj.x)", "sc[j] * expf(ci - cj.x)"),
+                  ("sc[j + 1] * fast_exp(ci - cj.y)",
+                   "sc[j + 1] * expf(ci - cj.y)")],
+    # B o decay in two bf16 pieces, not three
+    "two pieces of B o decay": [("constexpr int BD_PIECES = 3;",
+                                 "constexpr int BD_PIECES = 2;")],
+    # one bf16 piece of each fp32 operand: 40 products a chunk and
+    # consumer, not 72 (in units of 64 x 64 x 16)
+    "one piece each": [("constexpr int M_PIECES = 2;",
+                        "constexpr int M_PIECES = 1;"),
+                       ("constexpr int ST_PIECES = 2;",
+                        "constexpr int ST_PIECES = 1;"),
+                       ("constexpr int BD_PIECES = 3;",
+                        "constexpr int BD_PIECES = 1;")],
+    # the state update's operands are formed, its products not issued
+    "no dS products": [
+        ("wgmma_rs_t(ds, &bd[q][4 * kk],",
+         "if (kk < 0) wgmma_rs_t(ds, &bd[q][4 * kk],")],
+}
+
+
+def ssd_ablation(card: str) -> None:
+    """``--ssd-ablation``: the bf16 SSD kernel's device time beside each
+    ablation's (``SSD_ABLATIONS``) at the serving path's shapes
+    (Mamba2-370M: 4 x 2048 and 8 x 32, 32 heads of 64, state 128, chunk
+    128) and at 4 x 32, whose 128 blocks take one round of the 132 SMs.
+    Each library is built from the checkout and called through a binding
+    of its own, outside the package; timed with ``graph_ms`` in turns
+    (the kernel, the ablations, then the same reversed). Prints one line
+    per shape and a JSON object of every time (us)."""
+    import ctypes
+
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = ablation_entries("ssd_scan", ssd_kernel.SOURCES, SSD_ABLATIONS,
+                           "ssd_scan_forward", [P] * 6 + [I] * 7 + [P])
+
+    def launch(fn, xd, a, Bm, Cm, y, state, K):
+        B, L, H, Pd = xd.shape
+        rc = fn(xd.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                y.data_ptr(), state.data_ptr(), B, L, H, Pd, Bm.shape[-1],
+                K, 1, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"SSD ablation launch failed: {rc}")
+
+    order = list(fns) + list(fns)[::-1]
+    times: dict = {}
+    for B, L in ((4, 2048), (8, 32), (4, 32)):
+        shape = (B, L, 32, 64, 128, 128)
+        xd, a, Bm, Cm = ssd_inputs(*shape[:5], "sweep", torch.bfloat16, 128,
+                                   seed=B * 7 + L)
+        y = torch.empty_like(xd)
+        state = torch.empty(B, 32, 64, 128, device="cuda")
+        inner, reps = (10, 11) if L >= 1024 else (50, 21)
+        row: dict = {n: [] for n in fns}
+        for n in order:
+            row[n].append(1e3 * graph_ms(
+                lambda: launch(fns[n], xd, a, Bm, Cm, y, state, 128), inner,
+                reps))
+        times["x".join(map(str, shape))] = row
+        print(f"[ablation] {card}: SSD {shape} bf16, bound "
+              f"{1e3 * ssd_bound(*shape)[0]:.3f} us: " + "; ".join(
                   f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
                   for n, ts in row.items()))
     print(json.dumps({"card": card, "us": times}))
@@ -1957,7 +2084,8 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     tag = f"{name} | {card}"
     probes = {"--flash-host": lambda: flash_host(tag),
-              "--flash-ablation": lambda: flash_ablation(card)}
+              "--flash-ablation": lambda: flash_ablation(card),
+              "--ssd-ablation": lambda: ssd_ablation(card)}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -1968,6 +2096,7 @@ def main() -> None:
           f"{torch.version.cuda}")
     timed("build", build_kernels)
     timed("flash SASS", check_flash_sass)
+    timed("SSD SASS", check_ssd_sass)
     errs = {"lstm_cell": timed("check lstm_cell", check_forward),
             "lstm_cell_bwd": timed("check lstm_cell_bwd", check_backward)}
     errs["evl_forward"], errs["evl_backward"] = timed("check evl", check_evl)
@@ -2011,7 +2140,7 @@ def main() -> None:
     every["ssd_scan"] = ssd_launches
     errs["ssd_scan"] = max(errs["ssd_scan"], ssd_err)
     timed(f"profile {MAMBA_ARCH} serving", profile_zoo, mamba_fc, "ssd_scan",
-          "ssd_kernel", tag)
+          SSD_SYMBOL, tag, SSD_FP32_SYMBOL)
     print(f"[zoo] {MAMBA_ARCH} init (draw on the card + calibrate): "
           f"{mamba_init_s:.2f} s")
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
@@ -2027,7 +2156,7 @@ def main() -> None:
         "flash_attention": (csrc.format("attention",
                                         "flash_attention_wgmma.cu"),
                             "src/repro/kernels/attention/kernel.py:34"),
-        "ssd_scan": (csrc.format("ssd", "ssd_scan.cu"),
+        "ssd_scan": (csrc.format("ssd", "ssd_scan_wgmma.cu"),
                      "src/repro/kernels/ssd/kernel.py:27")}
     entries = [kernel_entry(k, *meta[k], rows[k], every[k], errs[k])
                for k in meta]

@@ -214,20 +214,33 @@ int launch(const void* xd, const float* a, const void* B, const void* C,
 
 }  // namespace
 
+namespace ssd_wgmma {
+// the bf16 kernel (ssd_scan_wgmma.cu): wgmma on the tensor cores, fed by
+// TMA; returns the launch's cudaError_t, or -1, -2 or -3 when the CUDA
+// driver refuses xd's, B_'s or C_'s tensor map
+int forward(const void* xd, const float* a, const void* B, const void* C,
+            void* y, float* state, int batch, int L, int H, int P, int N,
+            int chunk, cudaStream_t stream);
+}  // namespace ssd_wgmma
+
 extern "C" {
 
 // xd [B, L, H, P] and y [B, L, H, P] in one dtype (bf16 when ``bf16``,
 // else fp32), a [B, L, H] fp32, B_ and C_ [B, L, N] in xd's dtype, state
-// [B, H, P, N] fp32, all contiguous; ``chunk`` is K. Returns
-// cudaGetLastError() after the launch.
+// [B, H, P, N] fp32, all contiguous; ``chunk`` is K. The dtype picks the
+// kernel: bf16 runs the tensor-core kernel of ssd_scan_wgmma.cu (chunk
+// 16, 32, 64 or 128, P <= 64, N <= 128), fp32 the CUDA-core kernel above.
+// Returns cudaGetLastError() after the launch or, for bf16, -1, -2 or -3
+// when the CUDA driver refuses xd's, B_'s or C_'s tensor map (TMA's
+// 16-byte rules), before anything is launched.
 int ssd_scan_forward(const void* xd, const float* a, const void* B,
                      const void* C, void* y, float* state, int batch, int L,
                      int H, int P, int N, int chunk, int bf16,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(xd, a, B, C, y, state, batch, L, H, P, N,
-                                 chunk, s);
+    return ssd_wgmma::forward(xd, a, B, C, y, state, batch, L, H, P, N,
+                              chunk, s);
   return launch<float>(xd, a, B, C, y, state, batch, L, H, P, N, chunk, s);
 }
 

@@ -1,10 +1,14 @@
-"""Binding of the hand-written CUDA SSD chunk scan (``csrc/ssd_scan.cu``).
+"""Binding of the hand-written CUDA SSD chunk scan: one library of
+``csrc/ssd_scan.cu`` (the entry point, and the fp32 kernel on the CUDA
+cores) and ``csrc/ssd_scan_wgmma.cu`` (the bf16 kernel: wgmma on the
+tensor cores, fed by TMA), the entry point choosing by dtype.
 
 Built with ``nvcc`` for ``sm_90a`` at first use
 (``repro_torch.kernels.build``) and called through ``ctypes``, as the
 other kernels are: pointers, the sizes, the chunk and the current
 stream go in; the C function returns ``cudaGetLastError()``, raised here
-if it is not 0. ``SSD_LAUNCHES`` counts the launches by
+if it is not 0, or one of ``TMA_REFUSED``'s codes, raised as a
+``ValueError``. ``SSD_LAUNCHES`` counts the launches by
 (B, L, H, P, N, chunk).
 """
 
@@ -18,23 +22,44 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import LaunchCounter
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"]
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_wgmma.cu"]
 LIBRARIES = {"ssd_scan": SOURCES}
 # dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232_448
 _ROW_BLOCK = 32
+# the bf16 kernel's shapes: the chunks it is instantiated for, and P and
+# N up to one and two 64-column slabs
+BF16_CHUNKS = (16, 32, 64, 128)
+BF16_MAX_HEAD_DIM, BF16_MAX_STATE = 64, 128
+# the entry point's returns when the CUDA driver refuses to encode a bf16
+# operand's tensor map (TMA reads only 16-byte aligned tensors whose
+# strides are 16-byte multiples), before anything is launched; cudaError
+# values are positive
+TMA_REFUSED = {-1: "xd", -2: "B_", -3: "C_"}
 
 SSD_LAUNCHES = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def smem_bytes(chunk: int, head_dim: int, state: int) -> int:
-    """Shared memory of one block: xd [K][P], B^T [N][K + 1], C [K][N],
-    the state [N][P], 32 rows of masked scores [32][K] and cum [K], all
-    fp32: a copy of ``smem_bytes`` in the source, so that the wrapper
-    refuses a shape past ``SMEM_LIMIT`` before it launches."""
+def smem_bytes(chunk: int, head_dim: int, state: int, dtype) -> int:
+    """Shared memory of one block of the kernel that runs ``dtype``, so
+    that the wrapper refuses a shape past ``SMEM_LIMIT`` before it
+    launches. fp32 (``smem_bytes`` in ssd_scan.cu): xd [K][P], B^T
+    [N][K + 1], C [K][N], the state [N][P], 32 rows of masked scores
+    [32][K] and cum [K], all fp32. bf16 (``Cfg::SMEM`` in
+    ssd_scan_wgmma.cu): 1024 bytes of alignment; two stages of bf16
+    tiles in 128-byte rows, xd [K], B [slabs][K] and C [slabs][max(K,
+    64)]; two bf16 pieces of the state [slabs * 64]; each stage's cum,
+    exp(cum), decay [K] and exp(total) (3 K + 4 floats); two mbarriers a
+    stage."""
     K, P, N = chunk, head_dim, state
+    if dtype == torch.bfloat16:
+        slabs = 1 if N <= 64 else 2
+        stage = 128 * (K + slabs * K + slabs * max(K, 64))
+        return (1024 + 2 * stage + 2 * slabs * 64 * 128 + 2 * (3 * K + 4) * 4
+                + 16 * 2)
     return 4 * (K * P + N * (K + 1) + K * N + N * P + min(K, _ROW_BLOCK) * K
                 + K)
 
@@ -46,6 +71,28 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [_P] * 6 + [_I] * 7 + [_P]
         fn.restype = _I
     return lib
+
+
+def raise_for(rc: int, xd, B_, C_, chunk: int) -> None:
+    """Raise for the entry point's return ``rc`` on xd, B_, C_: a
+    ``ValueError`` naming the operand TMA cannot read, a ``RuntimeError``
+    for a CUDA error; nothing for 0."""
+    if rc == 0:
+        return
+    if rc in TMA_REFUSED:
+        name = TMA_REFUSED[rc]
+        t = dict(xd=xd, B_=B_, C_=C_)[name]
+        raise ValueError(
+            f"ssd_scan kernel (bf16, TMA) cannot read {name}: TMA takes "
+            f"16-byte aligned tensors whose strides are 16-byte multiples; "
+            f"{name} starts {t.data_ptr() % 16} bytes past a 16-byte "
+            f"boundary, its strides are "
+            f"{[s * t.element_size() for s in t.stride()[:-1]]} bytes at "
+            f"shape {tuple(t.shape)}")
+    Bsz, L, H, P = xd.shape
+    raise RuntimeError(f"ssd_scan kernel launch failed at B={Bsz} L={L} "
+                       f"H={H} P={P} N={B_.shape[-1]} chunk={chunk} "
+                       f"{xd.dtype}: cudaError {rc}")
 
 
 def ssd_scan_cuda(xd, a, B_, C_, chunk: int):
@@ -66,9 +113,6 @@ def ssd_scan_cuda(xd, a, B_, C_, chunk: int):
         y.data_ptr(), state.data_ptr(), Bsz, L, H, P, N, chunk,
         int(xd.dtype == torch.bfloat16),
         torch.cuda.current_stream(xd.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed at B={Bsz} L={L} "
-                           f"H={H} P={P} N={N} chunk={chunk} {xd.dtype}: "
-                           f"cudaError {rc}")
+    raise_for(rc, xd, B_, C_, chunk)
     SSD_LAUNCHES.add((Bsz, L, H, P, N, chunk))
     return y, state

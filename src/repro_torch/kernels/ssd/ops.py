@@ -6,7 +6,13 @@
 a [B, L, H] float32; B_, C_ [B, L, N]; xd, B_ and C_ all float32 or all
 bfloat16; every tensor contiguous. A CUDA tensor goes to the
 hand-written kernel (``kernel.ssd_scan_cuda``) or raises; a CPU tensor
-goes to the plain version (``ref.ssd_scan_ref``). The TPU wrapper's
+goes to the plain version (``ref.ssd_scan_ref``). On the card bf16 runs
+on the tensor-core kernel, which takes chunk 16, 32, 64 or 128, head
+dims up to 64 and states up to 128 and reads xd, B_ and C_ by TMA: the
+CUDA driver refuses a tensor that is not 16-byte aligned or whose
+strides are not 16-byte multiples when the kernel's entry point encodes
+its tensor maps, and the binding raises a ``ValueError`` before anything
+is launched. fp32 runs on the CUDA-core kernel. The TPU wrapper's
 padding of L to a multiple of the chunk has no counterpart on the card:
 the kernel masks the ragged last chunk itself. The kernel has no
 backward, so on the card an input that requires grad, while grad is
@@ -64,7 +70,16 @@ def ssd_scan(xd, a, B_, C_, chunk: int = 128):
     _check(xd, a, B_, C_, chunk)
     if xd.device.type == "cpu":
         return ssd_scan_ref(xd, a, B_, C_, chunk)
-    need = kernel.smem_bytes(chunk, xd.shape[3], B_.shape[2])
+    P, N = xd.shape[3], B_.shape[2]
+    if xd.dtype == torch.bfloat16 and (
+            chunk not in kernel.BF16_CHUNKS or P > kernel.BF16_MAX_HEAD_DIM
+            or N > kernel.BF16_MAX_STATE):
+        raise ValueError(f"ssd_scan bf16 kernel takes chunk "
+                         f"{kernel.BF16_CHUNKS}, head dim <= "
+                         f"{kernel.BF16_MAX_HEAD_DIM} and state <= "
+                         f"{kernel.BF16_MAX_STATE}, got chunk {chunk}, head "
+                         f"dim {P}, state {N}")
+    need = kernel.smem_bytes(chunk, P, N, xd.dtype)
     if need > kernel.SMEM_LIMIT:
         raise ValueError(f"ssd_scan kernel: chunk {chunk}, head dim "
                          f"{xd.shape[3]} and state {B_.shape[2]} need {need} "

@@ -35,6 +35,8 @@ The JAX package is imported inside the parity tests only, so that the
 ``cuda`` tests also run on a machine with a card and no jax:
 ``python -m pytest -q -m cuda tests/test_torch_ssd.py``."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -305,10 +307,63 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_shared_memory_formula_bounds_the_path_and_refuses_past_it():
     """Mamba2-370M's chunk (K 128, P 64, N 128) fits a block's 227 KB
-    and Zamba2's (N 64) too; a chunk of 256 does not."""
-    assert ssd_kernel.smem_bytes(128, 64, 128) == 214_016
-    assert ssd_kernel.smem_bytes(128, 64, 64) < ssd_kernel.SMEM_LIMIT
-    assert ssd_kernel.smem_bytes(256, 64, 128) > ssd_kernel.SMEM_LIMIT
+    and Zamba2's (N 64) too, on the kernel of either dtype; a chunk of 256
+    does not on the fp32 kernel (the bf16 one takes chunks up to 128)."""
+    fp32, bf16 = torch.float32, torch.bfloat16
+    assert ssd_kernel.smem_bytes(128, 64, 128, fp32) == 214_016
+    assert ssd_kernel.smem_bytes(128, 64, 64, fp32) < ssd_kernel.SMEM_LIMIT
+    assert ssd_kernel.smem_bytes(256, 64, 128, fp32) > ssd_kernel.SMEM_LIMIT
+    # two stages of xd, B, C tiles (80 KB at the path's shape), two
+    # pieces of the state (32 KB), the stages' vectors and mbarriers
+    assert ssd_kernel.smem_bytes(128, 64, 128, bf16) == 200_768
+    assert max(ssd_kernel.smem_bytes(k, 64, n, bf16)
+               for k in ssd_kernel.BF16_CHUNKS for n in (8, 64, 128)) \
+        < ssd_kernel.SMEM_LIMIT
+
+
+def test_tma_refusal_raises_a_value_error_naming_the_operand():
+    """The CUDA driver holds TMA's 16-byte rules when the entry point
+    encodes a bf16 operand's tensor map; the entry point then returns that
+    operand's refusal code, which the binding raises as a ValueError
+    naming the operand and its layout. Held here on CPU tensors of the
+    layouts the card refuses: a view one element past a 16-byte boundary,
+    and a state of 12 (24-byte rows). 0 raises nothing, a CUDA error a
+    RuntimeError."""
+    xd, _, B_, C_ = (t.to(torch.bfloat16) if t.dim() != 3 or i != 1 else t
+                     for i, t in enumerate(_t(*_draw(1, 20, 2, 16, 8,
+                                                      "slow"))))
+    base = torch.zeros(xd.numel() + 8, dtype=torch.bfloat16)
+    shifted = base[1:1 + xd.numel()].view(xd.shape)
+    narrow = torch.zeros(1, 20, 12, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    ssd_kernel.raise_for(0, xd, B_, C_, 16)
+    with pytest.raises(ValueError, match="cannot read xd: .* starts 2 bytes "
+                                         "past a 16-byte boundary"):
+        ssd_kernel.raise_for(-1, shifted, B_, C_, 16)
+    with pytest.raises(ValueError, match=r"cannot read B_: .* strides are "
+                                         r"\[480, 24\] bytes"):
+        ssd_kernel.raise_for(-2, xd, narrow, C_, 16)
+    with pytest.raises(ValueError, match="cannot read C_"):
+        ssd_kernel.raise_for(-3, xd, B_, narrow, 16)
+    with pytest.raises(RuntimeError, match="chunk=16 torch.bfloat16: "
+                                           "cudaError 1$"):
+        ssd_kernel.raise_for(1, xd, B_, C_, 16)
+
+
+def test_tma_refusal_codes_match_the_entry_point():
+    """The binding's refusal codes are the ones the CUDA source returns
+    (its constants, read from the text: the source builds on a card
+    only), and the entry point routes bf16 to that source's kernel."""
+    entry, wgmma = (p.read_text() for p in ssd_kernel.SOURCES)
+    found = re.search(r"constexpr int kTmaRefusedXd = (-\d+), "
+                      r"kTmaRefusedB = (-\d+), kTmaRefusedC = (-\d+);",
+                      wgmma)
+    assert found is not None
+    assert dict(zip(map(int, found.groups()), ("xd", "B_", "C_"))) \
+        == ssd_kernel.TMA_REFUSED
+    assert all(f"return kTmaRefused{n};" in wgmma for n in ("Xd", "B", "C"))
+    assert "ssd_wgmma::forward(" in entry
+    assert "launch<__nv_bfloat16>" not in entry
 
 
 # ------------------------------------------------------------ on a card --
@@ -373,9 +428,12 @@ def test_cuda_kernel_at_a_mid_chunk_clip_is_as_close_to_float64(shape,
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_rows_do_not_depend_on_batch():
+@pytest.mark.parametrize("L", [32, 160])
+def test_cuda_kernel_rows_do_not_depend_on_batch(L):
+    """One ragged chunk, and two chunks: the rows of a B = 8 launch are
+    bit for bit the B = 1 launches'."""
     _card()
-    args = _cuda(_draw(8, 160, 32, 64, 128, "slow", seed=11), torch.bfloat16)
+    args = _cuda(_draw(8, L, 32, 64, 128, "slow", seed=11), torch.bfloat16)
     y, s = ssd_scan(*args, chunk=128)
     for b in range(8):
         one_y, one_s = ssd_scan(*(t[b:b + 1] for t in args), chunk=128)
@@ -421,3 +479,107 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="shared memory"):
         ssd_scan(xd, a, B_, C_, chunk=256)
     assert ssd_kernel.SSD_LAUNCHES.total == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 20, 100, 2047])
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("N", [8, 32, 128])
+@pytest.mark.parametrize("chunk", [16, 32, 128])
+def test_cuda_bf16_kernel_at_tile_edges(chunk, N, P, L):
+    """The tensor-core kernel where its tiles are padded: chunks of 16
+    and 32 (C's tile padded to 64 rows) and 128 (two consumers), states
+    of 8 (a 16-column product over TMA's zeros), 32 and 128 (two slabs),
+    head dims of 16 and 32 (64-column products, padded columns never
+    stored) and 64, and ragged L (one row; a ragged chunk at every chunk
+    size; 2047, one short of 2048). At the three decays against the
+    plain version at the card's bf16 bounds; at a mid-chunk clip against
+    float64, within 3x the plain version's error."""
+    _card()
+    before = ssd_kernel.SSD_LAUNCHES.total
+    for n, kind in enumerate(DRAWS):
+        args = _cuda(_draw(2, L, 2, P, N, kind, seed=20 + n, chunk=chunk),
+                     torch.bfloat16)
+        y, s = ssd_scan(*args, chunk=chunk)
+        want_y, want_s = ssd_scan_ref(*args, chunk)
+        assert torch.all(torch.isfinite(y.float()))
+        torch.testing.assert_close(y.float(), want_y.float(),
+                                   rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
+        torch.testing.assert_close(s, want_s, rtol=RTOL, atol=ATOL)
+    args = _cuda(_draw(2, L, 2, P, N, "clip-mid", seed=23, chunk=chunk),
+                 torch.bfloat16)
+    got = ssd_scan(*args, chunk=chunk)
+    plain = ssd_scan_ref(*args, chunk)
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk)
+    for g, p, e in zip(got, plain, exact):
+        assert torch.all(torch.isfinite(g.float()))
+        kern = float((g.double() - e).abs().max())
+        ref = float((p.double() - e).abs().max())
+        assert kern <= 3.0 * ref + 1e-7, (kern, ref)
+    assert ssd_kernel.SSD_LAUNCHES.total == before + len(DRAWS) + 1
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_refuses_what_tma_cannot_read():
+    """The CUDA driver refuses a tensor map over a tensor that is not
+    16-byte aligned, or whose rows are not 16-byte multiples; the binding
+    raises a ValueError naming the operand, and nothing is launched."""
+    _card()
+    xd, a, B_, C_ = _cuda(_draw(1, 20, 2, 16, 8, "slow", seed=15),
+                          torch.bfloat16)
+    before = ssd_kernel.SSD_LAUNCHES.total
+
+    def shifted(t):
+        base = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+        view = base[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    with pytest.raises(ValueError, match="cannot read xd"):
+        ssd_scan(shifted(xd), a, B_, C_, chunk=16)
+    with pytest.raises(ValueError, match="cannot read C_"):
+        ssd_scan(xd, a, B_, shifted(C_), chunk=16)
+    wide = _cuda(_draw(1, 20, 2, 16, 12, "slow", seed=15), torch.bfloat16)
+    with pytest.raises(ValueError, match="cannot read B_"):
+        ssd_scan(*wide, chunk=16)      # a state of 12: 24-byte rows
+    assert ssd_kernel.SSD_LAUNCHES.total == before
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_refuses_shapes_it_cannot_take():
+    """No shape falls back to the CUDA-core kernel: a chunk the kernel
+    is not built for, a head dim past 64 or a state past 128 raises."""
+    _card()
+    before = ssd_kernel.SSD_LAUNCHES.total
+    for B, L, H, P, N, chunk in [(1, 20, 2, 16, 8, 48), (1, 20, 2, 16, 8, 256),
+                                 (1, 20, 2, 128, 8, 16),
+                                 (1, 20, 2, 16, 136, 16)]:
+        args = _cuda(_draw(B, L, H, P, N, "slow", seed=16), torch.bfloat16)
+        with pytest.raises(ValueError, match="bf16 kernel takes"):
+            ssd_scan(*args, chunk=chunk)
+    assert ssd_kernel.SSD_LAUNCHES.total == before
+
+
+@pytest.mark.cuda
+def test_cuda_dtype_picks_the_kernel():
+    """bf16 runs the tensor-core kernel and fp32 the CUDA-core one, by
+    the device kernels' names in a profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _card()
+    arrays = _draw(2, 100, 2, 32, 32, "slow", seed=17, chunk=32)
+    for dtype, ran, not_ran in ((torch.bfloat16, "ssd_chunk_wgmma",
+                                 "ssd_kernel"),
+                                (torch.float32, "ssd_kernel",
+                                 "ssd_chunk_wgmma")):
+        args = _cuda(arrays, dtype)
+        ssd_scan(*args, chunk=32)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ssd_scan(*args, chunk=32)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        assert any(ran in n for n in names), names
+        assert not any(not_ran in n for n in names), names
