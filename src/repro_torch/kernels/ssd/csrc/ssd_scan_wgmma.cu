@@ -128,6 +128,7 @@ struct Cfg {
   // a stage
   static constexpr int SMEM = 1024 + STAGES * STAGE + ST_PIECES * ST +
                               STAGES * VEC * 4 + 16 * STAGES;
+  static_assert(SMEM <= 227 * 1024, "a block's shared memory on an H100");
 };
 
 // ---------------------------------------------------------------- PTX --
@@ -601,7 +602,11 @@ ssd_chunk_wgmma(const __grid_constant__ CUtensorMap txd,
 
     // 4. dS = (B o decay)^T xd, B o decay in three bf16 pieces: register
     // e of k-step kk is row r0 + 8 (e & 1) of the tile, columns k, k + 1
-    // with k = 16 kk + 2 t + 8 (e >> 1); then the state
+    // with k = 16 kk + 2 t + 8 (e >> 1); then the state. At K = 128 and
+    // N <= 64 (NB 1, two consumers) the second consumer owns no tile: it
+    // computes tile 0's dS again, and step 1 and the final store drop it. On
+    // purpose: skipping it needs a branch on wg around these wgmmas, and
+    // ptxas then serializes every wgmma of the instantiation (C7518).
     const float keep = cum[3 * K];
 #pragma unroll
     for (int u = 0; u < C::TPW; ++u) {

@@ -43,23 +43,15 @@ SSD_LAUNCHES = LaunchCounter()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def smem_bytes(chunk: int, head_dim: int, state: int, dtype) -> int:
-    """Shared memory of one block of the kernel that runs ``dtype``, so
-    that the wrapper refuses a shape past ``SMEM_LIMIT`` before it
-    launches. fp32 (``smem_bytes`` in ssd_scan.cu): xd [K][P], B^T
+def smem_bytes(chunk: int, head_dim: int, state: int) -> int:
+    """Shared memory of one block of the fp32 kernel: xd [K][P], B^T
     [N][K + 1], C [K][N], the state [N][P], 32 rows of masked scores
-    [32][K] and cum [K], all fp32. bf16 (``Cfg::SMEM`` in
-    ssd_scan_wgmma.cu): 1024 bytes of alignment; two stages of bf16
-    tiles in 128-byte rows, xd [K], B [slabs][K] and C [slabs][max(K,
-    64)]; two bf16 pieces of the state [slabs * 64]; each stage's cum,
-    exp(cum), decay [K] and exp(total) (3 K + 4 floats); two mbarriers a
-    stage."""
+    [32][K] and cum [K], all fp32: a copy of ``smem_bytes`` in
+    ssd_scan.cu, so that the wrapper refuses a shape past ``SMEM_LIMIT``
+    before it launches. The bf16 kernel's shared memory is fixed by the
+    shapes it is built for (``ops`` refuses any other), and its source
+    asserts at compile time that each fits."""
     K, P, N = chunk, head_dim, state
-    if dtype == torch.bfloat16:
-        slabs = 1 if N <= 64 else 2
-        stage = 128 * (K + slabs * K + slabs * max(K, 64))
-        return (1024 + 2 * stage + 2 * slabs * 64 * 128 + 2 * (3 * K + 4) * 4
-                + 16 * 2)
     return 4 * (K * P + N * (K + 1) + K * N + N * P + min(K, _ROW_BLOCK) * K
                 + K)
 

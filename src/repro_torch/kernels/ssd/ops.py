@@ -71,18 +71,17 @@ def ssd_scan(xd, a, B_, C_, chunk: int = 128):
     if xd.device.type == "cpu":
         return ssd_scan_ref(xd, a, B_, C_, chunk)
     P, N = xd.shape[3], B_.shape[2]
-    if xd.dtype == torch.bfloat16 and (
-            chunk not in kernel.BF16_CHUNKS or P > kernel.BF16_MAX_HEAD_DIM
-            or N > kernel.BF16_MAX_STATE):
-        raise ValueError(f"ssd_scan bf16 kernel takes chunk "
-                         f"{kernel.BF16_CHUNKS}, head dim <= "
-                         f"{kernel.BF16_MAX_HEAD_DIM} and state <= "
-                         f"{kernel.BF16_MAX_STATE}, got chunk {chunk}, head "
-                         f"dim {P}, state {N}")
-    need = kernel.smem_bytes(chunk, P, N, xd.dtype)
-    if need > kernel.SMEM_LIMIT:
-        raise ValueError(f"ssd_scan kernel: chunk {chunk}, head dim "
-                         f"{xd.shape[3]} and state {B_.shape[2]} need {need} "
+    if xd.dtype == torch.bfloat16:
+        if chunk not in kernel.BF16_CHUNKS or P > kernel.BF16_MAX_HEAD_DIM \
+                or N > kernel.BF16_MAX_STATE:
+            raise ValueError(f"ssd_scan bf16 kernel takes chunk "
+                             f"{kernel.BF16_CHUNKS}, head dim <= "
+                             f"{kernel.BF16_MAX_HEAD_DIM} and state <= "
+                             f"{kernel.BF16_MAX_STATE}, got chunk {chunk}, "
+                             f"head dim {P}, state {N}")
+    elif kernel.smem_bytes(chunk, P, N) > kernel.SMEM_LIMIT:
+        raise ValueError(f"ssd_scan kernel: chunk {chunk}, head dim {P} and "
+                         f"state {N} need {kernel.smem_bytes(chunk, P, N)} "
                          f"bytes of shared memory, over {kernel.SMEM_LIMIT}")
     # the kernel writes its outputs through ctypes, outside autograd: a
     # gradient through it would be lost without a word, so refuse it

@@ -307,18 +307,10 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_shared_memory_formula_bounds_the_path_and_refuses_past_it():
     """Mamba2-370M's chunk (K 128, P 64, N 128) fits a block's 227 KB
-    and Zamba2's (N 64) too, on the kernel of either dtype; a chunk of 256
-    does not on the fp32 kernel (the bf16 one takes chunks up to 128)."""
-    fp32, bf16 = torch.float32, torch.bfloat16
-    assert ssd_kernel.smem_bytes(128, 64, 128, fp32) == 214_016
-    assert ssd_kernel.smem_bytes(128, 64, 64, fp32) < ssd_kernel.SMEM_LIMIT
-    assert ssd_kernel.smem_bytes(256, 64, 128, fp32) > ssd_kernel.SMEM_LIMIT
-    # two stages of xd, B, C tiles (80 KB at the path's shape), two
-    # pieces of the state (32 KB), the stages' vectors and mbarriers
-    assert ssd_kernel.smem_bytes(128, 64, 128, bf16) == 200_768
-    assert max(ssd_kernel.smem_bytes(k, 64, n, bf16)
-               for k in ssd_kernel.BF16_CHUNKS for n in (8, 64, 128)) \
-        < ssd_kernel.SMEM_LIMIT
+    and Zamba2's (N 64) too; a chunk of 256 does not."""
+    assert ssd_kernel.smem_bytes(128, 64, 128) == 214_016
+    assert ssd_kernel.smem_bytes(128, 64, 64) < ssd_kernel.SMEM_LIMIT
+    assert ssd_kernel.smem_bytes(256, 64, 128) > ssd_kernel.SMEM_LIMIT
 
 
 def test_tma_refusal_raises_a_value_error_naming_the_operand():
