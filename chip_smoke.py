@@ -6,21 +6,25 @@ NVIDIA H100.
     python3 chip_smoke.py --flash-host       # flash's host cost per call
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
+    python3 chip_smoke.py --lstm-rows        # the LSTM layer kernel's ROWS
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
 and SSD libraries' SASS that their bf16 kernels issue wgmma (HGMMA) and
 TMA loads (UTMALDG), and holds each kernel against its plain PyTorch
-version on the card: the LSTM cell's forward (with the local-SGD worker
-dim) and backward, the EVL loss's forward and backward, flash attention
+version on the card: the LSTM layer's forward (T steps in one launch,
+from a zero or a given carry, with the local-SGD worker dim; a step is
+the same launch at T = 1) and the cell's backward, the EVL loss's
+forward and backward, flash attention
 (the JAX kernel tests' sweep and masks, and head dim 80; fp32 on the
 CUDA-core kernel, bf16 on the tensor-core one) and the Mamba2 SSD chunk
 scan (the JAX sweep, the reduced config's and the serving path's
 shapes, at fast, slow and clipped decay; fp32 on the CUDA-core kernel,
 bf16 on the tensor-core one; at a clip mid-chunk, kernel and plain
 version each against float64). It checks the forecaster's bitwise
-step == replay == generate contract and that a training step puts real
-gradients on every LSTM weight. Then it drives the port's three main
+step == replay == generate contract (T = 1 launches against T = 20
+ones) and that a training step puts real gradients on every LSTM
+weight. Then it drives the port's three main
 paths: serving the paper LSTM (full width, random weights from seed 0)
 through ``ServingEngine`` and the ``repro_torch.launch.serve`` CLI;
 training it (serial, and asynchronous local SGD with 4 workers at tau 0
@@ -38,9 +42,9 @@ exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
-``--flash-ablation`` or ``--ssd-ablation`` it runs only that probe
-(``flash_host``, ``flash_ablation``, ``ssd_ablation``) and prints no
-result.
+``--flash-ablation``, ``--ssd-ablation`` or ``--lstm-rows`` it runs only
+that probe (``flash_host``, ``flash_ablation``, ``ssd_ablation``,
+``lstm_rows``) and prints no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -69,6 +73,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-6         # LSTM kernels vs plain, as tests/test_kernels.py
 EVL_RTOL, EVL_ATOL = 1e-5, 1e-7  # EVL kernels vs plain, as tests/test_kernels.py
+# torch.lstm (cuDNN), the LSTM layer's yardstick, against the plain
+# version: cuDNN computes the gates in its own order and with its own
+# activation routines, off by up to 5.7e-6 at (1, 8, 1, 5, 64) (an H100
+# 80GB HBM3, 700 W), past the kernels' 1e-5 / 1e-6; it is held at the
+# whole-model bound below (FC_RTOL, FC_ATOL) instead
 FC_RTOL, FC_ATOL = 1e-4, 1e-5   # card vs CPU over the whole model
 # Training on the card vs the port on the CPU, from the same weights and
 # batches: fp32 on both sides, the kernels' sums in another order than
@@ -84,14 +93,19 @@ TRAIN_RTOL = 1e-4
 # the sum of the terms' magnitudes, not to the result, so these three
 # are held to |kernel - plain| <= ATOL + RTOL * (|x|^T |dgates|) (and
 # likewise for h and the bias) instead of RTOL * |result|.
-# (W, B, I, H) the serving path gives the cell: one model (W = 1); the
-# decode lane (B = 8), the slot state (64), the request batch (max_batch
-# = 32); I = 5 for layer 1 and 64 for layer 2
+# (W, B, I, H) of a single step (the layer kernel at T = 1) on the serving
+# path: one model (W = 1); the decode lane (B = 8), the slot state (64),
+# the request batch (max_batch = 32); I = 5 for layer 1 and 64 for layer 2
 PATH_SHAPES = [(1, 8, 5, 64), (1, 8, 64, 64), (1, 32, 5, 64),
                (1, 32, 64, 64), (1, 64, 64, 64)]
 # (W, B, I, H) the training path gives the cell and its backward: the
 # serial baseline (W = 1) and 4 local-SGD workers, batch 32
 TRAIN_SHAPES = [(W, 32, I, 64) for W in (1, 4) for I in (5, 64)]
+# (W, B, T, I, H) of the layer kernel: a predict flush (B 32, T 20), a
+# replay at the decode width (B 8), a training step under autograd
+# (W 1 and 4, T 1), each at layer 1 (I 5) and layer 2 (I 64)
+LAYER_SHAPES = ([(1, B, 20, I, 64) for B in (32, 8) for I in (5, 64)]
+                + [(W, 32, 1, I, 64) for W in (1, 4) for I in (5, 64)])
 # the odd (B, I, H) of the JAX package's kernel sweep
 ODD_SHAPES = [(1, 5, 64), (13, 5, 64), (32, 7, 32), (8, 16, 128),
               (3, 9, 24), (7, 3, 40), (1, 1, 8), (9, 11, 48), (5, 5, 16)]
@@ -207,7 +221,8 @@ def card_line() -> str:
 
 
 # the kernels of the paper LSTM's paths (a training step launches each)
-PAPER_KERNELS = ("lstm_cell", "lstm_cell_bwd", "evl_forward", "evl_backward")
+PAPER_KERNELS = ("lstm_layer", "lstm_cell_bwd", "evl_forward",
+                 "evl_backward")
 
 
 def counters():
@@ -217,7 +232,7 @@ def counters():
     from repro_torch.kernels.lstm import kernel as lstm_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
 
-    return {"lstm_cell": lstm_kernel.LAUNCHES,
+    return {"lstm_layer": lstm_kernel.LAUNCHES,
             "lstm_cell_bwd": lstm_kernel.BWD_LAUNCHES,
             "evl_forward": evl_kernel.EVL_LAUNCHES,
             "evl_backward": evl_kernel.EVL_BWD_LAUNCHES,
@@ -248,7 +263,8 @@ def no_plain_version_on_the_card():
     import repro_torch.kernels.lstm.ops as lstm_ops
     import repro_torch.kernels.ssd.ops as ssd_ops
 
-    names = [(lstm_ops, "lstm_cell_ref"), (evl_ops, "evl_loss_ref"),
+    names = [(lstm_ops, "lstm_cell_ref"), (lstm_ops, "lstm_layer_ref"),
+             (evl_ops, "evl_loss_ref"),
              (attn_ops, "attention_ref"), (ssd_ops, "ssd_scan_ref")]
     calls: list[str] = []
     saved = {(m, n): getattr(m, n) for m, n in names}
@@ -299,13 +315,14 @@ def bound(nbytes: int, ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cell_bound(W, B, I, H):
-    """The forward cell: each input read once and each output written
-    once (fp32); the two products plus the gate math (each
+def layer_bound(W, B, T, I, H):
+    """The layer forward over T steps: each input read once (x, h0, c0,
+    the weights and the bias) and each output written once (hs, hT, cT),
+    fp32; the two products plus the gate math per step (each
     transcendental counted as one operation)."""
-    nbytes = 4 * W * (B * I + 2 * B * H + I * 4 * H + H * 4 * H + 4 * H
-                      + 2 * B * H)
-    ops = W * (2 * B * 4 * H * (I + H) + 4 * B * H + 9 * B * H)
+    nbytes = 4 * W * (B * T * I + 2 * B * H + I * 4 * H + H * 4 * H + 4 * H
+                      + B * T * H + 2 * B * H)
+    ops = W * T * (2 * B * 4 * H * (I + H) + 4 * B * H + 9 * B * H)
     return bound(nbytes, ops)
 
 
@@ -460,52 +477,98 @@ def check_ssd_sass() -> None:
                2 * len(ssd_kernel.BF16_CHUNKS))
 
 
+def layer_inputs(W, B, T, I, H, carry=True, seed=0):
+    """Worker-stacked layer inputs on the card from a seeded generator: xs
+    [W, B, T, I], a carry (zero unless ``carry``) and the weights."""
+    g = torch.Generator().manual_seed(seed * 1_000_003 + W * 7_919
+                                      + B * 10_007 + T * 503 + I * 101 + H)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).cuda()
+
+    xs, h0, c0 = r(W, B, T, I), r(W, B, H), r(W, B, H)
+    if not carry:
+        h0, c0 = torch.zeros_like(h0), torch.zeros_like(c0)
+    return (xs, h0, c0, r(W, I, 4 * H, scale=0.1), r(W, H, 4 * H, scale=0.1),
+            r(W, 4 * H, scale=0.1))
+
+
 def check_forward() -> float:
-    """Phase 2a: the forward cell against its plain version, its rows'
-    bits independent of B and of W, and a W = 1 launch bit for bit the
-    serving slice's kernel. Returns the largest |kernel - plain|."""
-    from repro_torch.kernels.lstm.ops import lstm_cell
-    from repro_torch.kernels.lstm.ref import lstm_cell_ref
+    """Phase 2a: the layer kernel against its plain version over T steps
+    from a zero and a given carry (the paths' shapes, the JAX sweep at
+    T 20, where H 128 at I 16 reads its weights from device memory) and as
+    the cell at T = 1; a T-step launch bit for bit T chained launches at
+    T = 1; its rows' bits independent of B and of W; and a W = 1 cell
+    launch bit for bit the serving slice's kernel. Returns the largest
+    |kernel - plain|."""
+    from repro_torch.kernels.lstm import kernel
+    from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer
+    from repro_torch.kernels.lstm.ref import lstm_cell_ref, lstm_layer_ref
 
     max_err = 0.0
-    shapes = PATH_SHAPES + TRAIN_SHAPES + [(1,) + s for s in ODD_SHAPES]
-    for W, B, I, H in shapes:
-        args = cell_inputs(W, B, I, H)
-        if W == 1:                       # the unstacked (serving) form
-            args = tuple(a[0] for a in args)
-        hk, ck = lstm_cell(*args)
-        hr, cr = lstm_cell_ref(*args)
+
+    def hold(label, got, want):
+        nonlocal max_err
         torch.cuda.synchronize()
-        err = max(float((hk - hr).abs().max()), float((ck - cr).abs().max()))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         max_err = max(max_err, err)
-        ok = torch.allclose(hk, hr, rtol=RTOL, atol=ATOL) \
-            and torch.allclose(ck, cr, rtol=RTOL, atol=ATOL)
-        print(f"[check] lstm_cell W={W} B={B} I={I} H={H}: max |kernel - "
-              f"plain| {err:.3e} (rtol {RTOL}, atol {ATOL}) "
-              f"{'ok' if ok else 'MISMATCH'}")
-        check(ok, f"lstm_cell kernel disagrees with its plain version at "
-                  f"W={W} B={B} I={I} H={H}")
+        ok = all(torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+                 for a, b in zip(got, want))
+        print(f"[check] {label}: max |kernel - plain| {err:.3e} (rtol "
+              f"{RTOL}, atol {ATOL}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{label}: the kernel disagrees with its plain version")
+
+    shapes = LAYER_SHAPES + [(1, B, 20, I, H) for B, I, H in ODD_SHAPES]
+    for W, B, T, I, H in shapes:
+        for carry in (False, True):
+            args = layer_inputs(W, B, T, I, H, carry)
+            if W == 1:                   # the unstacked (serving) form
+                args = tuple(a[0] for a in args)
+            hold(f"lstm_layer W={W} B={B} T={T} I={I} H={H} "
+                 f"{'carry' if carry else 'zero carry'}"
+                 f"{'' if kernel.weights_resident(I, H) else ', weights in device memory'}",
+                 lstm_layer(*args), lstm_layer_ref(*args))
+    for W, B, I, H in PATH_SHAPES + TRAIN_SHAPES + [(1,) + s
+                                                    for s in ODD_SHAPES]:
+        args = cell_inputs(W, B, I, H)
+        if W == 1:
+            args = tuple(a[0] for a in args)
+        hold(f"lstm_layer as the cell (T=1) W={W} B={B} I={I} H={H}",
+             lstm_cell(*args), lstm_cell_ref(*args))
     for I in (5, 64):
-        x, h, c, wx, wh, b = (a[0] for a in cell_inputs(1, 64, I, 64, seed=1))
-        h64, c64 = lstm_cell(x, h, c, wx, wh, b)
+        xs, h0, c0, wx, wh, b = (a[0] for a in layer_inputs(1, 32, 20, I, 64,
+                                                            seed=1))
+        hs, hT, cT = lstm_layer(xs, h0, c0, wx, wh, b)
+        h, c = h0, c0
+        for t in range(20):
+            h, c = lstm_cell(xs[:, t].contiguous(), h, c, wx, wh, b)
+            check(torch.equal(hs[:, t], h),
+                  f"step {t} of a T=20 launch differs from {t + 1} chained "
+                  f"T=1 launches (I={I})")
+        check(torch.equal(hT, h) and torch.equal(cT, c),
+              f"(hT, cT) of a T=20 launch differ from 20 chained T=1 "
+              f"launches (I={I})")
+        args = tuple(a[0] for a in layer_inputs(1, 64, 20, I, 64, seed=2))
+        out64 = lstm_layer(*args)
         for lo in range(0, 64, 8):
-            h8, c8 = lstm_cell(x[lo:lo + 8].contiguous(),
-                               h[lo:lo + 8].contiguous(),
-                               c[lo:lo + 8].contiguous(), wx, wh, b)
-            check(torch.equal(h8, h64[lo:lo + 8])
-                  and torch.equal(c8, c64[lo:lo + 8]),
-                  f"rows {lo}..{lo + 7} of a B=64 launch differ from a "
+            out8 = lstm_layer(*(a[lo:lo + 8].contiguous() if n < 3 else a
+                                for n, a in enumerate(args)))
+            check(all(torch.equal(a, b[lo:lo + 8])
+                      for a, b in zip(out8, out64)),
+                  f"rows {lo}..{lo + 7} of a B=64 T=20 launch differ from a "
                   f"B=8 launch of the same rows (I={I})")
-        args4 = cell_inputs(4, 32, I, 64, seed=2)
-        h4, c4 = lstm_cell(*args4)
-        for w in range(4):
-            h1, c1 = lstm_cell(*(a[w] for a in args4))
-            check(torch.equal(h1, h4[w]) and torch.equal(c1, c4[w]),
-                  f"worker {w} of a W=4 launch differs from its W=1 launch "
-                  f"(I={I})")
-    print("[check] lstm_cell rows of B=8 launches == the same rows of a "
-          "B=64 launch, and the rows of a W=4 launch == four W=1 launches, "
-          "bitwise (I=5 and I=64)")
+        for T in (20, 1):
+            args4 = layer_inputs(4, 32, T, I, 64, seed=3)
+            out4 = lstm_layer(*args4)
+            for w in range(4):
+                out1 = lstm_layer(*(a[w] for a in args4))
+                check(all(torch.equal(a, b[w]) for a, b in zip(out1, out4)),
+                      f"worker {w} of a W=4 T={T} launch differs from its "
+                      f"W=1 launch (I={I})")
+    print("[check] lstm_layer: step t of a T=20 launch == t + 1 chained T=1 "
+          "launches (hs, hT, cT); rows of B=8 launches == the same rows of "
+          "a B=64 launch; the rows of a W=4 launch == four W=1 launches "
+          "(T=20 and T=1); all bitwise, I=5 and I=64")
     digests = {}
     for _, B, I, H in PATH_SHAPES:
         digests[f"{B}x{I}x{H}"] = cell_digest(*lstm_cell(*bits_inputs(B, I,
@@ -513,8 +576,8 @@ def check_forward() -> float:
     check(digests == SERVING_SLICE_DIGESTS,
           f"a W = 1 launch is not bit for bit the serving slice's kernel: "
           f"{digests} != {SERVING_SLICE_DIGESTS}")
-    print("[check] lstm_cell W=1 == the serving slice's kernel bit for bit "
-          "at the serving shapes (sha256 of h', c')")
+    print("[check] lstm_layer at T=1, W=1 == the serving slice's cell kernel "
+          "bit for bit at the serving shapes (sha256 of h', c')")
     return max_err
 
 
@@ -698,8 +761,10 @@ def check_gradients(train_ds) -> None:
 
 def check_forecaster():
     """Phase 3: the paper LSTM on the card: step == replay == generate
-    bitwise, and predict against the same port on the CPU. Returns the
-    forecaster."""
+    bitwise, steps and generate at T = 1 launches and replay at one T = 20
+    launch per layer, and predict against the same port on the CPU.
+    Returns the forecaster."""
+    from repro_torch.kernels.lstm import kernel as lstm_kernel
     from repro_torch.checkpoint.convert import params_to
     from repro_torch.launch import serve
     from repro_torch.serving import LSTMForecaster, build_lstm_forecaster
@@ -709,9 +774,19 @@ def check_forecaster():
     streams = serve._traffic_datasets(3, fc.window, seed=7)
     w = np.stack([ds.x[0] for ds in streams])              # [3, 20, 5]
     carry = fc.init_carry(1)
+    lstm_kernel.LAUNCHES.reset()
     for t in range(fc.window):
         ys, ps, carry = fc.step(w[0:1, t], carry)
+    n_step = lstm_kernel.LAUNCHES.total
     yr, pr, cr = fc.replay(w[0:1])
+    by_T = {}
+    for (_, _, T, _, _), n in lstm_kernel.LAUNCHES.by_shape.items():
+        by_T[T] = by_T.get(T, 0) + n
+    n_layers = len(fc.params["lstm"])
+    check(n_step == n_layers * fc.window
+          and by_T == {1: n_step, fc.window: n_layers},
+          f"steps and replay did not run the layer kernel at T = 1 and at "
+          f"one T = {fc.window} launch per layer: {by_T}")
     slots = fc.init_slots(64)
     lanes = (5, 17, 42)                 # three different lane chunks
     for lane in lanes:
@@ -734,7 +809,9 @@ def check_forecaster():
         check(y1[0] == yg[lanes[s]] and p1[0] == pg[lanes[s]],
               f"generate lane {lanes[s]} != replay of its session")
     print(f"[forecaster] step == replay == generate bitwise on the card "
-          f"(y {float(ys[0]):+.6f}, p {float(ps[0]):.6f})")
+          f"(y {float(ys[0]):+.6f}, p {float(ps[0]):.6f}): {n_step} launches "
+          f"at T=1 for the steps, {n_layers} at T={fc.window} for the "
+          f"replay")
     windows = np.concatenate([ds.x[:16] for ds in streams])  # [48, 20, 5]
     y_gpu, p_gpu = fc.predict(windows)
     cpu = LSTMForecaster(cfg=fc.cfg, params=params_to(fc.params, "cpu"),
@@ -797,7 +874,7 @@ def serve_main_path(fc, tag: str):
             wall_s = time.perf_counter() - t0s
         launches = read_counters()
     snap = engine.telemetry.snapshot()
-    n_generate = sum(launches["lstm_cell"].values()) - n_predict
+    n_generate = sum(launches["lstm_layer"].values()) - n_predict
     flushes, step_flushes = traffic_snap["batches"], snap["step_batches"]
     check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
     check(len(results) == 128 and all(np.isfinite(v) for r in results
@@ -815,6 +892,10 @@ def serve_main_path(fc, tag: str):
     check(n_predict > 0 and n_generate > 0,
           f"kernel launches: {n_predict} on predict, {n_generate} on "
           f"generate: the path did not run the kernel on both")
+    n_layers = len(fc.params["lstm"])
+    check(n_predict == n_layers * flushes,
+          f"{n_predict} forward launches for {flushes} predict flushes: not "
+          f"one per layer per flush ({n_layers})")
     y_ref, p_ref = fc.predict(np.stack(payloads))
     got = np.asarray(results, np.float32)
     check(np.allclose(got[:, 0], y_ref, rtol=FC_RTOL, atol=FC_ATOL)
@@ -838,7 +919,7 @@ def serve_main_path(fc, tag: str):
           f"per generate flush; served steps == replay, bitwise; no plain "
           f"version on the card")
     print(f"[serve] dispatch counts {counts.by_op()}; kernel launches by "
-          f"(W, B, I, H) {launches['lstm_cell']}")
+          f"(W, B, T, I, H) {launches['lstm_layer']}")
     return launches, payloads, sessions
 
 
@@ -974,10 +1055,10 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
     from repro_torch.kernels.evl.ops import evl_loss
     from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
     from repro_torch.kernels.lstm import kernel as lstm_kernel
-    from repro_torch.kernels.lstm.ops import lstm_cell
+    from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer
     from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
                                               lstm_cell_fwd_ref,
-                                              lstm_cell_ref)
+                                              lstm_layer_ref)
 
     rows = {name: {} for name in PAPER_KERNELS}
     errs = {name: 0.0 for name in PAPER_KERNELS}
@@ -991,41 +1072,58 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
               f"{name} kernel disagrees with its plain version at the "
               f"path's shape {shape}: max err {err}")
 
-    fwd_shapes = (set(PATH_SHAPES) | set(TRAIN_SHAPES) | {(1, 1, 1, 8)}
-                  | set(serve_launches["lstm_cell"])
-                  | set(train_launches["lstm_cell"]))
-    for W, B, I, H in sorted(fwd_shapes):
-        x, h, c, wx, wh, b = cell_inputs(W, B, I, H, seed=2)
-        hold("lstm_cell", (W, B, I, H),
-             lstm_kernel.lstm_cell_cuda(x, h, c, wx, wh, b),
-             lstm_cell_ref(x, h, c, wx, wh, b), RTOL, ATOL)
-        wx_t = [wx[w].t().contiguous() for w in range(W)]
-        wh_t = [wh[w].t().contiguous() for w in range(W)]
-        zero = torch.zeros_like(b[0])
+    lib_err = 0.0                  # largest |torch.lstm - plain|
+    fwd_shapes = (set(LAYER_SHAPES) | {(1, 1, 1, 1, 8)}
+                  | set(serve_launches["lstm_layer"])
+                  | set(train_launches["lstm_layer"]))
+    for W, B, T, I, H in sorted(fwd_shapes):
+        args = layer_inputs(W, B, T, I, H, seed=2)
+        hold("lstm_layer", (W, B, T, I, H), lstm_kernel.lstm_layer_cuda(*args),
+             lstm_layer_ref(*args), RTOL, ATOL)
+        # torch.lstm (cuDNN) for one layer over the same window, one call
+        # per worker, through nn.LSTM so that its weights are one flat
+        # buffer: weights as [4H, K], b_ih = b and b_hh = 0
+        xs, h0, c0, wx, wh, b = args
+        lstms = []
         for w in range(W):
-            hl, cl = torch.lstm_cell(x[w], (h[w], c[w]), wx_t[w], wh_t[w],
-                                     b[w], zero)
-            hr, cr = lstm_cell_ref(x[w], h[w], c[w], wx[w], wh[w], b[w])
-            check(torch.allclose(hl, hr, rtol=RTOL, atol=ATOL)
-                  and torch.allclose(cl, cr, rtol=RTOL, atol=ATOL),
-                  f"torch.lstm_cell is not the same function at "
-                  f"{W, B, I, H}")
+            m = torch.nn.LSTM(I, H, batch_first=True).cuda()
+            with torch.no_grad():
+                m.weight_ih_l0.copy_(wx[w].t())
+                m.weight_hh_l0.copy_(wh[w].t())
+                m.bias_ih_l0.copy_(b[w])
+                m.bias_hh_l0.zero_()
+            m.flatten_parameters()
+            lstms.append(m)
 
+        @torch.no_grad()
         def library():
-            for w in range(W):
-                torch.lstm_cell(x[w], (h[w], c[w]), wx_t[w], wh_t[w], b[w],
-                                zero)
+            return [m(xs[w], (h0[w][None], c0[w][None]))
+                    for w, m in enumerate(lstms)]
 
-        # the wrapper as the path calls it: unstacked for one model
-        wrapper_args = ((x[0], h[0], c[0], wx[0], wh[0], b[0]) if W == 1
-                        else (x, h, c, wx, wh, b))
-        bnd, by = cell_bound(W, B, I, H)
-        rows["lstm_cell"][(W, B, I, H)] = {
-            "ms": graph_ms(lambda: lstm_kernel.lstm_cell_cuda(
-                x, h, c, wx, wh, b)),
-            "plain_ms": graph_ms(lambda: lstm_cell_ref(x, h, c, wx, wh, b)),
+        want = lstm_layer_ref(*args)
+        for w, (hl, (hTl, cTl)) in enumerate(library()):
+            got = (hl, hTl[0], cTl[0])
+            err = max(float((a - r[w]).abs().max())
+                      for a, r in zip(got, want))
+            check(all(torch.allclose(a, r[w], rtol=FC_RTOL, atol=FC_ATOL)
+                      for a, r in zip(got, want)),
+                  f"torch.lstm is not the same function at "
+                  f"{W, B, T, I, H}: max |torch.lstm - plain| {err:.3e}")
+            lib_err = max(lib_err, err)
+        # the wrapper as the path calls it: a window through lstm_layer,
+        # a step through lstm_cell; unstacked for one model
+        one = tuple(a[0] for a in args) if W == 1 else args
+        if T == 1:
+            step = (one[0][..., 0, :].contiguous(),) + one[1:]
+            wrapper = lambda: lstm_cell(*step)
+        else:
+            wrapper = lambda: lstm_layer(*one)
+        bnd, by = layer_bound(W, B, T, I, H)
+        rows["lstm_layer"][(W, B, T, I, H)] = {
+            "ms": graph_ms(lambda: lstm_kernel.lstm_layer_cuda(*args)),
+            "plain_ms": graph_ms(lambda: lstm_layer_ref(*args)),
             "library_ms": graph_ms(library),
-            "eager_ms": eager_ms(lambda: lstm_cell(*wrapper_args)),
+            "eager_ms": eager_ms(wrapper),
             "bound_ms": bnd, "bound_by": by}
     bwd_shapes = set(TRAIN_SHAPES) | set(train_launches["lstm_cell_bwd"])
     for W, B, I, H in sorted(bwd_shapes):
@@ -1115,8 +1213,12 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                 "ms": graph_ms(kfn), "plain_ms": graph_ms(pfn),
                 "library_ms": None, "eager_ms": eager_ms(efn),
                 "bound_ms": bnd, "bound_by": by}
-    floor = rows["lstm_cell"][(1, 1, 1, 8)]
-    print(f"[time] {tag}: launch floor (cell kernel at W=1 B=1 I=1 H=8): "
+    print(f"[check] {tag}: torch.lstm (cuDNN) against the plain layer at "
+          f"every timed shape: max |torch.lstm - plain| {lib_err:.3e} "
+          f"(rtol {FC_RTOL}, atol {FC_ATOL})")
+    floor = rows["lstm_layer"][(1, 1, 1, 1, 8)]
+    print(f"[time] {tag}: launch floor (layer kernel at W=1 B=1 T=1 I=1 "
+          f"H=8): "
           f"{floor['ms'] * 1e3:.2f} us per launch in a CUDA graph, "
           f"{floor['eager_ms'] * 1e3:.2f} us per eager wrapper call")
     every = {k: {**serve_launches.get(k, {})} for k in rows}
@@ -2000,6 +2102,74 @@ def ssd_ablation(card: str) -> None:
     print(json.dumps({"card": card, "us": times}))
 
 
+# the batch rows per block of the LSTM layer kernel tried by
+# ``--lstm-rows``, and the shapes it times them at: the paths' (LAYER_SHAPES),
+# the slot state's step (B 64) and the test set through ``evaluate``
+# (B 552)
+LSTM_ROWS = (1, 2, 4, 8)
+LSTM_ROWS_SHAPES = LAYER_SHAPES + [(1, 64, 1, 64, 64), (1, 552, 20, 5, 64),
+                                   (1, 552, 20, 64, 64)]
+
+
+def lstm_rows(card: str) -> None:
+    """``--lstm-rows``: the LSTM layer kernel's device time at each of
+    ``LSTM_ROWS`` batch rows per block, at ``LSTM_ROWS_SHAPES``. Each is a
+    copy of ``lstm_layer.cu`` with its ROWS constant set, built from the
+    checkout and called through a binding of its own, outside the
+    package; each copy's outputs must equal the kernel's bit for bit (a
+    row's bits do not depend on ROWS); timed with ``graph_ms`` in turns
+    (the kernel, the copies, then the same reversed). Prints one line per
+    shape and a JSON object of every time (us)."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels.lstm import kernel as lstm_kernel
+
+    text = lstm_kernel.SOURCES[-1].read_text()
+    found = re.findall(r"constexpr int ROWS = (\d+);", text)
+    check(len(found) == 1, f"lstm_layer.cu: no single ROWS constant {found}")
+    rows = int(found[0])
+    variants = {f"rows {r}": [(f"constexpr int ROWS = {rows};",
+                               f"constexpr int ROWS = {r};")]
+                for r in LSTM_ROWS if r != rows}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = ablation_entries("lstm_layer", lstm_kernel.SOURCES, variants,
+                           "lstm_layer_forward", [P] * 10 + [I] * 5 + [P])
+    names = {"kernel": f"rows {rows}", **{n: n for n in variants}}
+
+    def launch(fn, args, outs):
+        W, B, T, I_, H = args[0].shape + (args[1].shape[-1],)
+        rc = fn(*(t.data_ptr() for t in args + outs), None, W, B, T, I_, H,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"LSTM rows launch failed: {rc}")
+
+    order = list(fns) + list(fns)[::-1]
+    times: dict = {}
+    for shape in LSTM_ROWS_SHAPES:
+        W, B, T, I_, H = shape
+        args = layer_inputs(*shape, seed=5)
+        outs = {n: (torch.empty(W, B, T, H, device="cuda"),
+                    torch.empty(W, B, H, device="cuda"),
+                    torch.empty(W, B, H, device="cuda")) for n in fns}
+        for n, fn in fns.items():
+            launch(fn, args, outs[n])
+        torch.cuda.synchronize()
+        for n in fns:
+            check(all(torch.equal(a, b)
+                      for a, b in zip(outs[n], outs["kernel"])),
+                  f"{names[n]} changes the bits at {shape}")
+        row: dict = {names[n]: [] for n in fns}
+        for n in order:
+            row[names[n]].append(1e3 * graph_ms(
+                lambda: launch(fns[n], args, outs[n])))
+        times["x".join(map(str, shape))] = row
+        print(f"[rows] {card}: lstm_layer (W, B, T, I, H) {shape}, bound "
+              f"{1e3 * layer_bound(*shape)[0]:.4f} us: " + "; ".join(
+                  f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
+                  for n, ts in sorted(row.items())))
+    print(json.dumps({"card": card, "us": times}))
+
+
 def profile_zoo(fc, kernel: str, symbol: str, tag: str,
                 absent: str | None = None) -> None:
     """Phase 14, where a zoo flush's time goes: one predict flush at each
@@ -2078,6 +2248,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's RNNs (the torch.lstm yardstick) read a precision of their
+    # own, which allow_tf32 does not set in every version
+    torch.backends.cudnn.rnn.fp32_precision = "ieee"
 
     t_start = time.perf_counter()
     card = card_line()
@@ -2085,7 +2258,8 @@ def main() -> None:
     tag = f"{name} | {card}"
     probes = {"--flash-host": lambda: flash_host(tag),
               "--flash-ablation": lambda: flash_ablation(card),
-              "--ssd-ablation": lambda: ssd_ablation(card)}
+              "--ssd-ablation": lambda: ssd_ablation(card),
+              "--lstm-rows": lambda: lstm_rows(card)}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -2097,7 +2271,7 @@ def main() -> None:
     timed("build", build_kernels)
     timed("flash SASS", check_flash_sass)
     timed("SSD SASS", check_ssd_sass)
-    errs = {"lstm_cell": timed("check lstm_cell", check_forward),
+    errs = {"lstm_layer": timed("check lstm_layer", check_forward),
             "lstm_cell_bwd": timed("check lstm_cell_bwd", check_backward)}
     errs["evl_forward"], errs["evl_backward"] = timed("check evl", check_evl)
     errs["flash_attention"] = timed("check flash_attention", check_flash)
@@ -2145,8 +2319,8 @@ def main() -> None:
           f"{mamba_init_s:.2f} s")
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
     meta = {
-        "lstm_cell": (csrc.format("lstm", "lstm_cell.cu"),
-                      "src/repro/kernels/lstm/kernel.py:21"),
+        "lstm_layer": (csrc.format("lstm", "lstm_layer.cu"),
+                       "src/repro/kernels/lstm/kernel.py:21"),
         "lstm_cell_bwd": (csrc.format("lstm", "lstm_cell_bwd.cu"),
                           "src/repro/kernels/lstm/kernel.py:21"),
         "evl_forward": (csrc.format("evl", "evl.cu"),

@@ -10,7 +10,8 @@ Each kernel package holds:
     ref.py    — the plain PyTorch version
 
 Kernels ported so far:
-    lstm — one LSTM time step and its backward, W workers per launch
+    lstm — an LSTM layer over T time steps (one step is T = 1) and the
+           cell's backward, W workers per launch
            (replaces repro/kernels/lstm/kernel.py)
     evl  — the Extreme Value Loss with its reduction, and dL/du
            (replaces repro/kernels/evl/kernel.py)
@@ -19,6 +20,6 @@ Kernels ported so far:
 """
 from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.kernels.evl.ops import evl_loss
-from repro_torch.kernels.lstm.ops import lstm_cell
+from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer
 
-__all__ = ["evl_loss", "flash_attention", "lstm_cell"]
+__all__ = ["evl_loss", "flash_attention", "lstm_cell", "lstm_layer"]

@@ -28,6 +28,7 @@ from repro_torch.kernels.attention.ops import \
     flash_attention as _flash_attention
 from repro_torch.kernels.evl.ops import evl_loss as _evl_loss
 from repro_torch.kernels.lstm.ops import lstm_cell as _lstm_cell
+from repro_torch.kernels.lstm.ops import lstm_layer as _lstm_layer
 from repro_torch.kernels.ssd.ops import ssd_scan as _ssd_scan
 
 _lock = threading.Lock()
@@ -101,10 +102,19 @@ class counting:
 def lstm_cell(x, h, c, wx, wh, b):
     """The routed LSTM cell: x [B, I]; h, c [B, H]; gates packed
     [i, f, g, o]; or every operand with a leading worker dim W. CUDA
-    tensors run the hand-written kernels (forward, and backward under
-    autograd), CPU tensors the plain version
+    tensors run the hand-written kernels (the layer kernel at T = 1, and
+    the backward under autograd), CPU tensors the plain version
     (``kernels.lstm.ops.lstm_cell``)."""
     return _lstm_cell(x, h, c, wx, wh, b)
+
+
+def lstm_layer(xs, h0, c0, wx, wh, b):
+    """The routed LSTM layer, T steps from the carry (h0, c0): xs
+    [B, T, I]; h0, c0 [B, H]; or every operand with a leading worker dim
+    W. Returns (hs [..., B, T, H], hT, cT). CUDA tensors run one launch
+    of the hand-written layer kernel (and raise under autograd), CPU
+    tensors the plain version (``kernels.lstm.ops.lstm_layer``)."""
+    return _lstm_layer(xs, h0, c0, wx, wh, b)
 
 
 def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,

@@ -1,3 +1,3 @@
-from repro_torch.kernels.lstm.ops import lstm_cell
+from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer
 
-__all__ = ["lstm_cell"]
+__all__ = ["lstm_cell", "lstm_layer"]

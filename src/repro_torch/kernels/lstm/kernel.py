@@ -1,16 +1,17 @@
-"""Binding of the hand-written CUDA LSTM cell: the forward
-(``csrc/lstm_cell.cu``) and its backward (``csrc/lstm_cell_bwd.cu``).
+"""Binding of the hand-written CUDA LSTM kernels: the layer forward, T
+time steps in one launch (``csrc/lstm_layer.cu``; one cell step is the
+same launch at T = 1), and the cell's backward (``csrc/lstm_cell_bwd.cu``).
 
 Each source is built with ``nvcc`` for ``sm_90a`` at first use
 (``repro_torch.kernels.build``) into a library of its own and called
 through ``ctypes``: device pointers and the current stream go in as
 ``c_void_p``, and the C function returns ``cudaGetLastError()`` after
-its launch, which is raised here if it is not 0. A launch runs on the
-calling thread's current stream and does not synchronise. Operands
-carry the leading worker dim W (the forward also takes them without it,
-as W = 1). ``LAUNCHES`` counts every forward launch and ``BWD_LAUNCHES``
-every backward launch by (W, B, I, H), so a run can show that its path
-went through the kernels.
+its launch, which is raised here if it is not 0 (and nothing is
+counted). A launch runs on the calling thread's current stream and does
+not synchronise. Operands carry the leading worker dim W (the forward
+also takes them without it, as W = 1). ``LAUNCHES`` counts every forward
+launch by (W, B, T, I, H) and ``BWD_LAUNCHES`` every backward launch by
+(W, B, I, H), so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -24,10 +25,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import LaunchCounter
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = [_CSRC / "lstm_cell.cu"]
+SOURCES = [_CSRC / "lstm_layer.cu"]
 BWD_SOURCES = [_CSRC / "lstm_cell_bwd.cu"]
 # every library of this package, for build.build_all
-LIBRARIES = {"lstm_cell": SOURCES, "lstm_cell_bwd": BWD_SOURCES}
+LIBRARIES = {"lstm_layer": SOURCES, "lstm_cell_bwd": BWD_SOURCES}
 
 LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
@@ -36,13 +37,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("lstm_cell", SOURCES)
-    fn = lib.lstm_cell_forward
+    lib = build.load("lstm_layer", SOURCES)
+    fn = lib.lstm_layer_forward
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
         fn.restype = _I
-        lib.lstm_cell_smem_bytes.argtypes = [_I, _I]
-        lib.lstm_cell_smem_bytes.restype = _I
+        for query in (lib.lstm_layer_smem_bytes,
+                      lib.lstm_layer_weights_resident):
+            query.argtypes = [_I, _I]
+            query.restype = _I
     return lib
 
 
@@ -59,7 +62,13 @@ def _bwd_library() -> ctypes.CDLL:
 
 def smem_bytes(in_dim: int, hidden: int) -> int:
     """Shared memory one forward launch takes at (I, H)."""
-    return _library().lstm_cell_smem_bytes(in_dim, hidden)
+    return _library().lstm_layer_smem_bytes(in_dim, hidden)
+
+
+def weights_resident(in_dim: int, hidden: int) -> bool:
+    """Whether a forward launch at (I, H) keeps the weights in shared
+    memory (else it reads them from device memory)."""
+    return bool(_library().lstm_layer_weights_resident(in_dim, hidden))
 
 
 def bwd_smem_bytes(hidden: int) -> int:
@@ -71,29 +80,35 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def lstm_cell_cuda(x, h, c, wx, wh, b, save_gates: bool = False):
+def lstm_layer_cuda(xs, h0, c0, wx, wh, b, save_gates: bool = False,
+                    write_hs: bool = True):
     """Launch the forward on validated CUDA tensors (see ``ops``):
-    x [W, B, I]; h, c [W, B, H]; wx [W, I, 4H]; wh [W, H, 4H]; b [W, 4H],
-    fp32 and contiguous, or each without the leading W (one model: the
-    same launch at W = 1, no reshape on the host). Returns (h', c'), or
-    (h', c', gates [..., B, 4H]) with ``save_gates``, freshly allocated."""
+    xs [W, B, T, I]; h0, c0 [W, B, H]; wx [W, I, 4H]; wh [W, H, 4H];
+    b [W, 4H], fp32 and contiguous, or each without the leading W (one
+    model: the same launch at W = 1, no reshape on the host); T >= 1.
+    Returns (hs [..., B, T, H] or None without ``write_hs``, hT, cT
+    [..., B, H]), and the activated gates [..., B, T, 4H] after them with
+    ``save_gates``, all freshly allocated."""
     lib = _library()
-    W = x.shape[0] if x.dim() == 3 else 1
-    B, I = x.shape[-2:]
-    H = h.shape[-1]
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
-    gates = (h.new_empty(tuple(h.shape[:-1]) + (4 * H,)) if save_gates
-             else None)
-    rc = lib.lstm_cell_forward(
-        x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
-        wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        gates.data_ptr() if save_gates else None, W, B, I, H, _stream(x))
+    W = xs.shape[0] if xs.dim() == 4 else 1
+    B, T, I = xs.shape[-3:]
+    H = h0.shape[-1]
+    lead = tuple(xs.shape[:-1])                        # (..., B, T)
+    hs = h0.new_empty(lead + (H,)) if write_hs else None
+    hT = torch.empty_like(h0)
+    cT = torch.empty_like(c0)
+    gates = h0.new_empty(lead + (4 * H,)) if save_gates else None
+    rc = lib.lstm_layer_forward(
+        xs.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(),
+        wh.data_ptr(), b.data_ptr(), hs.data_ptr() if write_hs else None,
+        hT.data_ptr(), cT.data_ptr(),
+        gates.data_ptr() if save_gates else None, W, B, T, I, H,
+        _stream(xs))
     if rc != 0:
-        raise RuntimeError(f"lstm_cell kernel launch failed at W={W} B={B} "
-                           f"I={I} H={H}: cudaError {rc}")
-    LAUNCHES.add((W, B, I, H))
-    return (h_out, c_out, gates) if save_gates else (h_out, c_out)
+        raise RuntimeError(f"lstm_layer kernel launch failed at W={W} B={B} "
+                           f"T={T} I={I} H={H}: cudaError {rc}")
+    LAUNCHES.add((W, B, T, I, H))
+    return (hs, hT, cT, gates) if save_gates else (hs, hT, cT)
 
 
 def lstm_cell_bwd_cuda(dh_new, dc_new, gates, c, c_new, wx, wh,

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the LSTM cell's kernels: the forward, the
-same math as ``repro.kernels.lstm.ref.lstm_cell_ref`` (gates packed
-[i, f, g, o]), and the function of the backward kernel. Each takes the
-unstacked form (x [B, I], wx [I, 4H], b [4H]) or the worker-stacked form
-(x [W, B, I], wx [W, I, 4H], b [W, 4H]). The CPU path runs
-``lstm_cell_ref`` and differentiates it with torch autograd; the card's
-kernels are held against these."""
+"""Plain PyTorch versions of the LSTM kernels: the cell step, the same
+math as ``repro.kernels.lstm.ref.lstm_cell_ref`` (gates packed
+[i, f, g, o]); the layer, that step over T time steps from a given
+carry (the layer kernel's function); and the function of the backward
+kernel. Each takes the unstacked form (x [B, I] or xs [B, T, I],
+wx [I, 4H], b [4H]) or the worker-stacked form (a leading W on every
+operand). The CPU path runs ``lstm_cell_ref`` and ``lstm_layer_ref`` and
+differentiates them with torch autograd; the card's kernels are held
+against these."""
 
 from __future__ import annotations
 
@@ -26,6 +28,19 @@ def lstm_cell_ref(x, h, c, wx, wh, b):
     """One step -> (h', c')."""
     h_new, c_new, _ = _step(x, h, c, wx, wh, b)
     return h_new, c_new
+
+
+def lstm_layer_ref(xs, h0, c0, wx, wh, b):
+    """T steps from (h0, c0): xs [..., B, T, I] -> (hs [..., B, T, H],
+    hT, cT [..., B, H]). Each step's input is made contiguous first, so
+    that it is the same matmul, bit for bit, as a step of its own."""
+    steps = xs.movedim(-2, 0).contiguous()       # [T, ..., B, I]
+    h, c = h0, c0
+    hs = []
+    for x_t in steps:
+        h, c, _ = _step(x_t, h, c, wx, wh, b)
+        hs.append(h)
+    return torch.stack(hs, dim=-2), h, c
 
 
 def lstm_cell_fwd_ref(x, h, c, wx, wh, b):

@@ -4,18 +4,21 @@ the EVL experiments.
 
 Functional over a params dict with the JAX package's keys
 (``lstm[i].wx/wh/b``, ``fc[j].w/b``, ``out``, ``evl``), so weights map
-one to one (``repro_torch.checkpoint.convert``). A Python loop over time
-takes the place of ``lax.scan``; each step's cell goes through
-``repro_torch.kernels.dispatch.lstm_cell``, which runs the hand-written
-CUDA kernel for tensors on the card and the plain version on the CPU.
+one to one (``repro_torch.checkpoint.convert``). A layer over a window
+(``lstm_layer_apply``, the JAX package's ``lax.scan``) is one
+``repro_torch.kernels.dispatch.lstm_layer`` call: on the card one launch
+of the hand-written CUDA layer kernel, with the time loop inside it; on
+the CPU the plain version. Only on the card under autograd, which the
+layer kernel has no backward for, does it step
+``dispatch.lstm_cell`` once per time step, through the cell's autograd
+Function. A streaming step (``rnn_step``) is one ``lstm_cell`` per
+layer: on the card the same kernel at T = 1.
 
 Training (``rnn_features``, ``rnn_head``, ``rnn_apply``) also takes
 worker-stacked params, every leaf with a leading worker dim W, and x
 [W, B, T, I]: the JAX package's ``jax.vmap`` over local-SGD workers
-written out, so that one cell launch per time step serves all W
-workers, and gradients flow through the cell's autograd Function.
-Serving (``rnn_step``, ``rnn_apply_padded``, the carries) stays
-unstacked and gives the same bits as before.
+written out, so that one launch serves all W workers. Serving
+(``rnn_step``, ``rnn_apply_padded``, the carries) stays unstacked.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.lstm.ops import needs_grad
 from repro_torch.models.layers import dense_init
 
 PyTree = Any
@@ -86,19 +90,27 @@ def lstm_cell(p, x_t, h, c):
     return dispatch.lstm_cell(x_t, h, c, p["wx"], p["wh"], p["b"])
 
 
-def lstm_layer_apply(p, xs):
-    """xs [B, T, I] -> hs [B, T, H], one cell per time step; or, with
-    worker-stacked p, xs [W, B, T, I] -> hs [W, B, T, H]."""
-    lead, T = tuple(xs.shape[:-2]), xs.shape[-2]      # lead: (B,) or (W, B)
+def lstm_layer_apply(p, xs, h0=None, c0=None):
+    """xs [B, T, I] -> (hs [B, T, H], (hT, cT) [B, H]) from the carry
+    (h0, c0) (zeros when not given); or, with worker-stacked p, xs
+    [W, B, T, I] -> hs [W, B, T, H] and a [W, B, H] carry."""
+    lead = tuple(xs.shape[:-2])                    # (B,) or (W, B)
     H = p["wh"].shape[-2]
-    h = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
-    c = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
+    if h0 is None:
+        h0 = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
+    if c0 is None:
+        c0 = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
+    args = (xs, h0, c0, p["wx"], p["wh"], p["b"])
+    if not (xs.is_cuda and needs_grad(args)):
+        hs, hT, cT = dispatch.lstm_layer(*args)
+        return hs, (hT, cT)
     steps = xs.movedim(-2, 0).contiguous()        # [T, ..., I], rows contiguous
+    h, c = h0, c0
     hs = []
-    for t in range(T):
+    for t in range(steps.shape[0]):
         h, c = lstm_cell(p, steps[t], h, c)
         hs.append(h)
-    return torch.stack(hs, dim=-2)
+    return torch.stack(hs, dim=-2), (h, c)
 
 
 def rnn_features(params: PyTree, x):
@@ -106,7 +118,7 @@ def rnn_features(params: PyTree, x):
     with a leading worker dim W on x, the params and the result)."""
     h = x
     for lp in params["lstm"]:
-        h = lstm_layer_apply(lp, h)
+        h, _ = lstm_layer_apply(lp, h)
     return h
 
 

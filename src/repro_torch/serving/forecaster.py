@@ -17,16 +17,20 @@ machinery of ``repro_torch.extreme`` (eq. 3 GEV depth-into-tail) by
 noisy-OR.
 
 Every call runs eagerly on ``device`` (the card unless the caller asks
-for the CPU). Each LSTM step goes through the hand-written CUDA cell on
-the card. The bitwise contracts of the JAX package hold inside the port:
-a session's ``step``, its ``replay`` and its slot-resident ``generate``
-give the same bits. Two things carry that:
+for the CPU). On the card every LSTM layer runs the hand-written CUDA
+layer kernel: over the whole window in ``predict`` and ``replay``, at
+T = 1 in each streaming step. The bitwise contracts of the JAX package
+hold inside the port: a session's ``step``, its ``replay`` and its
+slot-resident ``generate`` give the same bits. Three things carry that:
 
 - every streaming step runs at ONE fixed batch width (``decode_width``,
   padded; larger batches chunk), so the FC head's matmuls and the
   elementwise ops always see the same shapes, whatever the path;
 - the LSTM kernel's per-row result does not depend on B or on the row's
-  place in the batch (a fixed per-row reduction order).
+  place in the batch (a fixed per-row reduction order);
+- a T-step launch of the layer kernel is T launches at T = 1 chained,
+  bit for bit (one loop body), and ``replay`` applies the head to the
+  kernel's contiguous hT, as each step does.
 
 There are no donated buffers in PyTorch: ``insert`` and ``generate``
 update the slot tensors IN PLACE (``generate`` only under its step
@@ -51,8 +55,9 @@ from repro_torch.extreme.evt import fit_tail, gev_cdf
 from repro_torch.extreme.indicators import quantile_thresholds
 from repro_torch.kernels import dispatch
 from repro_torch.models.rnn import (RNNConfig, init_rnn, init_rnn_carry,
-                                    rnn_apply_padded, rnn_step,
-                                    split_rnn_carry, stack_rnn_carries)
+                                    lstm_layer_apply, rnn_apply_padded,
+                                    rnn_head, rnn_step, split_rnn_carry,
+                                    stack_rnn_carries)
 
 PyTree = Any
 
@@ -239,11 +244,13 @@ class LSTMForecaster:
         return np.concatenate(ys), np.concatenate(ps), out
 
     def replay(self, window, carry=None):
-        """Full-window recompute through the same per-step computation
-        the session path runs (what a cache miss executes), so cached
-        incremental serving is bitwise-identical to it. window [B, T, F];
-        returns (forecast [B], p_extreme [B], carry) after the last
-        step, at the decode-lane width like every step."""
+        """Full-window recompute (what a cache miss executes), layer by
+        layer at the decode-lane width like every step: one layer call
+        over the window each (on the card one launch of the layer kernel,
+        whose rows are bitwise its steps chained), then the head and the
+        alert once, so cached incremental serving is bitwise-identical to
+        it. window [B, T, F]; returns (forecast [B], p_extreme [B], carry)
+        after the last step."""
         window = np.asarray(window, np.float32)
         B = window.shape[0]
         if carry is None:
@@ -261,10 +268,16 @@ class LSTMForecaster:
                     stack_rnn_carries(carries))
         dispatch.record("decode_replay", batch=W, hidden=self.cfg.hidden,
                         device=self.device)
-        steps = self._host_rows(window, W).transpose(0, 1).contiguous()
-        cp = tuple((_pad_rows(h, W), _pad_rows(c, W)) for h, c in carry)
-        for x_t in steps:
-            y, p, cp = self._step(x_t, cp)
+        h = self._host_rows(window, W)
+        cp = []
+        for lp, (h0, c0) in zip(self.params["lstm"], carry):
+            h, layer_carry = lstm_layer_apply(lp, h, _pad_rows(h0, W),
+                                              _pad_rows(c0, W))
+            cp.append(layer_carry)
+        # the head on the last layer's hT: contiguous [W, H], as every step
+        # gives it, so that the head's matmuls see the same operands
+        y, u = rnn_head(self.params, cp[-1][0], self.cfg)
+        p = _fused_alert(torch.abs(y), u, *self._tail_args(), self.gamma)
         y, p = _to_host(y, p)
         return y[:B], p[:B], tuple((h[:B], c[:B]) for h, c in cp)
 

@@ -65,7 +65,7 @@ def test_port_package_is_complete():
     # the Mamba2 serving slice's modules
     assert {"configs/mamba2_370m.py", "models/ssm.py", "kernels/ssd/ref.py",
             "kernels/ssd/kernel.py", "kernels/ssd/ops.py"} <= names
-    for src in ("kernels/lstm/csrc/lstm_cell.cu",
+    for src in ("kernels/lstm/csrc/lstm_layer.cu",
                 "kernels/lstm/csrc/lstm_cell_bwd.cu",
                 "kernels/evl/csrc/evl.cu",
                 "kernels/attention/csrc/flash_attention.cu",

@@ -3,8 +3,11 @@ version (what a CPU tensor runs) vs the Pallas kernel in interpret mode
 and vs its jnp oracle, over the JAX kernel tests' shape sweep; its
 gradient vs ``jax.grad``; the worker-stacked form; the autograd
 Function's backward; the device route and launch counter of the
-wrapper; and, on a card, the hand-written CUDA kernels (forward and
-backward) vs the plain version and its autograd.
+wrapper; and, on a card, the hand-written CUDA kernels vs the plain
+versions and their autograd: the layer kernel (``lstm_layer.cu``) over
+T steps from a zero or a given carry and as the cell at T = 1, its bits
+(a T-step launch == T chained launches at T = 1; rows independent of B
+and W; the same on every run), and the cell's backward.
 
 The JAX package is imported inside the parity test only, so that the
 ``cuda`` tests also run on a machine with a card and no jax:
@@ -16,9 +19,10 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lstm import kernel as lstm_kernel
-from repro_torch.kernels.lstm.ops import lstm_cell, weight_grads
+from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer, weight_grads
 from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
-                                          lstm_cell_fwd_ref, lstm_cell_ref)
+                                          lstm_cell_fwd_ref, lstm_cell_ref,
+                                          lstm_layer_ref)
 
 RTOL, ATOL = 1e-5, 1e-6      # tests/test_kernels.py's LSTM tolerance
 
@@ -194,10 +198,13 @@ def test_cuda_kernel_matches_plain_version(batch, in_dim, hidden):
     _card()
     arrays = [torch.from_numpy(a).cuda()
               for a in _inputs(batch, in_dim, hidden)]
-    before = lstm_kernel.LAUNCHES.total
+    before = lstm_kernel.LAUNCHES.by_shape.get((1, batch, 1, in_dim,
+                                                hidden), 0)
     h, c = lstm_cell(*arrays)
     torch.cuda.synchronize()
-    assert lstm_kernel.LAUNCHES.total == before + 1
+    # the cell is the layer kernel at W = 1, T = 1
+    assert lstm_kernel.LAUNCHES.by_shape[(1, batch, 1, in_dim,
+                                          hidden)] == before + 1
     hr, cr = lstm_cell_ref(*arrays)
     torch.testing.assert_close(h, hr, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(c, cr, rtol=RTOL, atol=ATOL)
@@ -230,6 +237,141 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="one device"):
         lstm_cell(x, h, c, wx, wh, b.cpu())
     assert lstm_kernel.LAUNCHES.total == before
+
+
+# (W, B, T, I, H) of the layer kernel: the sweep over a window, and the
+# paths' own: a predict flush (B 32, T 20), a replay at the decode width
+# (B 8), and a training step under autograd (W 4, T 1); layer 1 (I 5) and
+# layer 2 (I 64)
+LAYER_SHAPES = ([(1, B, 20, I, H) for B, I, H in SHAPES]
+                + [(1, 32, 20, 5, 64), (1, 32, 20, 64, 64), (4, 32, 1, 5, 64),
+                   (4, 32, 1, 64, 64), (1, 8, 20, 5, 64)])
+
+
+def _layer_inputs(W, B, T, I, H, carry=True, seed=11):
+    """Worker-stacked layer inputs on the card, from a numpy seed; a zero
+    carry unless ``carry``."""
+    rng = np.random.default_rng(seed + W * 7 + B * 1000 + T * 100 + I * 10
+                                + H)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32)).cuda()
+
+    xs, h0, c0 = r(W, B, T, I), r(W, B, H), r(W, B, H)
+    if not carry:
+        h0, c0 = torch.zeros_like(h0), torch.zeros_like(c0)
+    return (xs, h0, c0, r(W, I, 4 * H, scale=0.1), r(W, H, 4 * H, scale=0.1),
+            r(W, 4 * H, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", [False, True], ids=["zero", "carry"])
+@pytest.mark.parametrize("workers,batch,steps,in_dim,hidden", LAYER_SHAPES)
+def test_cuda_layer_matches_plain_version(workers, batch, steps, in_dim,
+                                          hidden, carry):
+    """One launch of the layer kernel against the plain layer: hs, hT and
+    cT; the unstacked (serving) form at W = 1."""
+    _card()
+    args = _layer_inputs(workers, batch, steps, in_dim, hidden, carry)
+    if workers == 1:
+        args = tuple(a[0] for a in args)
+    before = lstm_kernel.LAUNCHES.total
+    got = lstm_layer(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LAUNCHES.total == before + 1
+    for a, b in zip(got, lstm_layer_ref(*args)):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dim", [5, 64])
+def test_cuda_layer_steps_equal_chained_single_steps(in_dim):
+    """Step t of one T = 20 launch == 20 launches at T = 1 chained through
+    (hT, cT), bitwise, whether through the layer or the cell wrapper."""
+    _card()
+    xs, h0, c0, wx, wh, b = (a[0] for a in _layer_inputs(1, 32, 20, in_dim,
+                                                         64))
+    hs, hT, cT = lstm_layer(xs, h0, c0, wx, wh, b)
+    h, c = h0, c0
+    hc, cc = h0, c0
+    for t in range(20):
+        x_t = xs[:, t].contiguous()
+        hl, h, c = lstm_layer(x_t[:, None], h, c, wx, wh, b)
+        hc, cc = lstm_cell(x_t, hc, cc, wx, wh, b)
+        assert torch.equal(hs[:, t], hl[:, 0]) and torch.equal(hs[:, t], hc)
+    assert torch.equal(hT, h) and torch.equal(cT, c)
+    assert torch.equal(hT, hc) and torch.equal(cT, cc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dim", [5, 64])
+def test_cuda_layer_rows_do_not_depend_on_batch_or_workers(in_dim):
+    """Rows of B = 8 launches == the same rows of a B = 64 launch, and
+    the rows of a W = 4 launch == four W = 1 launches, bitwise, over a
+    window of 20 steps."""
+    _card()
+    xs, h0, c0, wx, wh, b = (a[0] for a in _layer_inputs(1, 64, 20, in_dim,
+                                                         64))
+    out64 = lstm_layer(xs, h0, c0, wx, wh, b)
+    for lo in range(0, 64, 8):
+        rows = slice(lo, lo + 8)
+        out8 = lstm_layer(xs[rows].contiguous(), h0[rows].contiguous(),
+                          c0[rows].contiguous(), wx, wh, b)
+        assert all(torch.equal(a, b[rows]) for a, b in zip(out8, out64))
+    args = _layer_inputs(4, 32, 20, in_dim, 64, seed=3)
+    out4 = lstm_layer(*args)
+    for w in range(4):
+        out1 = lstm_layer(*(a[w] for a in args))
+        assert all(torch.equal(a, b[w]) for a, b in zip(out1, out4))
+
+
+@pytest.mark.cuda
+def test_cuda_layer_is_the_same_on_every_run():
+    _card()
+    args = _layer_inputs(4, 32, 20, 64, 64)
+    first = lstm_layer(*args)
+    for _ in range(3):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(lstm_layer(*args), first))
+
+
+@pytest.mark.cuda
+def test_cuda_layer_raises_instead_of_falling_back():
+    """A launch CUDA refuses (W = 65536 blocks on the grid's second
+    dim, one more than it takes), a wrong dtype, a non-contiguous input
+    and an input that needs a gradient each raise, and count no launch."""
+    _card()
+    xs, h0, c0, wx, wh, b = _layer_inputs(1, 4, 3, 5, 16)
+    big = [torch.zeros((65536,) + tuple(t.shape[1:]), device="cuda")
+           for t in _layer_inputs(1, 1, 1, 1, 1)]
+    before = lstm_kernel.LAUNCHES.total
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lstm_layer(*big)
+    with pytest.raises(TypeError, match="float32"):
+        lstm_layer(xs.double(), h0, c0, wx, wh, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_layer(xs.transpose(1, 2).contiguous().transpose(1, 2), h0, c0,
+                   wx, wh, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lstm_layer(xs, h0, c0, wx.clone().requires_grad_(True), wh, b)
+    assert lstm_kernel.LAUNCHES.total == before
+    with torch.no_grad():
+        lstm_layer(xs, h0, c0, wx.clone().requires_grad_(True), wh, b)
+    assert lstm_kernel.LAUNCHES.total == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_layer_keeps_the_models_weights_resident():
+    """The paper's layers (I 5 and 64, H 64) keep wx | wh in shared
+    memory; the sweep's H 128 at I 16 does not fit and reads them from
+    device memory, in the same kernel."""
+    _card()
+    assert lstm_kernel.weights_resident(5, 64)
+    assert lstm_kernel.weights_resident(64, 64)
+    assert not lstm_kernel.weights_resident(16, 128)
+    assert lstm_kernel.smem_bytes(64, 64) > 131072 > lstm_kernel.smem_bytes(
+        16, 128)
 
 
 # (W, B, I, H) the training path gives the cell: W in {1, 4} workers,
