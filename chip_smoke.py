@@ -6,7 +6,7 @@ NVIDIA H100.
     python3 chip_smoke.py --flash-host       # flash's host cost per call
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
-    python3 chip_smoke.py --lstm-rows        # the LSTM layer kernel's ROWS
+    python3 chip_smoke.py --lstm-ablation    # what the LSTM weights' staging costs
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -42,9 +42,9 @@ exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
-``--flash-ablation``, ``--ssd-ablation`` or ``--lstm-rows`` it runs only
-that probe (``flash_host``, ``flash_ablation``, ``ssd_ablation``,
-``lstm_rows``) and prints no result.
+``--flash-ablation``, ``--ssd-ablation`` or ``--lstm-ablation`` it runs
+only that probe (``flash_host``, ``flash_ablation``, ``ssd_ablation``,
+``lstm_ablation``) and prints no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -410,8 +410,8 @@ def build_kernels() -> None:
     cached = {n: build.library_path(n, s).exists() for n, s in libs.items()}
     t0 = time.perf_counter()
     paths = build.build_all(libs)
-    lstm_kernel.smem_bytes(5, 64)          # loads each library
-    lstm_kernel.bwd_smem_bytes(64)
+    lstm_kernel._library()                 # loads each library
+    lstm_kernel._bwd_library()
     evl_kernel._library()
     attn_kernel._library()
     ssd_kernel._library()
@@ -501,7 +501,6 @@ def check_forward() -> float:
     T = 1; its rows' bits independent of B and of W; and a W = 1 cell
     launch bit for bit the serving slice's kernel. Returns the largest
     |kernel - plain|."""
-    from repro_torch.kernels.lstm import kernel
     from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer
     from repro_torch.kernels.lstm.ref import lstm_cell_ref, lstm_layer_ref
 
@@ -525,8 +524,7 @@ def check_forward() -> float:
             if W == 1:                   # the unstacked (serving) form
                 args = tuple(a[0] for a in args)
             hold(f"lstm_layer W={W} B={B} T={T} I={I} H={H} "
-                 f"{'carry' if carry else 'zero carry'}"
-                 f"{'' if kernel.weights_resident(I, H) else ', weights in device memory'}",
+                 f"{'carry' if carry else 'zero carry'}",
                  lstm_layer(*args), lstm_layer_ref(*args))
     for W, B, I, H in PATH_SHAPES + TRAIN_SHAPES + [(1,) + s
                                                     for s in ODD_SHAPES]:
@@ -2102,71 +2100,74 @@ def ssd_ablation(card: str) -> None:
     print(json.dumps({"card": card, "us": times}))
 
 
-# the batch rows per block of the LSTM layer kernel tried by
-# ``--lstm-rows``, and the shapes it times them at: the paths' (LAYER_SHAPES),
-# the slot state's step (B 64) and the test set through ``evaluate``
-# (B 552)
-LSTM_ROWS = (1, 2, 4, 8)
-LSTM_ROWS_SHAPES = LAYER_SHAPES + [(1, 64, 1, 64, 64), (1, 552, 20, 5, 64),
-                                   (1, 552, 20, 64, 64)]
+# what the LSTM layer kernel's weight staging costs (``--lstm-ablation``):
+# copies of lstm_layer.cu, as text substitutions, each of which must apply
+# exactly once
+LSTM_ABLATIONS = {
+    # every shape reads its weights from device memory, as a layer whose
+    # weights do not fit shared memory does: the same loop, the same bits
+    "weights in device memory": [
+        ("  return smem_floats(I, H, true) * sizeof(float) <= "
+         "(size_t)kMaxSmem;", "  return false;")],
+    # the weights' shared memory is read but never filled: the staging
+    # taken out (wrong results by design: timed, never checked)
+    "no weight staging": [("  if (resident) {", "  if (resident && T < 0) {")],
+    # staged for a window, read from device memory for a single step
+    "device memory at T = 1": [
+        ("  const bool resident = weights_fit(I, H);",
+         "  const bool resident = weights_fit(I, H) && T > 1;")],
+}
+# the paths' shapes (LAYER_SHAPES) and a session step's (B 8 and B 64)
+LSTM_ABLATION_SHAPES = LAYER_SHAPES + [(1, 8, 1, 5, 64), (1, 8, 1, 64, 64),
+                                       (1, 64, 1, 64, 64)]
 
 
-def lstm_rows(card: str) -> None:
-    """``--lstm-rows``: the LSTM layer kernel's device time at each of
-    ``LSTM_ROWS`` batch rows per block, at ``LSTM_ROWS_SHAPES``. Each is a
-    copy of ``lstm_layer.cu`` with its ROWS constant set, built from the
-    checkout and called through a binding of its own, outside the
-    package; each copy's outputs must equal the kernel's bit for bit (a
-    row's bits do not depend on ROWS); timed with ``graph_ms`` in turns
-    (the kernel, the copies, then the same reversed). Prints one line per
-    shape and a JSON object of every time (us)."""
+def lstm_ablation(card: str) -> None:
+    """``--lstm-ablation``: the LSTM layer kernel's device time beside
+    each ablation's (``LSTM_ABLATIONS``) at ``LSTM_ABLATION_SHAPES``. Each
+    library is built from the checkout and called through a binding of its
+    own, outside the package; the copies that keep the loop (all but "no
+    weight staging") must give the kernel's bits. Timed with ``graph_ms``
+    in turns (the kernel, the ablations, then the same reversed). Prints
+    one line per shape and a JSON object of every time (us)."""
     import ctypes
-    import re
 
     from repro_torch.kernels.lstm import kernel as lstm_kernel
 
-    text = lstm_kernel.SOURCES[-1].read_text()
-    found = re.findall(r"constexpr int ROWS = (\d+);", text)
-    check(len(found) == 1, f"lstm_layer.cu: no single ROWS constant {found}")
-    rows = int(found[0])
-    variants = {f"rows {r}": [(f"constexpr int ROWS = {rows};",
-                               f"constexpr int ROWS = {r};")]
-                for r in LSTM_ROWS if r != rows}
     P, I = ctypes.c_void_p, ctypes.c_int
-    fns = ablation_entries("lstm_layer", lstm_kernel.SOURCES, variants,
+    fns = ablation_entries("lstm_layer", lstm_kernel.SOURCES, LSTM_ABLATIONS,
                            "lstm_layer_forward", [P] * 10 + [I] * 5 + [P])
-    names = {"kernel": f"rows {rows}", **{n: n for n in variants}}
 
     def launch(fn, args, outs):
         W, B, T, I_, H = args[0].shape + (args[1].shape[-1],)
         rc = fn(*(t.data_ptr() for t in args + outs), None, W, B, T, I_, H,
                 torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"LSTM rows launch failed: {rc}")
+        check(rc == 0, f"LSTM ablation launch failed: {rc}")
 
     order = list(fns) + list(fns)[::-1]
     times: dict = {}
-    for shape in LSTM_ROWS_SHAPES:
+    for shape in LSTM_ABLATION_SHAPES:
         W, B, T, I_, H = shape
         args = layer_inputs(*shape, seed=5)
-        outs = {n: (torch.empty(W, B, T, H, device="cuda"),
-                    torch.empty(W, B, H, device="cuda"),
-                    torch.empty(W, B, H, device="cuda")) for n in fns}
+        outs = {n: tuple(torch.empty(W, B, *dims, device="cuda")
+                         for dims in ((T, H), (H,), (H,))) for n in fns}
         for n, fn in fns.items():
             launch(fn, args, outs[n])
         torch.cuda.synchronize()
         for n in fns:
-            check(all(torch.equal(a, b)
-                      for a, b in zip(outs[n], outs["kernel"])),
-                  f"{names[n]} changes the bits at {shape}")
-        row: dict = {names[n]: [] for n in fns}
+            check(n == "no weight staging"
+                  or all(torch.equal(a, b)
+                         for a, b in zip(outs[n], outs["kernel"])),
+                  f"{n} changes the bits at {shape}")
+        row: dict = {n: [] for n in fns}
         for n in order:
-            row[names[n]].append(1e3 * graph_ms(
+            row[n].append(1e3 * graph_ms(
                 lambda: launch(fns[n], args, outs[n])))
         times["x".join(map(str, shape))] = row
-        print(f"[rows] {card}: lstm_layer (W, B, T, I, H) {shape}, bound "
+        print(f"[ablation] {card}: lstm_layer (W, B, T, I, H) {shape}, bound "
               f"{1e3 * layer_bound(*shape)[0]:.4f} us: " + "; ".join(
                   f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
-                  for n, ts in sorted(row.items())))
+                  for n, ts in row.items()))
     print(json.dumps({"card": card, "us": times}))
 
 
@@ -2259,7 +2260,7 @@ def main() -> None:
     probes = {"--flash-host": lambda: flash_host(tag),
               "--flash-ablation": lambda: flash_ablation(card),
               "--ssd-ablation": lambda: ssd_ablation(card),
-              "--lstm-rows": lambda: lstm_rows(card)}
+              "--lstm-ablation": lambda: lstm_ablation(card)}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "

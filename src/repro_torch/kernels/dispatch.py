@@ -112,8 +112,9 @@ def lstm_layer(xs, h0, c0, wx, wh, b):
     """The routed LSTM layer, T steps from the carry (h0, c0): xs
     [B, T, I]; h0, c0 [B, H]; or every operand with a leading worker dim
     W. Returns (hs [..., B, T, H], hT, cT). CUDA tensors run one launch
-    of the hand-written layer kernel (and raise under autograd), CPU
-    tensors the plain version (``kernels.lstm.ops.lstm_layer``)."""
+    of the hand-written layer kernel, or under autograd T cell steps (the
+    same kernel at T = 1, with the backward kernel), CPU tensors the
+    plain version (``kernels.lstm.ops.lstm_layer``)."""
     return _lstm_layer(xs, h0, c0, wx, wh, b)
 
 

@@ -51,19 +51,13 @@
 //
 // What bounds it on an H100. At the serving and training shapes (B <= 64,
 // T 20 or 1, H = 64) the bytes that must move are 70-140 KB of weights
-// per worker plus x and hs, 0.02-0.2 us at the card's 3.35 TB/s, and the
-// operations are 0.3-40 MFLOP. Latency is the bound: the steps follow
-// one another, and within a step each thread walks a chain of K
-// iterations, each one load of the row, four loads of weights with their
-// address arithmetic, and four FMAs. Measured with
-// `chip_smoke.py --lstm-rows` on an H100 80GB HBM3 at 700 W, a step takes
-// ~1.65 us at I 5 and ~2.45 us at I 64, the same at ROWS 1 and 2 (twice
-// the warps): the chain of instructions, not the SMs' throughput. ROWS 2
-// was best, or within 0.4 % of the best, at the serving and training
-// shapes; ROWS 1 was 11-17 % slower at T = 1 and 1.5-1.7x slower at
-// B 552 (the test set through evaluate), where at I 64 ROWS 8 was 10 %
-// faster than ROWS 2. The launch cost, about 2.3 us per kernel node in a
-// CUDA graph, is paid once per window instead of once per step.
+// per worker plus x and hs, and the operations 0.3-40 MFLOP: far below
+// what the card moves and computes in the kernel's time. Latency is the
+// bound: the steps follow one another, and within a step each thread
+// walks a chain of K iterations, each one load of the row, four loads of
+// weights with their address arithmetic, and four FMAs. ROWS was chosen
+// by timing copies of this kernel at each value; the times, and what the
+// weights' staging costs a launch at T = 1, are in PERF.md section 6.
 
 #include <cstdint>
 
@@ -76,8 +70,8 @@ constexpr int ROWS = 2;  // batch rows per block
 constexpr int kMaxSmem = 232448;
 // threads a block may have: a bound of 1024 held ptxas to 32 registers,
 // too few to keep the k loop's loads in flight (it spilled, and each k
-// waited out its shared-memory loads: ~2 us a step on an H100); wider
-// layers loop over their units
+// waited out its shared-memory loads; PERF.md section 6); wider layers
+// loop over their units
 constexpr int kMaxThreads = 256;
 
 __device__ __forceinline__ float sigmoidf(float v) {
@@ -271,16 +265,6 @@ cudaError_t allow_max_smem() {
 }  // namespace
 
 extern "C" {
-
-// Shared memory one launch takes at (I, H), in bytes: with the weights
-// where they fit, else without them.
-int lstm_layer_smem_bytes(int I, int H) {
-  return (int)(smem_floats(I, H, weights_fit(I, H)) * sizeof(float));
-}
-
-// 1 where a launch at (I, H) keeps the weights in shared memory, 0 where
-// it reads them from device memory.
-int lstm_layer_weights_resident(int I, int H) { return weights_fit(I, H); }
 
 // Launch T steps for W workers on `stream`. All pointers are device
 // pointers to contiguous fp32 arrays: x [W, B, T, I], h0, c0, hT, cT

@@ -42,10 +42,6 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
         fn.restype = _I
-        for query in (lib.lstm_layer_smem_bytes,
-                      lib.lstm_layer_weights_resident):
-            query.argtypes = [_I, _I]
-            query.restype = _I
     return lib
 
 
@@ -58,17 +54,6 @@ def _bwd_library() -> ctypes.CDLL:
         lib.lstm_cell_bwd_smem_bytes.argtypes = [_I]
         lib.lstm_cell_bwd_smem_bytes.restype = _I
     return lib
-
-
-def smem_bytes(in_dim: int, hidden: int) -> int:
-    """Shared memory one forward launch takes at (I, H)."""
-    return _library().lstm_layer_smem_bytes(in_dim, hidden)
-
-
-def weights_resident(in_dim: int, hidden: int) -> bool:
-    """Whether a forward launch at (I, H) keeps the weights in shared
-    memory (else it reads them from device memory)."""
-    return bool(_library().lstm_layer_weights_resident(in_dim, hidden))
 
 
 def bwd_smem_bytes(hidden: int) -> int:

@@ -8,13 +8,13 @@ tensor goes to the plain version (``ref.lstm_cell_ref``,
 autograd differentiates there. The TPU wrapper's padding of B and I to
 multiples of 8 has no counterpart: the kernels mask their own edges.
 
-``lstm_layer`` runs T time steps from a given carry in one launch of the
-layer kernel; it has no backward, so on the card it refuses an input
-that needs a gradient. ``lstm_cell`` is one step: on the card the same
-kernel at T = 1. Both take the unstacked form (x [B, I] or xs [B, T, I],
-wx [I, 4H], b [4H]: one model, as serving calls them) or the
-worker-stacked form (a leading W on every operand: W local-SGD workers
-in one launch). On the card, when autograd needs the cell's gradient, it
+``lstm_layer`` runs T time steps from a given carry: on the card in one
+launch of the layer kernel, which has no backward, so where autograd
+needs a gradient it steps ``lstm_cell`` T times instead. ``lstm_cell``
+is one step: on the card the same kernel at T = 1. Both take the
+unstacked form (x [B, I] or xs [B, T, I], wx [I, 4H], b [4H]: one
+model, as serving calls them) or the worker-stacked form (a leading W
+on every operand: W local-SGD workers in one launch). On the card, when autograd needs the cell's gradient, it
 runs as ``LSTMCellFunction``: the forward kernel saves the activated
 gates, and the backward kernel turns them and dh', dc' into dgates, dc,
 dx and dh.
@@ -79,32 +79,43 @@ def _device(args, op="lstm_cell") -> torch.device:
     return device
 
 
-def needs_grad(args) -> bool:
+def _needs_grad(args) -> bool:
     """Whether autograd wants a gradient through these operands."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in args)
+
+
+def _cell_steps(xs, h0, c0, wx, wh, b):
+    """The layer as T ``lstm_cell`` steps, each one launch at T = 1 whose
+    autograd Function has the backward kernel. xs may be strided: its
+    steps are copied out contiguous."""
+    steps = xs.movedim(-2, 0).contiguous()        # [T, ..., I], rows contiguous
+    h, c = h0, c0
+    hs = []
+    for x_t in steps:
+        h, c = lstm_cell(x_t, h, c, wx, wh, b)
+        hs.append(h)
+    return torch.stack(hs, dim=-2), h, c
 
 
 def lstm_layer(xs, h0, c0, wx, wh, b):
     """T steps from the carry (h0, c0), gates packed [i, f, g, o]:
     xs [B, T, I]; h0, c0 [B, H]; wx [I, 4H]; wh [H, 4H]; b [4H], or each
     with a leading worker dim W. Returns (hs [..., B, T, H], hT, cT
-    [..., B, H]). On the card: one launch of the layer kernel, which has
-    no backward, so an operand that needs a gradient raises."""
+    [..., B, H]). On the card: one launch of the layer kernel, or, where
+    autograd needs a gradient, T cell steps (the same kernel at T = 1)."""
     args = (xs, h0, c0, wx, wh, b)
     _check_shapes(*args, op="lstm_layer")
     on_card = _device(args, op="lstm_layer").type == "cuda"
+    if on_card and _needs_grad(args) and xs.shape[-2] > 0:
+        return _cell_steps(*args)                # each step checks its operands
     if on_card:
         _check_cuda(args, op="lstm_layer")
-        if needs_grad(args):
-            raise RuntimeError("lstm_layer on the card has no backward: run "
-                               "under torch.no_grad(), or step lstm_cell "
-                               "under autograd")
     if xs.shape[-3] == 0 or xs.shape[-2] == 0:   # no rows or no steps
         hs = xs.new_empty(tuple(xs.shape[:-1]) + (h0.shape[-1],))
         return hs, h0.clone(), c0.clone()
-    if on_card:
-        return kernel.lstm_layer_cuda(*args)
-    return lstm_layer_ref(*args)
+    if not on_card:
+        return lstm_layer_ref(*args)
+    return kernel.lstm_layer_cuda(*args)
 
 
 def lstm_cell(x, h, c, wx, wh, b):
@@ -118,7 +129,7 @@ def lstm_cell(x, h, c, wx, wh, b):
     _check_cuda(args)
     if x.shape[-2] == 0:
         return torch.empty_like(h), torch.empty_like(c)
-    if needs_grad(args):
+    if _needs_grad(args):
         if x.dim() == 3:
             return LSTMCellFunction.apply(*args)
         h_new, c_new = LSTMCellFunction.apply(*(t.unsqueeze(0)

@@ -7,11 +7,10 @@ Functional over a params dict with the JAX package's keys
 one to one (``repro_torch.checkpoint.convert``). A layer over a window
 (``lstm_layer_apply``, the JAX package's ``lax.scan``) is one
 ``repro_torch.kernels.dispatch.lstm_layer`` call: on the card one launch
-of the hand-written CUDA layer kernel, with the time loop inside it; on
-the CPU the plain version. Only on the card under autograd, which the
-layer kernel has no backward for, does it step
-``dispatch.lstm_cell`` once per time step, through the cell's autograd
-Function. A streaming step (``rnn_step``) is one ``lstm_cell`` per
+of the hand-written CUDA layer kernel, with the time loop inside it (or,
+under autograd, which that kernel has no backward for, one cell step per
+time step through the cell's autograd Function); on the CPU the plain
+version. A streaming step (``rnn_step``) is one ``lstm_cell`` per
 layer: on the card the same kernel at T = 1.
 
 Training (``rnn_features``, ``rnn_head``, ``rnn_apply``) also takes
@@ -30,7 +29,6 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.lstm.ops import needs_grad
 from repro_torch.models.layers import dense_init
 
 PyTree = Any
@@ -100,17 +98,8 @@ def lstm_layer_apply(p, xs, h0=None, c0=None):
         h0 = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
     if c0 is None:
         c0 = torch.zeros(lead + (H,), dtype=xs.dtype, device=xs.device)
-    args = (xs, h0, c0, p["wx"], p["wh"], p["b"])
-    if not (xs.is_cuda and needs_grad(args)):
-        hs, hT, cT = dispatch.lstm_layer(*args)
-        return hs, (hT, cT)
-    steps = xs.movedim(-2, 0).contiguous()        # [T, ..., I], rows contiguous
-    h, c = h0, c0
-    hs = []
-    for t in range(steps.shape[0]):
-        h, c = lstm_cell(p, steps[t], h, c)
-        hs.append(h)
-    return torch.stack(hs, dim=-2), (h, c)
+    hs, hT, cT = dispatch.lstm_layer(xs, h0, c0, p["wx"], p["wh"], p["b"])
+    return hs, (hT, cT)
 
 
 def rnn_features(params: PyTree, x):

@@ -339,8 +339,8 @@ def test_cuda_layer_is_the_same_on_every_run():
 @pytest.mark.cuda
 def test_cuda_layer_raises_instead_of_falling_back():
     """A launch CUDA refuses (W = 65536 blocks on the grid's second
-    dim, one more than it takes), a wrong dtype, a non-contiguous input
-    and an input that needs a gradient each raise, and count no launch."""
+    dim, one more than it takes), a wrong dtype and a non-contiguous
+    input each raise, and count no launch."""
     _card()
     xs, h0, c0, wx, wh, b = _layer_inputs(1, 4, 3, 5, 16)
     big = [torch.zeros((65536,) + tuple(t.shape[1:]), device="cuda")
@@ -353,25 +353,107 @@ def test_cuda_layer_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="contiguous"):
         lstm_layer(xs.transpose(1, 2).contiguous().transpose(1, 2), h0, c0,
                    wx, wh, b)
-    with pytest.raises(RuntimeError, match="no backward"):
-        lstm_layer(xs, h0, c0, wx.clone().requires_grad_(True), wh, b)
     assert lstm_kernel.LAUNCHES.total == before
-    with torch.no_grad():
-        lstm_layer(xs, h0, c0, wx.clone().requires_grad_(True), wh, b)
-    assert lstm_kernel.LAUNCHES.total == before + 1
 
 
 @pytest.mark.cuda
-def test_cuda_layer_keeps_the_models_weights_resident():
-    """The paper's layers (I 5 and 64, H 64) keep wx | wh in shared
-    memory; the sweep's H 128 at I 16 does not fit and reads them from
-    device memory, in the same kernel."""
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
+@pytest.mark.parametrize("workers", [1, 4])
+def test_cuda_layer_under_autograd_steps_the_cell(workers, strided):
+    """Where autograd needs a gradient the layer runs T cell steps, each
+    a launch at T = 1 with the backward kernel behind it, from xs as the
+    model gives it (a training batch may be a strided view): its outputs
+    equal one no-grad launch bitwise, and its gradients equal those of
+    the same steps taken through ``lstm_cell`` by hand, bitwise."""
     _card()
-    assert lstm_kernel.weights_resident(5, 64)
-    assert lstm_kernel.weights_resident(64, 64)
-    assert not lstm_kernel.weights_resident(16, 128)
-    assert lstm_kernel.smem_bytes(64, 64) > 131072 > lstm_kernel.smem_bytes(
-        16, 128)
+    T = 5
+    args = _layer_inputs(workers, 8, T, 5, 16)
+    if workers == 1:
+        args = tuple(a[0] for a in args)
+    with torch.no_grad():
+        want = lstm_layer(*args)
+    t1 = [a.clone().requires_grad_(True) for a in args]
+    xs = t1[0]
+    if strided:
+        xs = xs.transpose(-1, -2).contiguous().transpose(-1, -2)
+        assert not xs.is_contiguous()
+    fwd, bwd = lstm_kernel.LAUNCHES.total, lstm_kernel.BWD_LAUNCHES.total
+    keys = dict(lstm_kernel.LAUNCHES.by_shape)
+    got = lstm_layer(xs, *t1[1:])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    key = (workers, 8, 1, 5, 16)
+    assert lstm_kernel.LAUNCHES.total == fwd + T
+    assert lstm_kernel.LAUNCHES.by_shape[key] == keys.get(key, 0) + T
+    g1 = torch.autograd.grad(got[0].sum() + got[2].sum(), t1)
+    assert lstm_kernel.BWD_LAUNCHES.total == bwd + T
+    t2 = [a.clone().requires_grad_(True) for a in args]
+    xs, h, c = t2[:3]
+    steps = xs.movedim(-2, 0).contiguous()
+    hs = []
+    for x_t in steps:
+        h, c = lstm_cell(x_t, h, c, *t2[3:])
+        hs.append(h)
+    g2 = torch.autograd.grad(torch.stack(hs, dim=-2).sum() + c.sum(), t2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+# one launch of the layer kernel per (I, H) given on the command line,
+# under the profiler; prints each launch's shared memory from the trace
+_SMEM_PROBE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.lstm.ops import lstm_layer
+
+shapes, trace = json.loads(sys.argv[1]), sys.argv[2]
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for I, H in shapes:
+        lstm_layer(torch.zeros(4, 2, I, device="cuda"),
+                   *(torch.zeros(4, H, device="cuda") for _ in range(2)),
+                   torch.zeros(I, 4 * H, device="cuda"),
+                   torch.zeros(H, 4 * H, device="cuda"),
+                   torch.zeros(4 * H, device="cuda"))
+    torch.cuda.synchronize()
+prof.export_chrome_trace(trace)
+with open(trace) as f:
+    events = json.load(f)["traceEvents"]
+launches = sorted((e for e in events if e.get("cat") == "kernel"
+                   and "lstm_layer_kernel" in e.get("name", "")),
+                  key=lambda e: e["ts"])
+print(json.dumps([e["args"]["shared memory"] for e in launches]))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_layer_keeps_the_models_weights_resident(tmp_path):
+    """The paper's layers (I 5 and 64, H 64) launch with more shared
+    memory than wx | wh take, K x 4H x 4 bytes: the weights are resident;
+    the sweep's H 128 at I 16 does not fit and launches with less,
+    reading them from device memory in the same kernel. Read from each
+    launch's shared memory in a profiler trace, taken in a process of
+    its own: a profile taken in the test process left a later test's
+    profile there without device events."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _card()
+    shapes = [(5, 64), (64, 64), (16, 128)]
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [src, os.environ.get("PYTHONPATH")]))}
+    run = subprocess.run([sys.executable, "-c", _SMEM_PROBE,
+                          json.dumps(shapes), str(tmp_path / "trace.json")],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    smem = json.loads(run.stdout.splitlines()[-1])
+    weights = [(I + H) * 4 * H * 4 for I, H in shapes]
+    assert len(smem) == 3
+    assert smem[0] > weights[0] and smem[1] > weights[1]
+    assert smem[2] < weights[2]
 
 
 # (W, B, I, H) the training path gives the cell: W in {1, 4} workers,
