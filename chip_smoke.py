@@ -14,8 +14,9 @@ and SSD libraries' SASS that their bf16 kernels issue wgmma (HGMMA) and
 TMA loads (UTMALDG), and holds each kernel against its plain PyTorch
 version on the card: the LSTM layer's forward (T steps in one launch,
 from a zero or a given carry, with the local-SGD worker dim; a step is
-the same launch at T = 1) and the cell's backward, the EVL loss's
-forward and backward, flash attention
+the same launch at T = 1) and its backward (the same T steps in reverse
+in one launch; a T-step launch bit for bit T chained launches at
+T = 1), the EVL loss's forward and backward, flash attention
 (the JAX kernel tests' sweep and masks, and head dim 80; fp32 on the
 CUDA-core kernel, bf16 on the tensor-core one) and the Mamba2 SSD chunk
 scan (the JAX sweep, the reduced config's and the serving path's
@@ -86,26 +87,29 @@ FC_RTOL, FC_ATOL = 1e-4, 1e-5   # card vs CPU over the whole model
 # first ~20 iterations and, per leaf, to one step's gradient relative to
 # the leaf's largest entry.
 TRAIN_RTOL = 1e-4
-# The weight gradients dwx = x^T dgates, dwh = h^T dgates and
-# db = sum_B dgates sum B products whose signs differ, and the kernel's
-# dgates differ from autograd's in the last bits (another order of the
-# same multiplications). Where the sum cancels, its error is relative to
-# the sum of the terms' magnitudes, not to the result, so these three
-# are held to |kernel - plain| <= ATOL + RTOL * (|x|^T |dgates|) (and
-# likewise for h and the bias) instead of RTOL * |result|.
+# The weight gradients dwx = x^T dgates, dwh = h_prev^T dgates and
+# db = sum dgates sum B x T products whose signs differ (one product over
+# the window, where autograd of the plain layer sums one per step), and
+# the kernel's dgates differ from autograd's in the last bits. Where the
+# sum cancels, its error is relative to the sum of the terms' magnitudes,
+# not to the result, so these three are held to |kernel - plain| <=
+# ATOL + RTOL * (|x|^T |dgates|) (and likewise for h_prev and the bias)
+# instead of RTOL * |result|.
 # (W, B, I, H) of a single step (the layer kernel at T = 1) on the serving
 # path: one model (W = 1); the decode lane (B = 8), the slot state (64),
 # the request batch (max_batch = 32); I = 5 for layer 1 and 64 for layer 2
 PATH_SHAPES = [(1, 8, 5, 64), (1, 8, 64, 64), (1, 32, 5, 64),
                (1, 32, 64, 64), (1, 64, 64, 64)]
-# (W, B, I, H) the training path gives the cell and its backward: the
-# serial baseline (W = 1) and 4 local-SGD workers, batch 32
+# (W, B, I, H) the training path gives the layer and its backward: the
+# serial baseline (W = 1) and 4 local-SGD workers, batch 32, over a
+# window of WINDOW steps (T = 1: the cell under autograd)
 TRAIN_SHAPES = [(W, 32, I, 64) for W in (1, 4) for I in (5, 64)]
+WINDOW = 20
 # (W, B, T, I, H) of the layer kernel: a predict flush (B 32, T 20), a
-# replay at the decode width (B 8), a training step under autograd
-# (W 1 and 4, T 1), each at layer 1 (I 5) and layer 2 (I 64)
+# replay at the decode width (B 8), a training step (W 1 and 4, T 20),
+# each at layer 1 (I 5) and layer 2 (I 64)
 LAYER_SHAPES = ([(1, B, 20, I, 64) for B in (32, 8) for I in (5, 64)]
-                + [(W, 32, 1, I, 64) for W in (1, 4) for I in (5, 64)])
+                + [(W, 32, WINDOW, I, 64) for W in (1, 4) for I in (5, 64)])
 # the odd (B, I, H) of the JAX package's kernel sweep
 ODD_SHAPES = [(1, 5, 64), (13, 5, 64), (32, 7, 32), (8, 16, 128),
               (3, 9, 24), (7, 3, 40), (1, 1, 8), (9, 11, 48), (5, 5, 16)]
@@ -221,7 +225,7 @@ def card_line() -> str:
 
 
 # the kernels of the paper LSTM's paths (a training step launches each)
-PAPER_KERNELS = ("lstm_layer", "lstm_cell_bwd", "evl_forward",
+PAPER_KERNELS = ("lstm_layer", "lstm_layer_bwd", "evl_forward",
                  "evl_backward")
 
 
@@ -233,7 +237,7 @@ def counters():
     from repro_torch.kernels.ssd import kernel as ssd_kernel
 
     return {"lstm_layer": lstm_kernel.LAUNCHES,
-            "lstm_cell_bwd": lstm_kernel.BWD_LAUNCHES,
+            "lstm_layer_bwd": lstm_kernel.LAYER_BWD_LAUNCHES,
             "evl_forward": evl_kernel.EVL_LAUNCHES,
             "evl_backward": evl_kernel.EVL_BWD_LAUNCHES,
             "flash_attention": attn_kernel.FLASH_LAUNCHES,
@@ -326,15 +330,17 @@ def layer_bound(W, B, T, I, H):
     return bound(nbytes, ops)
 
 
-def cell_bwd_bound(W, B, I, H, need_dx: bool):
-    """The backward kernel: reads dh', dc', c, c', the gates and wh,
-    writes dgates, dc and dh (fp32); about 25 operations per (row, unit)
-    for dgates and dc, and the product dgates wh^T. With ``need_dx`` it
-    also reads wx, writes dx and does dgates wx^T; without (the first
-    layer, whose input is data) it touches none of these."""
-    nbytes = 4 * W * (4 * B * H + B * 4 * H + H * 4 * H + B * 4 * H
-                      + 2 * B * H + (I * 4 * H + B * I if need_dx else 0))
-    ops = W * (25 * B * H + 2 * B * 4 * H * (H + (I if need_dx else 0)))
+def layer_bwd_bound(W, B, T, I, H, need_dx: bool):
+    """The backward kernel over T steps: reads dhs, the gates, c_t, c0,
+    dhT, dcT and wh once, writes dgates, dh0 and dc0 (fp32); about 25
+    operations per (row, step, unit) for dgates and dc, and the product
+    dgates wh^T per step. With ``need_dx`` it also reads wx, writes dxs
+    and does dgates wx^T; without (the first layer, whose input is data)
+    it touches none of these."""
+    nbytes = 4 * W * (B * T * H + B * T * 4 * H + B * T * H + 3 * B * H
+                      + H * 4 * H + B * T * 4 * H + 2 * B * H
+                      + (I * 4 * H + B * T * I if need_dx else 0))
+    ops = W * T * (25 * B * H + 2 * B * 4 * H * (H + (I if need_dx else 0)))
     return bound(nbytes, ops)
 
 
@@ -579,63 +585,140 @@ def check_forward() -> float:
     return max_err
 
 
+def layer_cotangents(W, B, T, H, seed=0):
+    """(dhs, dhT, dcT) on the card from a seeded generator."""
+    g = torch.Generator().manual_seed(seed * 31 + W * 7 + B + T + H)
+    return tuple(torch.randn(*shape, generator=g).cuda()
+                 for shape in ((W, B, T, H), (W, B, H), (W, B, H)))
+
+
+def weight_grad_scales(xs, h0, hs, dgates):
+    """|x|^T |dgates|, |h_prev|^T |dgates| and the sum of |dgates| over
+    the window's B x T rows (see TRAIN_RTOL)."""
+    W, B, T, G = dgates.shape
+    rows = dgates.abs().reshape(W, B * T, G)
+    h_prev = torch.cat([h0.unsqueeze(2), hs[:, :, :-1]], dim=2).abs()
+    return {"wx": torch.bmm(xs.abs().reshape(W, B * T, -1).transpose(1, 2),
+                            rows),
+            "wh": torch.bmm(h_prev.reshape(W, B * T, -1).transpose(1, 2),
+                            rows),
+            "b": rows.sum(dim=1)}
+
+
 def check_backward() -> float:
-    """Phase 2b: the cell's gradient on the card (the autograd Function:
-    forward kernel saving the gates, backward kernel, weight gradients by
-    bmm) against torch autograd through the plain cell, for all six
-    operands; and the backward kernel against the plain version of its
-    own function. Returns the largest |kernel - plain| of the latter."""
+    """Phase 2b: the layer backward kernel against the plain version of
+    its own function (dgates, dxs, dh0, dc0) at the training shapes at
+    T 1 and 20 and the JAX sweep at T 20 (H 128 at I 16 reads its weights
+    from device memory), from the forward kernel's saved gates and c,
+    which are held against the plain forward and change no bit of hs,
+    hT, cT; the layer's gradient on the card (the autograd Function: one
+    forward launch, one backward launch, the weight gradients by bmm)
+    against torch autograd through the plain layer, for all six
+    operands; and a T = 20 backward launch bit for bit 20 chained
+    launches at T = 1. Returns the largest |kernel - plain| of the
+    kernel against its plain version."""
     from repro_torch.kernels.lstm import kernel
-    from repro_torch.kernels.lstm.ops import lstm_cell
-    from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
-                                              lstm_cell_fwd_ref,
-                                              lstm_cell_ref)
+    from repro_torch.kernels.lstm.ops import lstm_layer
+    from repro_torch.kernels.lstm.ref import (lstm_layer_bwd_ref,
+                                              lstm_layer_fwd_ref,
+                                              lstm_layer_ref)
 
     max_err = 0.0
     worst = {}
-    for W, B, I, H in TRAIN_SHAPES + [(1,) + s for s in ODD_SHAPES]:
-        args = cell_inputs(W, B, I, H, seed=3)
-        g = torch.Generator().manual_seed(W * 31 + B + I + H)
-        dh, dc = (torch.randn(W, B, H, generator=g).cuda() for _ in range(2))
+    shapes = ([(W, B, T, I, H) for T in (1, WINDOW)
+               for W, B, I, H in TRAIN_SHAPES]
+              + [(1, B, WINDOW, I, H) for B, I, H in ODD_SHAPES])
+    for W, B, T, I, H in shapes:
+        args = layer_inputs(W, B, T, I, H, seed=3)
+        xs, h0, c0, wx, wh, b = args
+        saved = kernel.lstm_layer_cuda(*args, save_gates=True)
+        plain = lstm_layer_fwd_ref(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b_) for a, b_ in
+                  zip(saved[:3], kernel.lstm_layer_cuda(*args))),
+              f"saving the gates and c changed the forward's bits at "
+              f"W={W} B={B} T={T} I={I} H={H}")
+        check(all(torch.allclose(a, b_, rtol=RTOL, atol=ATOL)
+                  for a, b_ in zip(saved, plain)),
+              f"the forward's saved gates or c disagree with the plain "
+              f"version at W={W} B={B} T={T} I={I} H={H}")
+        _, _, _, gates, cs = saved
+        dhs, dhT, dcT = layer_cotangents(W, B, T, H, seed=T)
+        for need_dx in (True, False):
+            got = kernel.lstm_layer_bwd_cuda(dhs, dhT, dcT, gates, cs, c0,
+                                             wx, wh, need_dx=need_dx)
+            want = lstm_layer_bwd_ref(dhs, dhT, dcT, gates, cs, c0, wx, wh,
+                                      need_dx=need_dx)
+            torch.cuda.synchronize()
+            check((got[1] is None) == (not need_dx),
+                  "the backward wrote dxs where it was not asked to")
+            for name, a, b_ in zip(("dgates", "dxs", "dh0", "dc0"), got,
+                                   want):
+                if a is None:
+                    continue
+                err = float((a - b_).abs().max())
+                max_err = max(max_err, err)
+                check(torch.allclose(a, b_, rtol=RTOL, atol=ATOL),
+                      f"lstm_layer backward kernel: {name} disagrees with "
+                      f"the plain version at W={W} B={B} T={T} I={I} H={H}"
+                      f": max err {err}")
         t1 = [a.clone().requires_grad_(True) for a in args]
         t2 = [a.clone().requires_grad_(True) for a in args]
-        g1 = torch.autograd.grad(lstm_cell(*t1), t1, (dh, dc))
-        g2 = torch.autograd.grad(lstm_cell_ref(*t2), t2, (dh, dc))
-        _, c_new, gates = lstm_cell_fwd_ref(*args)
-        x, h, c, wx, wh, _ = args
-        got = kernel.lstm_cell_bwd_cuda(dh, dc, gates, c, c_new, wx, wh)
-        want = lstm_cell_bwd_ref(dh, dc, gates, c, c_new, wx, wh)
-        mag = want[0].abs()                     # |dgates|, [W, B, 4H]
-        scale = {"wx": torch.bmm(x.abs().transpose(1, 2), mag),
-                 "wh": torch.bmm(h.abs().transpose(1, 2), mag),
-                 "b": mag.sum(dim=1)}
+        n_bwd = kernel.LAYER_BWD_LAUNCHES.total
+        hs1, _, cT1 = lstm_layer(*t1)
+        g1 = torch.autograd.grad((hs1, cT1), t1, (dhs, dcT))
+        hs2, _, cT2 = lstm_layer_ref(*t2)
+        g2 = torch.autograd.grad((hs2, cT2), t2, (dhs, dcT))
         torch.cuda.synchronize()
-        for name, a, b in zip(("dgates", "dc", "dx", "dh"), got, want):
-            err = float((a - b).abs().max())
-            max_err = max(max_err, err)
-            check(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
-                  f"lstm_cell backward kernel: {name} disagrees with the "
-                  f"plain version at W={W} B={B} I={I} H={H}: max err {err}")
+        check(kernel.LAYER_BWD_LAUNCHES.total == n_bwd + 1,
+              "the layer's gradient on the card was not one backward "
+              "launch")
+        dgates = lstm_layer_bwd_ref(dhs, None, dcT, gates, cs, c0, wx,
+                                    wh)[0]
+        scale = weight_grad_scales(xs, h0, saved[0], dgates)
         errs = []
-        for name, a, b in zip(("x", "h", "c", "wx", "wh", "b"), g1, g2):
-            err = float((a - b).abs().max())
+        for name, a, b_ in zip(("x", "h", "c", "wx", "wh", "b"), g1, g2):
+            err = float((a - b_).abs().max())
             errs.append(f"d{name} {err:.2e}")
             worst[name] = max(worst.get(name, 0.0), err)
             if name in scale:
-                ok = bool(((a - b).abs()
+                ok = bool(((a - b_).abs()
                            <= ATOL + RTOL * scale[name]).all())
             else:
-                ok = torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+                ok = torch.allclose(a, b_, rtol=RTOL, atol=ATOL)
             check(ok,
-                  f"lstm_cell gradient d{name} on the card disagrees with "
-                  f"autograd of the plain cell at W={W} B={B} I={I} H={H}: "
-                  f"max err {err}")
-        print(f"[check] lstm_cell backward W={W} B={B} I={I} H={H}: vs "
-              f"autograd of the plain cell {', '.join(errs)} (rtol {RTOL}, "
-              f"atol {ATOL}; dwx, dwh, db against the terms' magnitudes) "
-              f"ok")
-    print(f"[check] lstm_cell backward: largest |kernel - plain| over "
-          f"dgates, dc, dx, dh {max_err:.3e}; largest gradient error by "
+                  f"lstm_layer gradient d{name} on the card disagrees with "
+                  f"autograd of the plain layer at W={W} B={B} T={T} I={I} "
+                  f"H={H}: max err {err}")
+        print(f"[check] lstm_layer backward W={W} B={B} T={T} I={I} H={H}: "
+              f"vs autograd of the plain layer {', '.join(errs)} (rtol "
+              f"{RTOL}, atol {ATOL}; dwx, dwh, db against the terms' "
+              f"magnitudes) ok")
+    for I in (5, 64):
+        args = layer_inputs(4, 32, WINDOW, I, 64, seed=6)
+        _, _, _, gates, cs = kernel.lstm_layer_cuda(*args, save_gates=True)
+        c0, wx, wh = args[2], args[3], args[4]
+        dhs, dhT, dcT = layer_cotangents(4, 32, WINDOW, 64, seed=1)
+        dgates, dxs, dh0, dc0 = kernel.lstm_layer_bwd_cuda(
+            dhs, dhT, dcT, gates, cs, c0, wx, wh)
+        dh, dc = dhT, dcT
+        for t in reversed(range(WINDOW)):
+            c_prev = c0 if t == 0 else cs[:, :, t - 1].contiguous()
+            dg, dx, dh, dc = kernel.lstm_layer_bwd_cuda(
+                dhs[:, :, t:t + 1].contiguous(), dh, dc,
+                gates[:, :, t:t + 1].contiguous(),
+                cs[:, :, t:t + 1].contiguous(), c_prev, wx, wh)
+            check(torch.equal(dg[:, :, 0], dgates[:, :, t])
+                  and torch.equal(dx[:, :, 0], dxs[:, :, t]),
+                  f"step {t} of a T={WINDOW} backward launch differs from "
+                  f"{WINDOW - t} chained T=1 launches (I={I})")
+        check(torch.equal(dh, dh0) and torch.equal(dc, dc0),
+              f"(dh0, dc0) of a T={WINDOW} backward launch differ from "
+              f"{WINDOW} chained T=1 launches (I={I})")
+    print(f"[check] lstm_layer backward: step t of a T={WINDOW} launch == "
+          f"{WINDOW} - t chained T=1 launches (dgates, dxs, dh0, dc0), "
+          f"bitwise, W=4, I=5 and I=64; largest |kernel - plain| over "
+          f"dgates, dxs, dh0, dc0 {max_err:.3e}; largest gradient error by "
           f"operand {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}")
     return max_err
 
@@ -980,8 +1063,17 @@ def train_main_path(data, tag: str):
             check(hist[-k:].mean() < hist[:k].mean(),
                   f"{name}: the loss did not fall ({hist[:k].mean():.5f} -> "
                   f"{hist[-k:].mean():.5f})")
-            check(all(n > 0 for n in launched.values()),
-                  f"{name}: not every kernel launched: {launched}")
+            steps = res.iterations // kw.get("n_workers", 1)
+            # each local step: the layer forward and backward once per
+            # layer at T = window, the EVL forward and backward once;
+            # then evaluate's forward, once per layer
+            n_layers = len(res.params["lstm"])
+            want = {"lstm_layer": n_layers * (steps + 1),
+                    "lstm_layer_bwd": n_layers * steps,
+                    "evl_forward": steps, "evl_backward": steps}
+            check(launched == want,
+                  f"{name}: launches {launched}, not {want}: not "
+                  f"{2 * n_layers + 2} per local step")
             cpu = fn(train_ds, test_ds, iterations=n_cmp, device="cpu",
                      **kw, **common)
             n = len(cpu.loss_history)
@@ -996,7 +1088,6 @@ def train_main_path(data, tag: str):
             check(dmse <= FC_RTOL,
                   f"{name}: test MSE on the card {res.test_mse} vs the CPU's "
                   f"plain path on the same weights {mse_cpu}: {dmse:.3e}")
-            steps = res.iterations // kw.get("n_workers", 1)
             print(f"[train] {tag}: {name}: {res.iterations} iterations in "
                   f"{wall:.3f} s = {wall / res.iterations * 1e3 * 1e3:.1f} ms "
                   f"per 1000 iterations, {res.iterations / wall:.1f} "
@@ -1010,8 +1101,8 @@ def train_main_path(data, tag: str):
                   f"max relative drift {drift:.3e} (bound {TRAIN_RTOL}); "
                   f"test MSE vs the CPU on the same weights {dmse:.3e} "
                   f"relative (bound {FC_RTOL}); "
-                  f"launches {launched} = "
-                  f"{sum(launched.values()) / steps:.1f} per local step")
+                  f"launches {launched} = {2 * n_layers + 2} per local "
+                  f"step + {n_layers} for evaluate")
         launches = read_counters()
     check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
     print(f"[train] kernel launches on the training path by shape: "
@@ -1053,9 +1144,9 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
     from repro_torch.kernels.evl.ops import evl_loss
     from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
     from repro_torch.kernels.lstm import kernel as lstm_kernel
-    from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer
-    from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
-                                              lstm_cell_fwd_ref,
+    from repro_torch.kernels.lstm.ops import (layer_grads, lstm_cell,
+                                              lstm_layer)
+    from repro_torch.kernels.lstm.ref import (lstm_layer_bwd_ref,
                                               lstm_layer_ref)
 
     rows = {name: {} for name in PAPER_KERNELS}
@@ -1071,6 +1162,7 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
               f"path's shape {shape}: max err {err}")
 
     lib_err = 0.0                  # largest |torch.lstm - plain|
+    lib_bwd_err = 0.0              # the same of its gradients
     fwd_shapes = (set(LAYER_SHAPES) | {(1, 1, 1, 1, 8)}
                   | set(serve_launches["lstm_layer"])
                   | set(train_launches["lstm_layer"]))
@@ -1123,65 +1215,100 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
             "library_ms": graph_ms(library),
             "eager_ms": eager_ms(wrapper),
             "bound_ms": bnd, "bound_by": by}
-    bwd_shapes = set(TRAIN_SHAPES) | set(train_launches["lstm_cell_bwd"])
-    for W, B, I, H in sorted(bwd_shapes):
-        args = cell_inputs(W, B, I, H, seed=4)
-        x, h, c, wx, wh, b = args
-        _, c_new, gates = lstm_cell_fwd_ref(*args)
-        g = torch.Generator().manual_seed(5)
-        dh, dc = (torch.randn(W, B, H, generator=g).cuda() for _ in range(2))
+    bwd_shapes = ({(W, B, WINDOW, I, H) for W, B, I, H in TRAIN_SHAPES}
+                  | set(train_launches["lstm_layer_bwd"]))
+    for W, B, T, I, H in sorted(bwd_shapes):
+        args = layer_inputs(W, B, T, I, H, seed=4)
+        xs, h0, c0, wx, wh, b = args
+        hs, _, _, gates, cs = lstm_kernel.lstm_layer_cuda(*args,
+                                                          save_gates=True)
+        dhs, dhT, dcT = layer_cotangents(W, B, T, H, seed=4)
         need_dx = I != 5          # the first layer's input is data
+        need = (need_dx, False, False, True, True, True)
 
         def kernel_bwd():
-            return lstm_kernel.lstm_cell_bwd_cuda(dh, dc, gates, c, c_new,
-                                                  wx, wh, need_dx=need_dx)
+            return lstm_kernel.lstm_layer_bwd_cuda(
+                dhs, dhT, dcT, gates, cs, c0, wx, wh, need_dx=need_dx)
 
-        want = lstm_cell_bwd_ref(dh, dc, gates, c, c_new, wx, wh)
-        got = kernel_bwd()
-        hold("lstm_cell_bwd", (W, B, I, H),
+        def plain_bwd():
+            return lstm_layer_bwd_ref(dhs, dhT, dcT, gates, cs, c0, wx, wh,
+                                      need_dx=need_dx)
+
+        got, want = kernel_bwd(), plain_bwd()
+        hold("lstm_layer_bwd", (W, B, T, I, H),
              [t for t in got if t is not None],
-             [t for t, k in zip(want, got) if k is not None], RTOL, ATOL)
+             [t for t in want if t is not None], RTOL, ATOL)
 
-        def full_bwd():           # the kernel plus the weight gradients
-            dgates = kernel_bwd()[0]
-            return (torch.bmm(x.transpose(1, 2), dgates),
-                    torch.bmm(h.transpose(1, 2), dgates), dgates.sum(1))
+        def fwd_bwd():            # the kernels plus the weight gradients
+            out = lstm_kernel.lstm_layer_cuda(*args, save_gates=True)
+            return layer_grads((xs, h0, c0, wx, wh, out[0], out[3],
+                                out[4]), dhs, dhT, dcT, need,
+                               lstm_kernel.lstm_layer_bwd_cuda)
 
-        # torch.lstm_cell with autograd, per worker. Against the kernel:
-        # the gradients of (h, c), and of x where the path needs dx, so
-        # the same outputs as the kernel (dgates, dc, dh, dx); against
-        # the kernel plus the weight gradients: also wx, wh and b
+        # torch.lstm (cuDNN) forward and backward over the same window,
+        # one nn.LSTM per worker (weights as in the forward's yardstick):
+        # the gradients of (hs, hT, cT) for h0, c0 and, where the path
+        # needs dx, x; with the weight gradients, also wx, wh and b
+        lstms = []
+        for w in range(W):
+            m = torch.nn.LSTM(I, H, batch_first=True).cuda()
+            with torch.no_grad():
+                m.weight_ih_l0.copy_(wx[w].t())
+                m.weight_hh_l0.copy_(wh[w].t())
+                m.bias_ih_l0.copy_(b[w])
+                m.bias_hh_l0.zero_()
+            m.flatten_parameters()
+            lstms.append(m)
         leaves = [t.clone().requires_grad_(need or need_dx)
-                  for need, t in ((False, x), (True, h), (True, c))]
-        wx_t = [wx[w].t().contiguous().requires_grad_(True)
-                for w in range(W)]
-        wh_t = [wh[w].t().contiguous().requires_grad_(True)
-                for w in range(W)]
-        bb = [b[w].clone().requires_grad_(True) for w in range(W)]
-        zero = torch.zeros_like(b[0])
+                  for need, t in ((False, xs), (True, h0), (True, c0))]
+        weights = [p for m in lstms for p in m.parameters()]
         wrt = leaves if need_dx else leaves[1:]
 
         def library_fwd():
-            return [torch.lstm_cell(leaves[0][w], (leaves[1][w],
-                                                   leaves[2][w]),
-                                    wx_t[w], wh_t[w], bb[w], zero)
-                    for w in range(W)]
+            return [m(leaves[0][w], (leaves[1][w][None],
+                                     leaves[2][w][None]))
+                    for w, m in enumerate(lstms)]
 
         def library_fwd_bwd(inputs):
             outs = library_fwd()
-            torch.autograd.grad([t for hc in outs for t in hc], inputs,
-                                [t for w in range(W) for t in (dh[w], dc[w])])
+            return torch.autograd.grad(
+                [t for hl, (hT, cT) in outs for t in (hl, hT, cT)], inputs,
+                [t for w in range(W) for t in (dhs[w], dhT[w][None],
+                                               dcT[w][None])])
 
-        bnd, by = cell_bwd_bound(W, B, I, H, need_dx)
+        lib = library_fwd_bwd(wrt + weights)
+        t2 = [a.clone().requires_grad_(True) for a in args]
+        hs2, hT2, cT2 = lstm_layer_ref(*t2)
+        ref = torch.autograd.grad((hs2, hT2, cT2), t2, (dhs, dhT, dcT))
+        lib_in = dict(zip(("x", "h", "c") if need_dx else ("h", "c"),
+                          lib[:len(wrt)]))
+        lib_w = lib[len(wrt):]
+        # per worker: weight_ih, weight_hh, bias_ih, bias_hh of nn.LSTM
+        lib_in["wx"] = torch.stack([lib_w[4 * w].t() for w in range(W)])
+        lib_in["wh"] = torch.stack([lib_w[4 * w + 1].t() for w in range(W)])
+        lib_in["b"] = torch.stack([lib_w[4 * w + 2] for w in range(W)])
+        scale = weight_grad_scales(xs, h0, hs, got[0])
+        for name, r in zip(("x", "h", "c", "wx", "wh", "b"), ref):
+            if name not in lib_in:
+                continue
+            a = lib_in[name].reshape(r.shape)
+            err = float((a - r).abs().max())
+            lib_bwd_err = max(lib_bwd_err, err)
+            ok = (bool(((a - r).abs() <= FC_ATOL + FC_RTOL * scale[name])
+                       .all()) if name in scale
+                  else torch.allclose(a, r, rtol=FC_RTOL, atol=FC_ATOL))
+            check(ok, f"torch.lstm's backward is not the same function at "
+                      f"{W, B, T, I, H}: d{name} max |torch.lstm - plain| "
+                      f"{err:.3e}")
+        bnd, by = layer_bwd_bound(W, B, T, I, H, need_dx)
         lib_fwd = graph_ms(lambda: library_fwd())
-        rows["lstm_cell_bwd"][(W, B, I, H)] = {
+        rows["lstm_layer_bwd"][(W, B, T, I, H)] = {
             "ms": graph_ms(kernel_bwd),
-            "plain_ms": graph_ms(lambda: lstm_cell_bwd_ref(
-                dh, dc, gates, c, c_new, wx, wh)),
+            "plain_ms": graph_ms(plain_bwd),
             "library_ms": graph_ms(lambda: library_fwd_bwd(wrt)) - lib_fwd,
-            "with_weight_grads_ms": graph_ms(full_bwd),
-            "library_with_weight_grads_ms": graph_ms(
-                lambda: library_fwd_bwd(wrt + wx_t + wh_t + bb)) - lib_fwd,
+            "fwd_bwd_ms": graph_ms(fwd_bwd),
+            "library_fwd_bwd_ms": graph_ms(
+                lambda: library_fwd_bwd(wrt + weights)),
             "eager_ms": eager_ms(kernel_bwd),
             "bound_ms": bnd, "bound_by": by}
     betas = (0.93, 0.07, 2.0)
@@ -1212,8 +1339,9 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                 "library_ms": None, "eager_ms": eager_ms(efn),
                 "bound_ms": bnd, "bound_by": by}
     print(f"[check] {tag}: torch.lstm (cuDNN) against the plain layer at "
-          f"every timed shape: max |torch.lstm - plain| {lib_err:.3e} "
-          f"(rtol {FC_RTOL}, atol {FC_ATOL})")
+          f"every timed shape: max |torch.lstm - plain| {lib_err:.3e}, of "
+          f"its gradients {lib_bwd_err:.3e} (rtol {FC_RTOL}, atol "
+          f"{FC_ATOL}; dwx, dwh, db against the terms' magnitudes)")
     floor = rows["lstm_layer"][(1, 1, 1, 1, 8)]
     print(f"[time] {tag}: launch floor (layer kernel at W=1 B=1 T=1 I=1 "
           f"H=8): "
@@ -1225,16 +1353,17 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
             every[k][s] = every[k].get(s, 0) + n
     for name, by_shape in rows.items():
         for shape, r in by_shape.items():
-            extra = (f", with the weight gradients (2 bmm + sum) "
-                     f"{r['with_weight_grads_ms'] * 1e3:.2f} us against "
-                     f"the library's "
-                     f"{r['library_with_weight_grads_ms'] * 1e3:.2f} us"
-                     if "with_weight_grads_ms" in r else "")
+            extra = (f", the forward kernel + the backward kernel + the "
+                     f"weight gradients (2 bmm + sum) "
+                     f"{r['fwd_bwd_ms'] * 1e3:.2f} us against torch.lstm's "
+                     f"forward + backward "
+                     f"{r['library_fwd_bwd_ms'] * 1e3:.2f} us"
+                     if "fwd_bwd_ms" in r else "")
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms'] * 1e3:.2f} us")
             print(f"[time] {tag}: {name} {shape}: kernel "
                   f"{r['ms'] * 1e3:.2f} us (eager "
-                  f"{'binding' if name == 'lstm_cell_bwd' else 'wrapper'} "
+                  f"{'binding' if name == 'lstm_layer_bwd' else 'wrapper'} "
                   f"call "
                   f"{r['eager_ms'] * 1e3:.2f} us){extra}, plain "
                   f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
@@ -2136,12 +2265,12 @@ def lstm_ablation(card: str) -> None:
 
     P, I = ctypes.c_void_p, ctypes.c_int
     fns = ablation_entries("lstm_layer", lstm_kernel.SOURCES, LSTM_ABLATIONS,
-                           "lstm_layer_forward", [P] * 10 + [I] * 5 + [P])
+                           "lstm_layer_forward", [P] * 11 + [I] * 5 + [P])
 
     def launch(fn, args, outs):
         W, B, T, I_, H = args[0].shape + (args[1].shape[-1],)
-        rc = fn(*(t.data_ptr() for t in args + outs), None, W, B, T, I_, H,
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn(*(t.data_ptr() for t in args + outs), None, None, W, B, T,
+                I_, H, torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"LSTM ablation launch failed: {rc}")
 
     order = list(fns) + list(fns)[::-1]
@@ -2209,8 +2338,9 @@ def profile_zoo(fc, kernel: str, symbol: str, tag: str,
 
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
-    each shape on the main paths. The backward's line adds the kernel
-    plus the weight gradients beside torch autograd with them."""
+    each shape on the main paths. The backward's line adds the forward
+    and backward kernels plus the weight gradients beside torch.lstm's
+    forward and backward."""
     n = sum(launches.values())
 
     def weighted(key):
@@ -2225,7 +2355,7 @@ def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
         "bound_ms": weighted("bound_ms"),
         "bound_by": rows[max(launches, key=launches.get)]["bound_by"],
         "library_ms": weighted("library_ms")}
-    for key in ("with_weight_grads_ms", "library_with_weight_grads_ms"):
+    for key in ("fwd_bwd_ms", "library_fwd_bwd_ms"):
         if all(key in rows[s] for s in launches):
             entry[key] = weighted(key)
     entry["shapes"] = {"x".join(map(str, s)): k for s, k in launches.items()}
@@ -2273,7 +2403,8 @@ def main() -> None:
     timed("flash SASS", check_flash_sass)
     timed("SSD SASS", check_ssd_sass)
     errs = {"lstm_layer": timed("check lstm_layer", check_forward),
-            "lstm_cell_bwd": timed("check lstm_cell_bwd", check_backward)}
+            "lstm_layer_bwd": timed("check lstm_layer_bwd",
+                                    check_backward)}
     errs["evl_forward"], errs["evl_backward"] = timed("check evl", check_evl)
     errs["flash_attention"] = timed("check flash_attention", check_flash)
     errs["ssd_scan"] = timed("check ssd_scan", check_ssd)
@@ -2322,8 +2453,8 @@ def main() -> None:
     meta = {
         "lstm_layer": (csrc.format("lstm", "lstm_layer.cu"),
                        "src/repro/kernels/lstm/kernel.py:21"),
-        "lstm_cell_bwd": (csrc.format("lstm", "lstm_cell_bwd.cu"),
-                          "src/repro/kernels/lstm/kernel.py:21"),
+        "lstm_layer_bwd": (csrc.format("lstm", "lstm_layer_bwd.cu"),
+                           "src/repro/kernels/lstm/kernel.py:21"),
         "evl_forward": (csrc.format("evl", "evl.cu"),
                         "src/repro/kernels/evl/kernel.py:20"),
         "evl_backward": (csrc.format("evl", "evl.cu"),

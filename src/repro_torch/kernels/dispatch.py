@@ -12,7 +12,8 @@ at (batch, hidden) under ``(device type, op, impl, shape)``, and only
 while a ``counting()`` collector is installed. ``impl`` is ``"cuda"``
 for the kernel route and ``"torch"`` for the plain one. Kernel launches
 themselves are counted by each kernel's binding
-(``repro_torch.kernels.lstm.kernel.LAUNCHES`` and ``BWD_LAUNCHES``,
+(``repro_torch.kernels.lstm.kernel.LAUNCHES`` and
+``LAYER_BWD_LAUNCHES``,
 ``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` and
 ``EVL_BWD_LAUNCHES``, ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``,
 ``repro_torch.kernels.ssd.kernel.SSD_LAUNCHES``).
@@ -103,8 +104,8 @@ def lstm_cell(x, h, c, wx, wh, b):
     """The routed LSTM cell: x [B, I]; h, c [B, H]; gates packed
     [i, f, g, o]; or every operand with a leading worker dim W. CUDA
     tensors run the hand-written kernels (the layer kernel at T = 1, and
-    the backward under autograd), CPU tensors the plain version
-    (``kernels.lstm.ops.lstm_cell``)."""
+    the layer backward kernel at T = 1 under autograd), CPU tensors the
+    plain version (``kernels.lstm.ops.lstm_cell``)."""
     return _lstm_cell(x, h, c, wx, wh, b)
 
 
@@ -112,9 +113,9 @@ def lstm_layer(xs, h0, c0, wx, wh, b):
     """The routed LSTM layer, T steps from the carry (h0, c0): xs
     [B, T, I]; h0, c0 [B, H]; or every operand with a leading worker dim
     W. Returns (hs [..., B, T, H], hT, cT). CUDA tensors run one launch
-    of the hand-written layer kernel, or under autograd T cell steps (the
-    same kernel at T = 1, with the backward kernel), CPU tensors the
-    plain version (``kernels.lstm.ops.lstm_layer``)."""
+    of the hand-written layer kernel, and under autograd one launch of
+    the layer backward kernel behind it, CPU tensors the plain version
+    (``kernels.lstm.ops.lstm_layer``)."""
     return _lstm_layer(xs, h0, c0, wx, wh, b)
 
 

@@ -15,12 +15,12 @@
 // operand: x [W,B,T,I], h0 and c0 [W,B,H], wx [W,I,4H], wh [W,H,4H],
 // b [W,4H]; hs [W,B,T,H], hT and cT [W,B,H]. It is the JAX package's
 // jax.vmap over local-SGD workers (repro/core/async_local_sgd.py) as
-// blockIdx.y; serving calls it at W = 1. A no-grad forward runs a whole
-// window in one launch; one step of a session, and every step of
-// training under autograd, is the same launch at T = 1. Optional
-// outputs: hs (null: not written, the cell needs hT only) and the
-// activated gates [W,B,T,4H] for the backward kernel (lstm_cell_bwd.cu;
-// null: not saved).
+// blockIdx.y; serving calls it at W = 1. A window runs in one launch,
+// served or trained; one step of a session is the same launch at T = 1.
+// Optional outputs: hs (null: not written, the cell needs hT only), and
+// the activated gates [W,B,T,4H] and every step's c [W,B,T,H] for the
+// backward kernel (lstm_layer_bwd.cu; null: not saved). Storing c changes
+// no bit of the forward.
 //
 // Design. One block per (worker, tile of ROWS batch rows). It holds all
 // H units of its rows, so h_t never leaves the block: each step reads
@@ -171,7 +171,8 @@ __device__ __forceinline__ float cell(const float* v, const float* wxr,
 __device__ __forceinline__ void steps(
     const float* x, float* vs, const float* wxr, const float* whr,
     const float* bs, float* cs, float* hs, float* hT, float* cT,
-    float* gates, size_t wid, int r, bool live, int B, int T, int I, int H) {
+    float* gates, float* csave, size_t wid, int r, bool live, int B, int T,
+    int I, int H) {
   const int K = I + H;
   const int G = 4 * H;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -190,6 +191,7 @@ __device__ __forceinline__ void steps(
         cs[ty * H + j] = c;
         vn[I + j] = h;
         if (hs != nullptr) hs[rt * H + j] = h;
+        if (csave != nullptr) csave[rt * H + j] = c;
         if (t == T - 1) {
           hT[(wid * B + r) * H + j] = h;
           cT[(wid * B + r) * H + j] = c;
@@ -206,8 +208,9 @@ lstm_layer_kernel(const float* __restrict__ x, const float* __restrict__ h0,
                   const float* __restrict__ c0, const float* __restrict__ wx,
                   const float* __restrict__ wh, const float* __restrict__ b,
                   float* __restrict__ hs, float* __restrict__ hT,
-                  float* __restrict__ cT, float* __restrict__ gates, int B,
-                  int T, int I, int H, int resident) {
+                  float* __restrict__ cT, float* __restrict__ gates,
+                  float* __restrict__ csave, int B, int T, int I, int H,
+                  int resident) {
   extern __shared__ __align__(16) float smem[];
   const int K = I + H;
   const int G = 4 * H;
@@ -249,11 +252,11 @@ lstm_layer_kernel(const float* __restrict__ x, const float* __restrict__ h0,
   // fit, in device memory: inlined once for each, so that the first reads
   // shared memory with its own loads
   if (resident)
-    steps(x, vs, ws, ws + (size_t)I * G, bs, cs, hs, hT, cT, gates, wid, r,
-          live, B, T, I, H);
+    steps(x, vs, ws, ws + (size_t)I * G, bs, cs, hs, hT, cT, gates, csave,
+          wid, r, live, B, T, I, H);
   else
-    steps(x, vs, wx, wh, bs, cs, hs, hT, cT, gates, wid, r, live, B, T, I,
-          H);
+    steps(x, vs, wx, wh, bs, cs, hs, hT, cT, gates, csave, wid, r, live, B,
+          T, I, H);
 }
 
 cudaError_t allow_max_smem() {
@@ -269,12 +272,14 @@ extern "C" {
 // Launch T steps for W workers on `stream`. All pointers are device
 // pointers to contiguous fp32 arrays: x [W, B, T, I], h0, c0, hT, cT
 // [W, B, H], wx [W, I, 4H], wh [W, H, 4H], b [W, 4H]; hs [W, B, T, H] or
-// null (not written); gates [W, B, T, 4H] or null (not saved). Returns
-// the first CUDA error (0 = launched); nothing is synchronised.
+// null (not written); gates [W, B, T, 4H] and cs [W, B, T, H] (each
+// step's c) or null (not saved). Returns the first CUDA error
+// (0 = launched); nothing is synchronised.
 int lstm_layer_forward(const float* x, const float* h0, const float* c0,
                        const float* wx, const float* wh, const float* b,
-                       float* hs, float* hT, float* cT, float* gates, int W,
-                       int B, int T, int I, int H, void* stream) {
+                       float* hs, float* hT, float* cT, float* gates,
+                       float* cs, int W, int B, int T, int I, int H,
+                       void* stream) {
   // opt in to more than 48 KB of shared memory once per process
   static const cudaError_t opt_in = allow_max_smem();
   if (opt_in != cudaSuccess) return (int)opt_in;
@@ -286,7 +291,7 @@ int lstm_layer_forward(const float* x, const float* h0, const float* c0,
                    ROWS);
   const dim3 grid((B + ROWS - 1) / ROWS, W);
   lstm_layer_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      x, h0, c0, wx, wh, b, hs, hT, cT, gates, B, T, I, H, resident);
+      x, h0, c0, wx, wh, b, hs, hT, cT, gates, cs, B, T, I, H, resident);
   return (int)cudaGetLastError();
 }
 

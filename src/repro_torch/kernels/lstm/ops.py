@@ -9,18 +9,18 @@ autograd differentiates there. The TPU wrapper's padding of B and I to
 multiples of 8 has no counterpart: the kernels mask their own edges.
 
 ``lstm_layer`` runs T time steps from a given carry: on the card in one
-launch of the layer kernel, which has no backward, so where autograd
-needs a gradient it steps ``lstm_cell`` T times instead. ``lstm_cell``
-is one step: on the card the same kernel at T = 1. Both take the
+launch of the layer kernel, and where autograd needs a gradient as
+``LSTMLayerFunction``, whose forward is that launch saving the activated
+gates and each step's c, and whose backward is one launch of the layer
+backward kernel over the same T steps. ``lstm_cell`` is one step: on
+the card the same kernel, or the same Function, at T = 1. Both take the
 unstacked form (x [B, I] or xs [B, T, I], wx [I, 4H], b [4H]: one
 model, as serving calls them) or the worker-stacked form (a leading W
-on every operand: W local-SGD workers in one launch). On the card, when autograd needs the cell's gradient, it
-runs as ``LSTMCellFunction``: the forward kernel saves the activated
-gates, and the backward kernel turns them and dh', dc' into dgates, dc,
-dx and dh.
-The weight gradients x^T dgates, h^T dgates and sum_B dgates reduce over
-the batch, as XLA's autodiff does outside the TPU kernel, so they stay
-``torch.bmm`` / ``sum`` here.
+on every operand: W local-SGD workers in one launch).
+The weight gradients x^T dgates, h_prev^T dgates and the sum of dgates
+reduce over the batch and the window, as XLA's autodiff does outside the
+TPU kernel, so they stay one ``torch.bmm`` / ``sum`` each per window here
+(``layer_grads``).
 """
 
 from __future__ import annotations
@@ -84,30 +84,21 @@ def _needs_grad(args) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in args)
 
 
-def _cell_steps(xs, h0, c0, wx, wh, b):
-    """The layer as T ``lstm_cell`` steps, each one launch at T = 1 whose
-    autograd Function has the backward kernel. xs may be strided: its
-    steps are copied out contiguous."""
-    steps = xs.movedim(-2, 0).contiguous()        # [T, ..., I], rows contiguous
-    h, c = h0, c0
-    hs = []
-    for x_t in steps:
-        h, c = lstm_cell(x_t, h, c, wx, wh, b)
-        hs.append(h)
-    return torch.stack(hs, dim=-2), h, c
-
-
 def lstm_layer(xs, h0, c0, wx, wh, b):
     """T steps from the carry (h0, c0), gates packed [i, f, g, o]:
     xs [B, T, I]; h0, c0 [B, H]; wx [I, 4H]; wh [H, 4H]; b [4H], or each
     with a leading worker dim W. Returns (hs [..., B, T, H], hT, cT
-    [..., B, H]). On the card: one launch of the layer kernel, or, where
-    autograd needs a gradient, T cell steps (the same kernel at T = 1)."""
+    [..., B, H]). On the card: one launch of the layer kernel, and where
+    autograd needs a gradient one launch of the backward kernel behind
+    it (``LSTMLayerFunction``)."""
     args = (xs, h0, c0, wx, wh, b)
     _check_shapes(*args, op="lstm_layer")
     on_card = _device(args, op="lstm_layer").type == "cuda"
-    if on_card and _needs_grad(args) and xs.shape[-2] > 0:
-        return _cell_steps(*args)                # each step checks its operands
+    grad = _needs_grad(args)
+    if on_card and grad:
+        # a training batch may be a strided view: the Function launches
+        # on, and saves, a contiguous copy that autograd differentiates
+        args = (xs.contiguous(),) + args[1:]
     if on_card:
         _check_cuda(args, op="lstm_layer")
     if xs.shape[-3] == 0 or xs.shape[-2] == 0:   # no rows or no steps
@@ -115,13 +106,16 @@ def lstm_layer(xs, h0, c0, wx, wh, b):
         return hs, h0.clone(), c0.clone()
     if not on_card:
         return lstm_layer_ref(*args)
+    if grad:
+        return _layer_function(*args)
     return kernel.lstm_layer_cuda(*args)
 
 
 def lstm_cell(x, h, c, wx, wh, b):
     """One step, gates packed [i, f, g, o]: x [B, I]; h, c [B, H];
     wx [I, 4H]; wh [H, 4H]; b [4H], or each with a leading worker dim W.
-    Returns (h', c'). On the card: the layer kernel at T = 1."""
+    Returns (h', c'). On the card: the layer kernel at T = 1, under
+    autograd as ``LSTMLayerFunction`` at T = 1."""
     args = (x, h, c, wx, wh, b)
     _check_shapes(*args)
     if _device(args).type == "cpu":
@@ -130,46 +124,72 @@ def lstm_cell(x, h, c, wx, wh, b):
     if x.shape[-2] == 0:
         return torch.empty_like(h), torch.empty_like(c)
     if _needs_grad(args):
-        if x.dim() == 3:
-            return LSTMCellFunction.apply(*args)
-        h_new, c_new = LSTMCellFunction.apply(*(t.unsqueeze(0)
-                                                for t in args))
-        return h_new[0], c_new[0]
+        _, h_new, c_new = _layer_function(x.unsqueeze(-2), h, c, wx, wh, b)
+        return h_new, c_new
     _, h_new, c_new = kernel.lstm_layer_cuda(x.unsqueeze(-2), h, c, wx, wh,
                                              b, write_hs=False)
     return h_new, c_new
 
 
-def weight_grads(x, h, dgates, need):
-    """The weight gradients from the backward kernel's dgates: x^T dgates,
-    h^T dgates and sum_B dgates, each where ``need`` (wx, wh, b) asks
-    for it, else None."""
-    return (torch.bmm(x.transpose(1, 2), dgates) if need[0] else None,
-            torch.bmm(h.transpose(1, 2), dgates) if need[1] else None,
-            dgates.sum(dim=1) if need[2] else None)
+def _layer_function(xs, h0, c0, wx, wh, b):
+    """``LSTMLayerFunction`` on checked operands, stacked or not."""
+    if xs.dim() == 4:
+        return LSTMLayerFunction.apply(xs, h0, c0, wx, wh, b)
+    hs, hT, cT = LSTMLayerFunction.apply(*(t.unsqueeze(0) for t in
+                                           (xs, h0, c0, wx, wh, b)))
+    return hs[0], hT[0], cT[0]
 
 
-class LSTMCellFunction(torch.autograd.Function):
-    """The worker-stacked cell (all operands with a leading W, on the
-    card) as an autograd Function: the forward is the layer kernel at
-    T = 1, saving the gates, and the backward its kernel.
-    Inputs must already be checked (``lstm_cell`` does)."""
+def _dense(t):
+    return None if t is None else t.contiguous()
+
+
+def layer_grads(saved, dhs, dhT, dcT, need, backward):
+    """The gradients of the worker-stacked layer's six inputs (xs, h0,
+    c0, wx, wh, b), each None where ``need`` (autograd's
+    ``needs_input_grad``) does not ask for it. ``saved`` is what the
+    forward keeps: (xs, h0, c0, wx, wh, hs, gates, cs); dhs, dhT and dcT
+    are the outputs' cotangents, None where autograd gave none.
+    ``backward`` computes (dgates, dxs, dh0, dc0) from (dhs, dhT, dcT,
+    gates, cs, c0, wx, wh, need_dx): the kernel's binding on the card,
+    ``ref.lstm_layer_bwd_ref`` in the CPU tests. The weight gradients are
+    one product each over the B x T rows of the window: x^T dgates,
+    h_prev^T dgates with h_prev = [h0, hs[..., :-1, :]], and the sum of
+    dgates."""
+    xs, h0, c0, wx, wh, hs, gates, cs = saved
+    dgates, dxs, dh0, dc0 = backward(_dense(dhs), _dense(dhT), _dense(dcT),
+                                     gates, cs, c0, wx, wh,
+                                     need_dx=need[0])
+    W, B, T, G = dgates.shape
+    rows = dgates.reshape(W, B * T, G)
+    dwx = dwh = db = None
+    if need[3]:
+        dwx = torch.bmm(xs.reshape(W, B * T, -1).transpose(1, 2), rows)
+    if need[4]:
+        h_prev = torch.cat([h0.unsqueeze(2), hs[:, :, :-1]], dim=2)
+        dwh = torch.bmm(h_prev.reshape(W, B * T, -1).transpose(1, 2), rows)
+    if need[5]:
+        db = rows.sum(dim=1)
+    return (dxs if need[0] else None, dh0 if need[1] else None,
+            dc0 if need[2] else None, dwx, dwh, db)
+
+
+class LSTMLayerFunction(torch.autograd.Function):
+    """The worker-stacked layer (all operands with a leading W, on the
+    card, checked and contiguous) as an autograd Function: the forward
+    is one launch of the layer kernel over the window, saving the gates
+    and each step's c; the backward one launch of the backward kernel,
+    then the weight gradients (``layer_grads``)."""
 
     @staticmethod
-    def forward(ctx, x, h, c, wx, wh, b):
-        _, h_new, c_new, gates = kernel.lstm_layer_cuda(
-            x.unsqueeze(-2), h, c, wx, wh, b, save_gates=True,
-            write_hs=False)
-        ctx.save_for_backward(x, h, c, wx, wh, gates.squeeze(-2), c_new)
-        return h_new, c_new
+    def forward(ctx, xs, h0, c0, wx, wh, b):
+        hs, hT, cT, gates, cs = kernel.lstm_layer_cuda(
+            xs, h0, c0, wx, wh, b, save_gates=True)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xs, h0, c0, wx, wh, hs, gates, cs)
+        return hs, hT, cT
 
     @staticmethod
-    def backward(ctx, dh_new, dc_new):
-        x, h, c, wx, wh, gates, c_new = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        dgates, dc, dx, dh = kernel.lstm_cell_bwd_cuda(
-            dh_new.contiguous(), dc_new.contiguous(), gates, c, c_new, wx,
-            wh, need_dx=need[0])
-        return ((dx if need[0] else None, dh if need[1] else None,
-                 dc if need[2] else None) + weight_grads(x, h, dgates,
-                                                         need[3:]))
+    def backward(ctx, dhs, dhT, dcT):
+        return layer_grads(ctx.saved_tensors, dhs, dhT, dcT,
+                           ctx.needs_input_grad, kernel.lstm_layer_bwd_cuda)

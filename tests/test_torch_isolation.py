@@ -66,7 +66,7 @@ def test_port_package_is_complete():
     assert {"configs/mamba2_370m.py", "models/ssm.py", "kernels/ssd/ref.py",
             "kernels/ssd/kernel.py", "kernels/ssd/ops.py"} <= names
     for src in ("kernels/lstm/csrc/lstm_layer.cu",
-                "kernels/lstm/csrc/lstm_cell_bwd.cu",
+                "kernels/lstm/csrc/lstm_layer_bwd.cu",
                 "kernels/evl/csrc/evl.cu",
                 "kernels/attention/csrc/flash_attention.cu",
                 "kernels/ssd/csrc/ssd_scan.cu"):

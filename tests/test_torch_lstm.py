@@ -1,13 +1,13 @@
 """The port's LSTM cell against the JAX package's: the plain PyTorch
 version (what a CPU tensor runs) vs the Pallas kernel in interpret mode
 and vs its jnp oracle, over the JAX kernel tests' shape sweep; its
-gradient vs ``jax.grad``; the worker-stacked form; the autograd
-Function's backward; the device route and launch counter of the
-wrapper; and, on a card, the hand-written CUDA kernels vs the plain
-versions and their autograd: the layer kernel (``lstm_layer.cu``) over
-T steps from a zero or a given carry and as the cell at T = 1, its bits
-(a T-step launch == T chained launches at T = 1; rows independent of B
-and W; the same on every run), and the cell's backward.
+gradient vs ``jax.grad``; the worker-stacked form; the device route and
+launch counter of the wrapper; and, on a card, the layer kernel
+(``lstm_layer.cu``) vs the plain version over T steps from a zero or a
+given carry and as the cell at T = 1, and its bits (a T-step launch ==
+T chained launches at T = 1; rows independent of B and W; the same on
+every run). The backward, the cell's at T = 1 included, is in
+``tests/test_torch_lstm_layer_bwd.py``.
 
 The JAX package is imported inside the parity test only, so that the
 ``cuda`` tests also run on a machine with a card and no jax:
@@ -19,10 +19,8 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lstm import kernel as lstm_kernel
-from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer, weight_grads
-from repro_torch.kernels.lstm.ref import (lstm_cell_bwd_ref,
-                                          lstm_cell_fwd_ref, lstm_cell_ref,
-                                          lstm_layer_ref)
+from repro_torch.kernels.lstm.ops import lstm_cell, lstm_layer
+from repro_torch.kernels.lstm.ref import lstm_cell_ref, lstm_layer_ref
 
 RTOL, ATOL = 1e-5, 1e-6      # tests/test_kernels.py's LSTM tolerance
 
@@ -96,47 +94,6 @@ def test_plain_cell_gradient_matches_jax_grad(batch, in_dim, hidden):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w).reshape(g.shape),
                                    rtol=RTOL, atol=ATOL)
-
-
-@pytest.mark.parametrize("workers,batch,in_dim,hidden",
-                         [(1, 8, 5, 16), (2, 5, 5, 16), (3, 4, 16, 8)])
-def test_function_backward_matches_autograd_of_plain_cell(workers, batch,
-                                                          in_dim, hidden):
-    """LSTMCellFunction's backward: dgates, dc, dx, dh from the backward
-    kernel's function (its plain version here; the kernel is held
-    against it on the card), then the weight gradients by
-    ``ops.weight_grads``, equals torch autograd through the plain cell
-    for all six operands."""
-    arrays = _stacked(workers, batch, in_dim, hidden)
-    dh, dc = (torch.from_numpy(a)
-              for a in _cotangents((workers, batch, hidden)))
-    x, h, c, wx, wh, b = (torch.from_numpy(a) for a in arrays)
-    _, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
-    dgates, dc_prev, dx, dh_prev = lstm_cell_bwd_ref(dh, dc, gates, c, c_new,
-                                                     wx, wh)
-    g1 = (dx, dh_prev, dc_prev) + weight_grads(x, h, dgates,
-                                               (True, True, True))
-    t2 = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
-    g2 = torch.autograd.grad(lstm_cell_ref(*t2), t2, (dh, dc))
-    for name, a, b in zip(("x", "h", "c", "wx", "wh", "b"), g1, g2):
-        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
-                                   msg=f"d{name}")
-    assert weight_grads(x, h, dgates, (False, True, False))[::2] == (None,
-                                                                     None)
-
-
-def test_bwd_ref_is_the_gradient_of_the_cell():
-    x, h, c, wx, wh, b = (torch.from_numpy(a) for a in _inputs(6, 5, 16))
-    h_new, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
-    dh, dc = (torch.from_numpy(a) for a in _cotangents((6, 16)))
-    dgates, dc_prev, dx, dh_prev = lstm_cell_bwd_ref(dh, dc, gates, c, c_new,
-                                                     wx, wh)
-    ts = [t.clone().requires_grad_(True) for t in (x, h, c)]
-    hr, cr = lstm_cell_ref(*ts, wx, wh, b)
-    want = torch.autograd.grad((hr, cr), ts, (dh, dc))
-    for got, w in zip((dx, dh_prev, dc_prev), want):
-        torch.testing.assert_close(got, w, rtol=RTOL, atol=ATOL)
-    assert dgates.shape == (6, 64)
 
 
 def test_stacked_cell_rows_equal_unstacked_cells():
@@ -241,11 +198,12 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
 
 # (W, B, T, I, H) of the layer kernel: the sweep over a window, and the
 # paths' own: a predict flush (B 32, T 20), a replay at the decode width
-# (B 8), and a training step under autograd (W 4, T 1); layer 1 (I 5) and
-# layer 2 (I 64)
+# (B 8), a training step (W 4, T 20) and the cell under autograd (W 4,
+# T 1); layer 1 (I 5) and layer 2 (I 64)
 LAYER_SHAPES = ([(1, B, 20, I, H) for B, I, H in SHAPES]
-                + [(1, 32, 20, 5, 64), (1, 32, 20, 64, 64), (4, 32, 1, 5, 64),
-                   (4, 32, 1, 64, 64), (1, 8, 20, 5, 64)])
+                + [(1, 32, 20, 5, 64), (1, 32, 20, 64, 64), (4, 32, 20, 5, 64),
+                   (4, 32, 20, 64, 64), (4, 32, 1, 5, 64), (4, 32, 1, 64, 64),
+                   (1, 8, 20, 5, 64)])
 
 
 def _layer_inputs(W, B, T, I, H, carry=True, seed=11):
@@ -356,47 +314,6 @@ def test_cuda_layer_raises_instead_of_falling_back():
     assert lstm_kernel.LAUNCHES.total == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
-@pytest.mark.parametrize("workers", [1, 4])
-def test_cuda_layer_under_autograd_steps_the_cell(workers, strided):
-    """Where autograd needs a gradient the layer runs T cell steps, each
-    a launch at T = 1 with the backward kernel behind it, from xs as the
-    model gives it (a training batch may be a strided view): its outputs
-    equal one no-grad launch bitwise, and its gradients equal those of
-    the same steps taken through ``lstm_cell`` by hand, bitwise."""
-    _card()
-    T = 5
-    args = _layer_inputs(workers, 8, T, 5, 16)
-    if workers == 1:
-        args = tuple(a[0] for a in args)
-    with torch.no_grad():
-        want = lstm_layer(*args)
-    t1 = [a.clone().requires_grad_(True) for a in args]
-    xs = t1[0]
-    if strided:
-        xs = xs.transpose(-1, -2).contiguous().transpose(-1, -2)
-        assert not xs.is_contiguous()
-    fwd, bwd = lstm_kernel.LAUNCHES.total, lstm_kernel.BWD_LAUNCHES.total
-    keys = dict(lstm_kernel.LAUNCHES.by_shape)
-    got = lstm_layer(xs, *t1[1:])
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    key = (workers, 8, 1, 5, 16)
-    assert lstm_kernel.LAUNCHES.total == fwd + T
-    assert lstm_kernel.LAUNCHES.by_shape[key] == keys.get(key, 0) + T
-    g1 = torch.autograd.grad(got[0].sum() + got[2].sum(), t1)
-    assert lstm_kernel.BWD_LAUNCHES.total == bwd + T
-    t2 = [a.clone().requires_grad_(True) for a in args]
-    xs, h, c = t2[:3]
-    steps = xs.movedim(-2, 0).contiguous()
-    hs = []
-    for x_t in steps:
-        h, c = lstm_cell(x_t, h, c, *t2[3:])
-        hs.append(h)
-    g2 = torch.autograd.grad(torch.stack(hs, dim=-2).sum() + c.sum(), t2)
-    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
-
-
 # one launch of the layer kernel per (I, H) given on the command line,
 # under the profiler; prints each launch's shared memory from the trace
 _SMEM_PROBE = """
@@ -456,54 +373,6 @@ def test_cuda_layer_keeps_the_models_weights_resident(tmp_path):
     assert smem[2] < weights[2]
 
 
-# (W, B, I, H) the training path gives the cell: W in {1, 4} workers,
-# batch 32, layer 1 (I = 5) and layer 2 (I = 64), hidden 64
-TRAIN_SHAPES = [(1, 32, 5, 64), (4, 32, 5, 64), (1, 32, 64, 64),
-                (4, 32, 64, 64)]
-
-
-def _weight_grad_scales(arrays, dh, dc):
-    """|x|^T |dgates|, |h|^T |dgates| and sum_B |dgates|: the sums of the
-    magnitudes of the terms that the weight gradients add up. The kernel's
-    dgates differ from autograd's in the last bits, and where a batch sum
-    cancels its error is relative to these, not to the result."""
-    x, h, c, wx, wh, b = arrays
-    _, c_new, gates = lstm_cell_fwd_ref(x, h, c, wx, wh, b)
-    mag = lstm_cell_bwd_ref(dh, dc, gates, c, c_new, wx, wh)[0].abs()
-    return (torch.bmm(x.abs().transpose(1, 2), mag),
-            torch.bmm(h.abs().transpose(1, 2), mag), mag.sum(dim=1))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("workers,batch,in_dim,hidden",
-                         TRAIN_SHAPES + [(1,) + s for s in SHAPES])
-def test_cuda_backward_matches_autograd_of_plain_cell(workers, batch, in_dim,
-                                                      hidden):
-    """dx, dh, dc at rtol 1e-5 / atol 1e-6; dwx, dwh, db, each a sum over
-    the batch, at atol 1e-6 + 1e-5 times the sum of its terms'
-    magnitudes (``_weight_grad_scales``)."""
-    _card()
-    arrays = _stacked(workers, batch, in_dim, hidden)
-    dh, dc = (torch.from_numpy(a).cuda()
-              for a in _cotangents((workers, batch, hidden)))
-    t1 = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays]
-    t2 = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays]
-    fwd, bwd = lstm_kernel.LAUNCHES.total, lstm_kernel.BWD_LAUNCHES.total
-    h1, c1 = lstm_cell(*t1)
-    g1 = torch.autograd.grad((h1, c1), t1, (dh, dc))
-    h2, c2 = lstm_cell_ref(*t2)
-    g2 = torch.autograd.grad((h2, c2), t2, (dh, dc))
-    torch.cuda.synchronize()
-    assert lstm_kernel.LAUNCHES.total == fwd + 1
-    assert lstm_kernel.BWD_LAUNCHES.total == bwd + 1
-    for name, a, b in zip(("x", "h", "c"), g1, g2):
-        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
-                                   msg=f"d{name}")
-    scales = _weight_grad_scales([t.detach() for t in t2], dh, dc)
-    for name, a, b, s in zip(("wx", "wh", "b"), g1[3:], g2[3:], scales):
-        assert bool(((a - b).abs() <= ATOL + RTOL * s).all()), f"d{name}"
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("in_dim", [5, 64])
 def test_cuda_worker_rows_equal_single_worker_launches(in_dim):
@@ -518,19 +387,3 @@ def test_cuda_worker_rows_equal_single_worker_launches(in_dim):
         hu, cu = lstm_cell(*(a[w] for a in arrays))
         assert torch.equal(h1[0], h4[w]) and torch.equal(c1[0], c4[w])
         assert torch.equal(hu, h4[w]) and torch.equal(cu, c4[w])
-
-
-@pytest.mark.cuda
-def test_cuda_gradient_is_the_same_on_every_run():
-    _card()
-    arrays = _stacked(4, 32, 64, 64)
-    dh, dc = (torch.from_numpy(a).cuda() for a in _cotangents((4, 32, 64)))
-
-    def grads():
-        ts = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays]
-        h, c = lstm_cell(*ts)
-        return torch.autograd.grad((h, c), ts, (dh, dc))
-
-    first = grads()
-    for _ in range(3):
-        assert all(torch.equal(a, b) for a, b in zip(grads(), first))
