@@ -6,7 +6,7 @@ NVIDIA H100.
     python3 chip_smoke.py --flash-host       # flash's host cost per call
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
-    python3 chip_smoke.py --lstm-ablation    # what the LSTM weights' staging costs
+    python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -2251,14 +2251,63 @@ LSTM_ABLATION_SHAPES = LAYER_SHAPES + [(1, 8, 1, 5, 64), (1, 8, 1, 64, 64),
                                        (1, 64, 1, 64, 64)]
 
 
+# what bounds the LSTM layer backward kernel (also ``--lstm-ablation``):
+# copies of lstm_layer_bwd.cu, in the same way
+LSTM_BWD_ABLATIONS = {
+    # one batch row per block: a block reads the weights out of shared
+    # memory for one row a step, not two (the same loop, the same bits)
+    "one row a block": [("constexpr int ROWS = 2;", "constexpr int ROWS = 1;")],
+    # the products taken out: a step's elementwise part, its loads and the
+    # barrier alone (wrong results by design: timed, never checked)
+    "no products": [("        const float acc = dot_row(d, w, G);",
+                     "        const float acc = d[k % G] + w[0];")],
+}
+# the training path's shapes
+LSTM_BWD_ABLATION_SHAPES = [(W, 32, WINDOW, I, 64) for W in (1, 4)
+                            for I in (5, 64)]
+
+
+def ablation_times(card, label, fns, shapes, setup, launch, bound_us,
+                   unchecked) -> dict:
+    """Each of ``fns`` (the kernel and its ablations) at each shape:
+    ``setup(shape)`` gives (inputs, {name: outputs}), ``launch(fn, ins,
+    outs, shape)`` one launch. The copies not in ``unchecked`` must give
+    the kernel's bits. Timed with ``graph_ms`` in turns (the kernel, the
+    ablations, then the same reversed); prints one line per shape and
+    returns every time (us) by shape and name."""
+    order = list(fns) + list(fns)[::-1]
+    times: dict = {}
+    for shape in shapes:
+        ins, outs = setup(shape)
+        for n, fn in fns.items():
+            launch(fn, ins, outs[n], shape)
+        torch.cuda.synchronize()
+        for n in fns:
+            check(n in unchecked
+                  or all(a is None or torch.equal(a, b)
+                         for a, b in zip(outs[n], outs["kernel"])),
+                  f"{label}: {n} changes the bits at {shape}")
+        row: dict = {n: [] for n in fns}
+        for n in order:
+            row[n].append(1e3 * graph_ms(
+                lambda: launch(fns[n], ins, outs[n], shape)))
+        times[f"{label} " + "x".join(map(str, shape))] = row
+        print(f"[ablation] {card}: {label} (W, B, T, I, H) {shape}, bound "
+              f"{bound_us(shape):.4f} us: " + "; ".join(
+                  f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
+                  for n, ts in row.items()))
+    return times
+
+
 def lstm_ablation(card: str) -> None:
     """``--lstm-ablation``: the LSTM layer kernel's device time beside
-    each ablation's (``LSTM_ABLATIONS``) at ``LSTM_ABLATION_SHAPES``. Each
-    library is built from the checkout and called through a binding of its
-    own, outside the package; the copies that keep the loop (all but "no
-    weight staging") must give the kernel's bits. Timed with ``graph_ms``
-    in turns (the kernel, the ablations, then the same reversed). Prints
-    one line per shape and a JSON object of every time (us)."""
+    each ablation's (``LSTM_ABLATIONS``) at ``LSTM_ABLATION_SHAPES``, and
+    the backward kernel's beside its ablations' (``LSTM_BWD_ABLATIONS``)
+    at ``LSTM_BWD_ABLATION_SHAPES`` (``ablation_times``). Each library is
+    built from the checkout and called through a binding of its own,
+    outside the package; the copies that keep the loop (all but "no
+    weight staging" and "no products") must give the kernel's bits.
+    Prints one line per shape and a JSON object of every time (us)."""
     import ctypes
 
     from repro_torch.kernels.lstm import kernel as lstm_kernel
@@ -2266,37 +2315,47 @@ def lstm_ablation(card: str) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     fns = ablation_entries("lstm_layer", lstm_kernel.SOURCES, LSTM_ABLATIONS,
                            "lstm_layer_forward", [P] * 11 + [I] * 5 + [P])
+    bwd_fns = ablation_entries(
+        "lstm_layer_bwd", lstm_kernel.BWD_SOURCES, LSTM_BWD_ABLATIONS,
+        "lstm_layer_backward", [P] * 12 + [I] * 5 + [P])
 
-    def launch(fn, args, outs):
-        W, B, T, I_, H = args[0].shape + (args[1].shape[-1],)
-        rc = fn(*(t.data_ptr() for t in args + outs), None, None, W, B, T,
-                I_, H, torch.cuda.current_stream().cuda_stream)
+    def launch(fn, ins, outs, shape):
+        rc = fn(*(t.data_ptr() for t in ins + outs), None, None, *shape,
+                torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"LSTM ablation launch failed: {rc}")
 
-    order = list(fns) + list(fns)[::-1]
-    times: dict = {}
-    for shape in LSTM_ABLATION_SHAPES:
+    def setup(shape):
+        W, B, T, _, H = shape
+        return layer_inputs(*shape, seed=5), {
+            n: tuple(torch.empty(W, B, *dims, device="cuda")
+                     for dims in ((T, H), (H,), (H,))) for n in fns}
+
+    def launch_bwd(fn, ins, outs, shape):
+        rc = fn(*(None if t is None else t.data_ptr() for t in ins + outs),
+                *shape, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"LSTM backward ablation launch failed: {rc}")
+
+    def setup_bwd(shape):
         W, B, T, I_, H = shape
         args = layer_inputs(*shape, seed=5)
-        outs = {n: tuple(torch.empty(W, B, *dims, device="cuda")
-                         for dims in ((T, H), (H,), (H,))) for n in fns}
-        for n, fn in fns.items():
-            launch(fn, args, outs[n])
-        torch.cuda.synchronize()
-        for n in fns:
-            check(n == "no weight staging"
-                  or all(torch.equal(a, b)
-                         for a, b in zip(outs[n], outs["kernel"])),
-                  f"{n} changes the bits at {shape}")
-        row: dict = {n: [] for n in fns}
-        for n in order:
-            row[n].append(1e3 * graph_ms(
-                lambda: launch(fns[n], args, outs[n])))
-        times["x".join(map(str, shape))] = row
-        print(f"[ablation] {card}: lstm_layer (W, B, T, I, H) {shape}, bound "
-              f"{1e3 * layer_bound(*shape)[0]:.4f} us: " + "; ".join(
-                  f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
-                  for n, ts in row.items()))
+        _, _, _, gates, cs = lstm_kernel.lstm_layer_cuda(*args,
+                                                         save_gates=True)
+        ins = (*layer_cotangents(W, B, T, H, seed=5), gates, cs, args[2],
+               args[3], args[4])
+        return ins, {n: (torch.empty_like(gates),
+                         (torch.empty(W, B, T, I_, device="cuda")
+                          if I_ != 5 else None),      # layer 1: no dx
+                         torch.empty_like(args[2]),
+                         torch.empty_like(args[2])) for n in bwd_fns}
+
+    times = ablation_times(card, "lstm_layer", fns, LSTM_ABLATION_SHAPES,
+                           setup, launch,
+                           lambda s: 1e3 * layer_bound(*s)[0],
+                           {"no weight staging"})
+    times.update(ablation_times(
+        card, "lstm_layer_bwd", bwd_fns, LSTM_BWD_ABLATION_SHAPES, setup_bwd,
+        launch_bwd, lambda s: 1e3 * layer_bwd_bound(*s, s[3] != 5)[0],
+        {"no products"}))
     print(json.dumps({"card": card, "us": times}))
 
 

@@ -96,25 +96,19 @@ def lstm_layer_cuda(xs, h0, c0, wx, wh, b, save_gates: bool = False,
     return (hs, hT, cT, gates, cs) if save_gates else (hs, hT, cT)
 
 
-def _aligned(t):
-    """``t``, or a copy of it where its data is not 16-byte aligned (the
-    backward reads the weights 16 bytes at a time)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def lstm_layer_bwd_cuda(dhs, dhT, dcT, gates, cs, c0, wx, wh,
                         need_dx: bool = True):
     """Launch the backward on validated CUDA tensors, fp32 and contiguous
     (see ``ops``): dhs [W, B, T, H] or None; dhT, dcT [W, B, H] or None
     (no gradient there: read as 0); gates [W, B, T, 4H] and cs
-    [W, B, T, H] (saved by the forward); c0 [W, B, H]; wx [W, I, 4H];
-    wh [W, H, 4H]; T >= 1. Returns (dgates [W, B, T, 4H], dxs
+    [W, B, T, H] (saved by the forward); c0 [W, B, H]; wx [W, I, 4H] and
+    wh [W, H, 4H], 16-byte aligned (the kernel refuses others); T >= 1.
+    Returns (dgates [W, B, T, 4H], dxs
     [W, B, T, I] or None without ``need_dx``, dh0, dc0 [W, B, H]), all
     freshly allocated."""
     lib = _bwd_library()
     W, B, T, G = gates.shape
     H, I = G // 4, wx.shape[1]
-    wx, wh = _aligned(wx), _aligned(wh)
     dgates = torch.empty_like(gates)
     dxs = gates.new_empty((W, B, T, I)) if need_dx else None
     dh0 = torch.empty_like(c0)

@@ -33,21 +33,16 @@ def lstm_cell_ref(x, h, c, wx, wh, b):
 
 def lstm_layer_ref(xs, h0, c0, wx, wh, b):
     """T steps from (h0, c0): xs [..., B, T, I] -> (hs [..., B, T, H],
-    hT, cT [..., B, H]). Each step's input is made contiguous first, so
-    that it is the same matmul, bit for bit, as a step of its own."""
-    steps = xs.movedim(-2, 0).contiguous()       # [T, ..., B, I]
-    h, c = h0, c0
-    hs = []
-    for x_t in steps:
-        h, c, _ = _step(x_t, h, c, wx, wh, b)
-        hs.append(h)
-    return torch.stack(hs, dim=-2), h, c
+    hT, cT [..., B, H])."""
+    return lstm_layer_fwd_ref(xs, h0, c0, wx, wh, b)[:3]
 
 
 def lstm_layer_fwd_ref(xs, h0, c0, wx, wh, b):
     """T steps from (h0, c0) -> (hs, hT, cT, the activated gates
     [..., B, T, 4H], each step's c [..., B, T, H]): what the forward
-    kernel gives when it saves them for the backward."""
+    kernel gives when it saves them for the backward. Each step's input
+    is made contiguous first, so that it is the same matmul, bit for bit,
+    as a step of its own."""
     steps = xs.movedim(-2, 0).contiguous()       # [T, ..., B, I]
     h, c = h0, c0
     hs, gates, cs = [], [], []
