@@ -10,13 +10,15 @@ Each kernel package holds:
     ref.py    — the plain PyTorch version
 
 Kernels ported so far:
-    lstm — an LSTM layer over T time steps (one step is T = 1) and the
-           cell's backward, W workers per launch
+    lstm — an LSTM layer over T time steps (one step is T = 1) and its
+           backward over the same T steps, W workers per launch
            (replaces repro/kernels/lstm/kernel.py)
     evl  — the Extreme Value Loss with its reduction, and dL/du
            (replaces repro/kernels/evl/kernel.py)
     attention — flash attention with GQA and its masks
            (replaces repro/kernels/attention/kernel.py)
+    ssd  — the Mamba2 SSD chunk scan from a zero state
+           (replaces repro/kernels/ssd/kernel.py)
 """
 from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.kernels.evl.ops import evl_loss
