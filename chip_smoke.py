@@ -4,6 +4,7 @@ NVIDIA H100.
 
     python3 chip_smoke.py            # from the repo root, on the card
     python3 chip_smoke.py --flash-host       # flash's host cost per call
+    python3 chip_smoke.py --evl-host         # EVL's host cost per step
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
     python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
@@ -16,7 +17,8 @@ version on the card: the LSTM layer's forward (T steps in one launch,
 from a zero or a given carry, with the local-SGD worker dim; a step is
 the same launch at T = 1) and its backward (the same T steps in reverse
 in one launch; a T-step launch bit for bit T chained launches at
-T = 1), the EVL loss's forward and backward, flash attention
+T = 1), the EVL loss with its dL/du in one launch (a row of W = 4 bit
+for bit the row alone), flash attention
 (the JAX kernel tests' sweep and masks, and head dim 80; fp32 on the
 CUDA-core kernel, bf16 on the tensor-core one) and the Mamba2 SSD chunk
 scan (the JAX sweep, the reduced config's and the serving path's
@@ -43,9 +45,10 @@ exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
-``--flash-ablation``, ``--ssd-ablation`` or ``--lstm-ablation`` it runs
-only that probe (``flash_host``, ``flash_ablation``, ``ssd_ablation``,
-``lstm_ablation``) and prints no result.
+``--evl-host``, ``--flash-ablation``, ``--ssd-ablation``,
+``--lstm-ablation`` or ``--evl-ablation`` it runs only that probe
+(``flash_host``, ``evl_host``, ``flash_ablation``, ``ssd_ablation``,
+``lstm_ablation``, ``evl_ablation``) and prints no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -73,7 +76,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-6         # LSTM kernels vs plain, as tests/test_kernels.py
-EVL_RTOL, EVL_ATOL = 1e-5, 1e-7  # EVL kernels vs plain, as tests/test_kernels.py
+EVL_RTOL, EVL_ATOL = 1e-5, 1e-7  # EVL kernel vs plain, as tests/test_kernels.py
 # torch.lstm (cuDNN), the LSTM layer's yardstick, against the plain
 # version: cuDNN computes the gates in its own order and with its own
 # activation routines, off by up to 5.7e-6 at (1, 8, 1, 5, 64) (an H100
@@ -225,8 +228,7 @@ def card_line() -> str:
 
 
 # the kernels of the paper LSTM's paths (a training step launches each)
-PAPER_KERNELS = ("lstm_layer", "lstm_layer_bwd", "evl_forward",
-                 "evl_backward")
+PAPER_KERNELS = ("lstm_layer", "lstm_layer_bwd", "evl")
 
 
 def counters():
@@ -238,8 +240,7 @@ def counters():
 
     return {"lstm_layer": lstm_kernel.LAUNCHES,
             "lstm_layer_bwd": lstm_kernel.LAYER_BWD_LAUNCHES,
-            "evl_forward": evl_kernel.EVL_LAUNCHES,
-            "evl_backward": evl_kernel.EVL_BWD_LAUNCHES,
+            "evl": evl_kernel.EVL_LAUNCHES,
             "flash_attention": attn_kernel.FLASH_LAUNCHES,
             "ssd_scan": ssd_kernel.SSD_LAUNCHES}
 
@@ -268,7 +269,7 @@ def no_plain_version_on_the_card():
     import repro_torch.kernels.ssd.ops as ssd_ops
 
     names = [(lstm_ops, "lstm_cell_ref"), (lstm_ops, "lstm_layer_ref"),
-             (evl_ops, "evl_loss_ref"),
+             (evl_ops, "evl_loss_ref"), (evl_ops, "evl_loss_and_grad_ref"),
              (attn_ops, "attention_ref"), (ssd_ops, "ssd_scan_ref")]
     calls: list[str] = []
     saved = {(m, n): getattr(m, n) for m, n in names}
@@ -344,13 +345,12 @@ def layer_bwd_bound(W, B, T, I, H, need_dx: bool):
     return bound(nbytes, ops)
 
 
-def evl_bound(W, N, backward: bool):
-    """The EVL loss: reads u and v (and the incoming gradient), writes
-    the W losses (or du); about 20 operations per element forward, 35
-    backward (each log, pow and division counted as one)."""
-    if backward:
-        return bound(4 * (3 * W * N + W), 35 * W * N)
-    return bound(4 * (2 * W * N + W), 20 * W * N)
+def evl_bound(W, N):
+    """The fused EVL launch as training makes it (mean, with the
+    gradient): reads u and v once, writes the W losses and the W x N
+    gradients; about 45 operations per element (each log, pow and
+    division counted as one)."""
+    return bound(4 * (2 * W * N + W + W * N), 45 * W * N)
 
 
 def graph_ms(fn, inner=50, reps=21):
@@ -723,64 +723,92 @@ def check_backward() -> float:
     return max_err
 
 
-def check_evl() -> tuple[float, float]:
-    """Phase 2c: the EVL kernels (mean, sum, none; u at 0, eps, 1 - eps
-    and 1; v at 0 and 1) against the plain version and its autograd.
-    Returns the largest |kernel - plain| forward and backward."""
+def check_evl() -> float:
+    """Phase 2c: the fused EVL kernel (mean, sum, none; u at 0, eps,
+    1 - eps and 1; v at 0 and 1): its loss and du_unit against
+    ``evl_loss_and_grad_ref``, the wrapper's gradient (one launch, the
+    backward a multiply) against autograd of the plain loss, a call
+    without grad against the plain loss; a row of W = 4 bit for bit the
+    row launched alone; the same bits over 10 runs. Returns the largest
+    |kernel - plain|."""
     from repro_torch.kernels.evl import kernel
     from repro_torch.kernels.evl.ops import evl_loss
-    from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
+    from repro_torch.kernels.evl.ref import (evl_loss_and_grad_ref,
+                                             evl_loss_ref, reduce_rows)
 
     betas = (0.93, 0.07, 2.0)
-    err_f = err_b = 0.0
+    err = 0.0
+
+    def close(a, b):
+        return torch.allclose(a, b, rtol=EVL_RTOL, atol=EVL_ATOL)
+
     for W, N in EVL_SHAPES + [(2, 300)]:
         g = torch.Generator().manual_seed(W * 1000 + N)
         u = torch.rand(W, N, generator=g)
-        u[0, :4] = torch.tensor(EVL_EDGES)
-        u[-1, 4:8] = torch.tensor(EVL_EDGES)
+        u[:, :4] = torch.tensor(EVL_EDGES)
+        u[:, 4:8] = torch.tensor(EVL_EDGES)
         v = (torch.rand(W, N, generator=g) < 0.3).float()
-        v[0, :2] = 0.0
-        v[0, 2:4] = 1.0
-        v[-1, 4:6] = 1.0
-        v[-1, 6:8] = 0.0
+        v[:, :4] = 0.0
+        v[:, 4:8] = 1.0
         u, v = u.cuda(), v.cuda()
         for reduce in ("mean", "sum", "none"):
+            out, du = kernel.evl_cuda(u, v, *betas, EVL_EPS, reduce, True)
+            want, dwant = evl_loss_and_grad_ref(u, v, *betas, EVL_EPS,
+                                                reduce)
+            alone, none = kernel.evl_cuda(u, v, *betas, EVL_EPS, reduce,
+                                          False)
             uk = u.clone().requires_grad_(True)
             ur = u.clone().requires_grad_(True)
-            out = evl_loss(uk, v, *betas, EVL_EPS, reduce)
-            ref = evl_loss_ref(ur, v, *betas, EVL_EPS)
-            ref = {"mean": ref.mean(-1), "sum": ref.sum(-1),
-                   "none": ref}[reduce]
-            gout = torch.rand(out.shape, generator=g).cuda() + 0.5
-            (dk,) = torch.autograd.grad(out, uk, gout)
+            before = kernel.EVL_LAUNCHES.total
+            got = evl_loss(uk, v, *betas, EVL_EPS, reduce)
+            ref = reduce_rows(evl_loss_ref(ur, v, *betas, EVL_EPS), reduce)
+            gout = torch.rand(got.shape, generator=g).cuda() + 0.5
+            (dk,) = torch.autograd.grad(got, uk, gout)
             (dr,) = torch.autograd.grad(ref, ur, gout)
-            scale = {"none": gout, "sum": gout[:, None],
-                     "mean": gout[:, None] / N}[reduce]
-            dplain = evl_grad_ref(u, v, *betas, EVL_EPS) * scale
-            du = kernel.evl_backward_cuda(u, v, gout.contiguous(), *betas,
-                                          EVL_EPS, reduce)
+            launched = kernel.EVL_LAUNCHES.total - before
             torch.cuda.synchronize()
-            ef = float((out - ref).abs().max())
-            eb = max(float((du - dplain).abs().max()),
+            ef = max(float((out - want).abs().max()),
+                     float((alone - want).abs().max()),
+                     float((got - ref).detach().abs().max()))
+            eb = max(float((du - dwant).abs().max()),
                      float((dk - dr).abs().max()))
-            err_f, err_b = max(err_f, ef), max(err_b, eb)
-            ok = (torch.allclose(out, ref, rtol=EVL_RTOL, atol=EVL_ATOL)
-                  and torch.allclose(dk, dr, rtol=EVL_RTOL, atol=EVL_ATOL)
-                  and torch.allclose(du, dplain, rtol=EVL_RTOL,
-                                     atol=EVL_ATOL))
+            err = max(err, ef, eb)
+            ok = (close(out, want) and close(du, dwant) and close(alone, want)
+                  and close(got, ref) and close(dk, dr) and none is None)
             print(f"[check] evl W={W} N={N} {reduce}: max |kernel - plain| "
-                  f"loss {ef:.3e}, dL/du {eb:.3e} (rtol {EVL_RTOL}, atol "
-                  f"{EVL_ATOL}) {'ok' if ok else 'MISMATCH'}")
-            check(ok, f"evl kernels disagree with the plain version at "
+                  f"loss {ef:.3e}, du_unit and the wrapper's dL/du {eb:.3e} "
+                  f"(rtol {EVL_RTOL}, atol {EVL_ATOL}); forward + backward "
+                  f"{launched} launch {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"the evl kernel disagrees with the plain version at "
                       f"W={W} N={N} reduce={reduce}")
-            check(dk[0, 0] == 0 and dk[0, 3] == 0 and dk[0, 1] != 0,
+            check(launched == 1, f"evl forward + backward made {launched} "
+                                 f"launches, not 1")
+            check(bool((du[:, 0] == 0).all() and (du[:, 3] == 0).all()
+                       and (du[:, 1] != 0).all() and (du[:, 2] != 0).all()),
                   "evl dL/du at the clip's edges")
+    for reduce in ("mean", "sum", "none"):
+        u = torch.rand(4, 32, generator=torch.Generator().manual_seed(5))
+        u[:, :4] = torch.tensor(EVL_EDGES)
+        u, v = u.cuda(), (u > 0.7).float().cuda()
+        out, du = kernel.evl_cuda(u, v, *betas, EVL_EPS, reduce, True)
+        for w in range(4):
+            one, done = kernel.evl_cuda(u[w:w + 1].contiguous(),
+                                        v[w:w + 1].contiguous(), *betas,
+                                        EVL_EPS, reduce, True)
+            check(torch.equal(one[0], out[w]) and torch.equal(done[0], du[w]),
+                  f"evl {reduce}: row {w} of a W = 4 launch differs from "
+                  f"the row launched alone")
+    print("[check] evl: every row of a W = 4 launch bit for bit the row "
+          "launched alone (loss and du_unit; mean, sum, none)")
     u = torch.rand(4, 32, generator=torch.Generator().manual_seed(9)).cuda()
-    first = evl_loss(u, (u > 0.7).float(), *betas)
-    check(all(torch.equal(evl_loss(u, (u > 0.7).float(), *betas), first)
-              for _ in range(10)), "the evl loss changed between runs")
-    print("[check] evl loss bitwise the same over 10 runs (no atomics)")
-    return err_f, err_b
+    v = (u > 0.7).float()
+    first = kernel.evl_cuda(u, v, *betas, EVL_EPS, "mean", True)
+    check(all(torch.equal(a, b) for _ in range(10) for a, b in zip(
+        kernel.evl_cuda(u, v, *betas, EVL_EPS, "mean", True), first)),
+          "the evl loss or its gradient changed between runs")
+    print("[check] evl loss and du_unit bitwise the same over 10 runs (no "
+          "atomics)")
+    return err
 
 
 def training_data():
@@ -1065,15 +1093,14 @@ def train_main_path(data, tag: str):
                   f"{hist[-k:].mean():.5f})")
             steps = res.iterations // kw.get("n_workers", 1)
             # each local step: the layer forward and backward once per
-            # layer at T = window, the EVL forward and backward once;
+            # layer at T = window, the EVL loss with its dL/du once;
             # then evaluate's forward, once per layer
             n_layers = len(res.params["lstm"])
             want = {"lstm_layer": n_layers * (steps + 1),
-                    "lstm_layer_bwd": n_layers * steps,
-                    "evl_forward": steps, "evl_backward": steps}
+                    "lstm_layer_bwd": n_layers * steps, "evl": steps}
             check(launched == want,
                   f"{name}: launches {launched}, not {want}: not "
-                  f"{2 * n_layers + 2} per local step")
+                  f"{2 * n_layers + 1} per local step")
             cpu = fn(train_ds, test_ds, iterations=n_cmp, device="cpu",
                      **kw, **common)
             n = len(cpu.loss_history)
@@ -1101,7 +1128,7 @@ def train_main_path(data, tag: str):
                   f"max relative drift {drift:.3e} (bound {TRAIN_RTOL}); "
                   f"test MSE vs the CPU on the same weights {dmse:.3e} "
                   f"relative (bound {FC_RTOL}); "
-                  f"launches {launched} = {2 * n_layers + 2} per local "
+                  f"launches {launched} = {2 * n_layers + 1} per local "
                   f"step + {n_layers} for evaluate")
         launches = read_counters()
     check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
@@ -1142,7 +1169,7 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
     main paths, and the largest |kernel - plain| by kernel."""
     from repro_torch.kernels.evl import kernel as evl_kernel
     from repro_torch.kernels.evl.ops import evl_loss
-    from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
+    from repro_torch.kernels.evl.ref import evl_loss_and_grad_ref
     from repro_torch.kernels.lstm import kernel as lstm_kernel
     from repro_torch.kernels.lstm.ops import (layer_grads, lstm_cell,
                                               lstm_layer)
@@ -1312,32 +1339,21 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
             "eager_ms": eager_ms(kernel_bwd),
             "bound_ms": bnd, "bound_by": by}
     betas = (0.93, 0.07, 2.0)
-    evl_shapes = (set(EVL_SHAPES) | set(train_launches["evl_forward"])
-                  | set(train_launches["evl_backward"]))
-    for W, N in sorted(evl_shapes):
+    for W, N in sorted(set(EVL_SHAPES) | set(train_launches["evl"])):
         g = torch.Generator().manual_seed(W + N)
         u = torch.rand(W, N, generator=g).cuda()
         v = (torch.rand(W, N, generator=g) < 0.1).float().cuda()
-        gout = torch.rand(W, generator=g).cuda()
-        for name, backward in (("evl_forward", False),
-                               ("evl_backward", True)):
-            if backward:
-                kfn = lambda: evl_kernel.evl_backward_cuda(
-                    u, v, gout, *betas, EVL_EPS, "mean")
-                pfn = lambda: evl_grad_ref(u, v, *betas, EVL_EPS) \
-                    * (gout[:, None] / N)
-                efn = kfn
-            else:
-                kfn = lambda: evl_kernel.evl_forward_cuda(
-                    u, v, *betas, EVL_EPS, "mean")
-                pfn = lambda: evl_loss_ref(u, v, *betas, EVL_EPS).mean(-1)
-                efn = lambda: evl_loss(u, v, *betas, EVL_EPS, "mean")
-            hold(name, (W, N), [kfn()], [pfn()], EVL_RTOL, EVL_ATOL)
-            bnd, by = evl_bound(W, N, backward)
-            rows[name][(W, N)] = {
-                "ms": graph_ms(kfn), "plain_ms": graph_ms(pfn),
-                "library_ms": None, "eager_ms": eager_ms(efn),
-                "bound_ms": bnd, "bound_by": by}
+        ug = u.clone().requires_grad_(True)
+        # the launch as training makes it: the loss and dL/du, mean
+        kfn = lambda: evl_kernel.evl_cuda(u, v, *betas, EVL_EPS, "mean", True)
+        pfn = lambda: evl_loss_and_grad_ref(u, v, *betas, EVL_EPS, "mean")
+        hold("evl", (W, N), kfn(), pfn(), EVL_RTOL, EVL_ATOL)
+        bnd, by = evl_bound(W, N)
+        rows["evl"][(W, N)] = {
+            "ms": graph_ms(kfn), "plain_ms": graph_ms(pfn),
+            "library_ms": None,
+            "eager_ms": eager_ms(lambda: evl_loss(ug, v, *betas, EVL_EPS)),
+            "bound_ms": bnd, "bound_by": by}
     print(f"[check] {tag}: torch.lstm (cuDNN) against the plain layer at "
           f"every timed shape: max |torch.lstm - plain| {lib_err:.3e}, of "
           f"its gradients {lib_bwd_err:.3e} (rtol {FC_RTOL}, atol "
@@ -1460,6 +1476,15 @@ def profile_training(train_ds, tag: str) -> None:
     profile("3 local-SGD rounds, W=4, 5 local steps each",
             lambda: run(rounds[2:]), tag)
     n = sum(c.total for c in counters().values())
+    paper = paper_counts()
+    # a local step: each layer's forward and backward, and the EVL loss
+    # with its dL/du, once
+    n_layers = CONFIG.num_layers
+    want = {"lstm_layer": 15 * n_layers, "lstm_layer_bwd": 15 * n_layers,
+            "evl": 15}
+    check(paper == want and n == 15 * (2 * n_layers + 1),
+          f"15 profiled local steps launched {read_counters()}, not "
+          f"{want}: not {2 * n_layers + 1} per local step")
     print(f"[profile] {tag}: {n} kernel launches in 15 local steps = "
           f"{n / 15:.1f} per local step ({read_counters()})")
 
@@ -2038,6 +2063,43 @@ def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
     return us
 
 
+def evl_host(tag: str, n=500, reps=15):
+    """Host microseconds per local step of the EVL loss at the training
+    path's shapes: the wrapper's forward with u requiring grad, and that
+    forward with its backward (``torch.autograd.grad``), as a training
+    step makes them. Read on the host's clock as ``flash_host`` reads
+    it: the least and the median of ``reps`` runs of ``n`` calls, the two
+    in turns. Calls nothing but ``kernels.evl.ops.evl_loss``, whose
+    signature every version of the port has, so that a copy of this
+    script in an earlier checkout times that version in the same call
+    (``--evl-host``)."""
+    from repro_torch.kernels.evl.ops import evl_loss
+
+    betas = (0.93, 0.07, 2.0)
+    for W, N in EVL_SHAPES:
+        g = torch.Generator().manual_seed(W + N)
+        u = torch.rand(W, N, generator=g).cuda().requires_grad_(True)
+        v = (torch.rand(W, N, generator=g) < 0.1).float().cuda()
+        gout = torch.rand(W, generator=g).cuda()
+        calls = {"forward": lambda: evl_loss(u, v, *betas, EVL_EPS),
+                 "forward + backward": lambda: torch.autograd.grad(
+                     evl_loss(u, v, *betas, EVL_EPS), u, gout)}
+        times: dict = {name: [] for name in calls}
+        for _ in range(reps):
+            for name, fn in calls.items():
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                times[name].append((time.perf_counter() - t0) / n * 1e6)
+                torch.cuda.synchronize()
+        print(f"[host] {tag}: evl {(W, N)} mean, us of host time per call, "
+              f"least / median of {reps} x {n} calls: " + "; ".join(
+                  f"{name} {min(ts):.2f} / {statistics.median(ts):.2f}"
+                  for name, ts in times.items()))
+
+
 def ablation_entries(library: str, sources, ablations: dict, entry: str,
                      argtypes) -> dict:
     """The C entry point ``entry`` of the library and of a copy of it per
@@ -2267,9 +2329,10 @@ LSTM_BWD_ABLATION_SHAPES = [(W, 32, WINDOW, I, 64) for W in (1, 4)
                             for I in (5, 64)]
 
 
-def ablation_times(card, label, fns, shapes, setup, launch, bound_us,
+def ablation_times(card, label, dims, fns, shapes, setup, launch, bound_us,
                    unchecked) -> dict:
-    """Each of ``fns`` (the kernel and its ablations) at each shape:
+    """Each of ``fns`` (the kernel and its ablations) at each shape
+    (``dims`` names its entries):
     ``setup(shape)`` gives (inputs, {name: outputs}), ``launch(fn, ins,
     outs, shape)`` one launch. The copies not in ``unchecked`` must give
     the kernel's bits. Timed with ``graph_ms`` in turns (the kernel, the
@@ -2292,7 +2355,7 @@ def ablation_times(card, label, fns, shapes, setup, launch, bound_us,
             row[n].append(1e3 * graph_ms(
                 lambda: launch(fns[n], ins, outs[n], shape)))
         times[f"{label} " + "x".join(map(str, shape))] = row
-        print(f"[ablation] {card}: {label} (W, B, T, I, H) {shape}, bound "
+        print(f"[ablation] {card}: {label} {dims} {shape}, bound "
               f"{bound_us(shape):.4f} us: " + "; ".join(
                   f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
                   for n, ts in row.items()))
@@ -2348,14 +2411,102 @@ def lstm_ablation(card: str) -> None:
                          torch.empty_like(args[2]),
                          torch.empty_like(args[2])) for n in bwd_fns}
 
-    times = ablation_times(card, "lstm_layer", fns, LSTM_ABLATION_SHAPES,
+    times = ablation_times(card, "lstm_layer", "(W, B, T, I, H)", fns,
+                           LSTM_ABLATION_SHAPES,
                            setup, launch,
                            lambda s: 1e3 * layer_bound(*s)[0],
                            {"no weight staging"})
     times.update(ablation_times(
-        card, "lstm_layer_bwd", bwd_fns, LSTM_BWD_ABLATION_SHAPES, setup_bwd,
+        card, "lstm_layer_bwd", "(W, B, T, I, H)", bwd_fns,
+        LSTM_BWD_ABLATION_SHAPES, setup_bwd,
         launch_bwd, lambda s: 1e3 * layer_bwd_bound(*s, s[3] != 5)[0],
         {"no products"}))
+    print(json.dumps({"card": card, "us": times}))
+
+
+# what a launch of the fused EVL kernel costs on the training path
+# (``--evl-ablation``): a copy of evl.cu launched with Programmatic
+# Dependent Launch (cudaLaunchKernelEx with programmatic stream
+# serialization; the kernel waits on cudaGridDependencySynchronize()
+# before it reads u), so that it may start while the kernel before it
+# drains. It computes the same bits.
+EVL_ABLATIONS = {
+    "PDL": [
+        ("""  if (row >= W) return;  // row is the same across a warp
+""", """  if (row >= W) return;  // row is the same across a warp
+  cudaGridDependencySynchronize();
+"""),
+        ("""  evl_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      u, v, out, du, W, N, p, reduce);
+""", """  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, evl_fused_kernel, u, v, out, du, W, N, p,
+                     reduce);
+""")],
+}
+
+
+def evl_ablation(card: str) -> None:
+    """``--evl-ablation``: at the training path's shapes (W, N) = (1, 32)
+    and (4, 32), the fused kernel with the gradient after a
+    ``torch.sigmoid`` of the same [W, N] in one CUDA graph (the kernel),
+    beside the same with the PDL copy (``EVL_ABLATIONS``), which must
+    give the kernel's bits (``ablation_times``); then the launch floor,
+    the kernel at (1, 1) without the gradient, and the backward's
+    multiply alone, each in two turns. Prints one line per shape and a
+    JSON object of every time (us)."""
+    from repro_torch.kernels.evl import kernel as evl_kernel
+
+    betas = (0.93, 0.07, 2.0)
+    fns = ablation_entries("evl", evl_kernel.SOURCES, EVL_ABLATIONS,
+                           "evl_fused", evl_kernel.ARGTYPES)
+
+    def call(fn, u, v, out, du):
+        rc = fn(u.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if du is None else du.data_ptr(), *u.shape,
+                *evl_kernel.scalars(*betas, EVL_EPS),
+                evl_kernel.REDUCE["mean"],
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"EVL ablation launch failed: {rc}")
+
+    def launch(fn, ins, outs, shape):
+        x, u, v = ins
+        torch.sigmoid(x, out=u)
+        call(fn, u, v, *outs)
+
+    def setup(shape):
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        x = torch.randn(*shape, generator=g, device="cuda")
+        v = (torch.rand(*shape, generator=g, device="cuda") < 0.1).float()
+        return (x, torch.empty_like(x), v), {
+            n: (torch.empty(shape[0], device="cuda"), torch.empty_like(x))
+            for n in fns}
+
+    times = ablation_times(card, "evl after a sigmoid", "(W, N)", fns,
+                           EVL_SHAPES, setup, launch,
+                           lambda s: 1e3 * evl_bound(*s)[0], set())
+    one = torch.full((1, 1), 0.5, device="cuda")
+    one_out = torch.empty(1, device="cuda")
+    du = torch.rand(4, 32, device="cuda")
+    gin = torch.rand(4, device="cuda")
+    alone = {"floor (1, 1) no gradient": lambda: call(
+                 fns["kernel"], one, one, one_out, None),
+             "multiply (4, 32)": lambda: du * gin[:, None]}
+    row = {n: [] for n in alone}
+    for n in list(alone) + list(alone)[::-1]:
+        row[n].append(1e3 * graph_ms(alone[n]))
+    times["evl alone"] = row
+    print(f"[ablation] {card}: evl alone: " + "; ".join(
+        f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
+        for n, ts in row.items()))
     print(json.dumps({"card": card, "us": times}))
 
 
@@ -2447,9 +2598,11 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     tag = f"{name} | {card}"
     probes = {"--flash-host": lambda: flash_host(tag),
+              "--evl-host": lambda: evl_host(tag),
               "--flash-ablation": lambda: flash_ablation(card),
               "--ssd-ablation": lambda: ssd_ablation(card),
-              "--lstm-ablation": lambda: lstm_ablation(card)}
+              "--lstm-ablation": lambda: lstm_ablation(card),
+              "--evl-ablation": lambda: evl_ablation(card)}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -2464,7 +2617,7 @@ def main() -> None:
     errs = {"lstm_layer": timed("check lstm_layer", check_forward),
             "lstm_layer_bwd": timed("check lstm_layer_bwd",
                                     check_backward)}
-    errs["evl_forward"], errs["evl_backward"] = timed("check evl", check_evl)
+    errs["evl"] = timed("check evl", check_evl)
     errs["flash_attention"] = timed("check flash_attention", check_flash)
     errs["ssd_scan"] = timed("check ssd_scan", check_ssd)
     data = timed("training data", training_data)
@@ -2514,10 +2667,8 @@ def main() -> None:
                        "src/repro/kernels/lstm/kernel.py:21"),
         "lstm_layer_bwd": (csrc.format("lstm", "lstm_layer_bwd.cu"),
                            "src/repro/kernels/lstm/kernel.py:21"),
-        "evl_forward": (csrc.format("evl", "evl.cu"),
-                        "src/repro/kernels/evl/kernel.py:20"),
-        "evl_backward": (csrc.format("evl", "evl.cu"),
-                         "src/repro/kernels/evl/kernel.py:20"),
+        "evl": (csrc.format("evl", "evl.cu"),
+                "src/repro/kernels/evl/kernel.py:20"),
         "flash_attention": (csrc.format("attention",
                                         "flash_attention_wgmma.cu"),
                             "src/repro/kernels/attention/kernel.py:34"),

@@ -13,8 +13,8 @@ Kernels ported so far:
     lstm — an LSTM layer over T time steps (one step is T = 1) and its
            backward over the same T steps, W workers per launch
            (replaces repro/kernels/lstm/kernel.py)
-    evl  — the Extreme Value Loss with its reduction, and dL/du
-           (replaces repro/kernels/evl/kernel.py)
+    evl  — the Extreme Value Loss with its reduction and its dL/du in
+           one launch (replaces repro/kernels/evl/kernel.py)
     attention — flash attention with GQA and its masks
            (replaces repro/kernels/attention/kernel.py)
     ssd  — the Mamba2 SSD chunk scan from a zero state

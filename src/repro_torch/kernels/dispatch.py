@@ -14,8 +14,8 @@ for the kernel route and ``"torch"`` for the plain one. Kernel launches
 themselves are counted by each kernel's binding
 (``repro_torch.kernels.lstm.kernel.LAUNCHES`` and
 ``LAYER_BWD_LAUNCHES``,
-``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` and
-``EVL_BWD_LAUNCHES``, ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``,
+``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` (the loss and its dL/du
+in one launch), ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``,
 ``repro_torch.kernels.ssd.kernel.SSD_LAUNCHES``).
 """
 

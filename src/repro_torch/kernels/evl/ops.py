@@ -1,10 +1,11 @@
 """The EVL loss's wrapper: device routing, argument checks and the
-autograd Function around the CUDA kernels.
+autograd Function around the CUDA kernel.
 
 u, v are [W, N]: one row per local-SGD worker, N its batch. The loss
 reduces each row (mean or sum) to [W], or stays [W, N] for ``"none"``.
-A CUDA tensor goes to the hand-written kernels (forward, and the
-closed-form dL/du as the backward of ``EVLFunction``) or raises; a CPU
+A CUDA tensor goes to the hand-written kernel or raises: under autograd
+``EVLFunction`` launches it once for the loss and its derivative in u
+together, and its backward is the chain rule's multiply alone. A CPU
 tensor goes to the plain version (``ref.evl_loss_ref`` plus the
 reduction), which torch autograd differentiates.
 """
@@ -14,15 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.evl import kernel
-from repro_torch.kernels.evl.ref import evl_loss_ref
-
-
-def _reduce(loss, reduce: str):
-    if reduce == "mean":
-        return loss.mean(dim=-1)
-    if reduce == "sum":
-        return loss.sum(dim=-1)
-    return loss
+from repro_torch.kernels.evl.ref import (evl_loss_and_grad_ref, evl_loss_ref,
+                                         reduce_rows)
 
 
 def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,
@@ -38,7 +32,8 @@ def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,
         raise ValueError(f"evl_loss: u and v must share one device, got "
                          f"{u.device} and {v.device}")
     if u.device.type == "cpu":
-        return _reduce(evl_loss_ref(u, v, beta0, beta1, gamma, eps), reduce)
+        return reduce_rows(evl_loss_ref(u, v, beta0, beta1, gamma, eps),
+                           reduce)
     if u.device.type != "cuda":
         raise ValueError(f"evl_loss runs on cuda or cpu, got {u.device}")
     for name, t in (("u", u), ("v", v)):
@@ -49,22 +44,35 @@ def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,
                              f"is not")
     if torch.is_grad_enabled() and u.requires_grad:
         return EVLFunction.apply(u, v, beta0, beta1, gamma, eps, reduce)
-    return kernel.evl_forward_cuda(u, v, beta0, beta1, gamma, eps, reduce)
+    return kernel.evl_cuda(u, v, beta0, beta1, gamma, eps, reduce,
+                           with_grad=False)[0]
+
+
+def _loss_and_grad(u, v, beta0, beta1, gamma, eps, reduce):
+    """The fused function, routed by device: the kernel for a CUDA
+    tensor, ``evl_loss_and_grad_ref`` for a CPU one."""
+    if u.device.type == "cuda":
+        return kernel.evl_cuda(u, v, beta0, beta1, gamma, eps, reduce,
+                               with_grad=True)
+    return evl_loss_and_grad_ref(u, v, beta0, beta1, gamma, eps, reduce)
 
 
 class EVLFunction(torch.autograd.Function):
-    """The loss on the card as an autograd Function with a gradient for u
-    only (v is a label): forward and backward are the kernels. Inputs
-    must already be checked (``evl_loss`` does)."""
+    """The loss as an autograd Function with a gradient for u only (v is
+    a label). The forward computes the loss and ``du_unit`` in one call
+    (one launch on the card) and saves ``du_unit``; the backward
+    multiplies it by the incoming gradient. Inputs must already be
+    checked (``evl_loss`` does)."""
 
     @staticmethod
     def forward(ctx, u, v, beta0, beta1, gamma, eps, reduce):
-        ctx.save_for_backward(u, v)
-        ctx.args = (beta0, beta1, gamma, eps, reduce)
-        return kernel.evl_forward_cuda(u, v, beta0, beta1, gamma, eps, reduce)
+        out, du = _loss_and_grad(u, v, beta0, beta1, gamma, eps, reduce)
+        ctx.save_for_backward(du)
+        ctx.reduce = reduce
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        u, v = ctx.saved_tensors
-        du = kernel.evl_backward_cuda(u, v, g.contiguous(), *ctx.args)
-        return du, None, None, None, None, None, None
+        (du,) = ctx.saved_tensors
+        scale = g if ctx.reduce == "none" else g[:, None]
+        return du * scale, None, None, None, None, None, None

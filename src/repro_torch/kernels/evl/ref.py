@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the EVL kernels (paper eq. 6): the loss, the
-same math as ``repro.kernels.evl.ref.evl_loss_ref``, and the closed-form
-dL/du of the backward kernel. The clip is written as maximum/minimum,
+"""Plain PyTorch versions of the EVL kernel (paper eq. 6): the loss, the
+same math as ``repro.kernels.evl.ref.evl_loss_ref``; its closed-form
+dL/du; and the fused kernel's function, the reduced loss with the
+derivative of that loss in u. The clip is written as maximum/minimum,
 not ``clamp``: at u == eps or 1 - eps exactly they pass half the
 gradient, as ``jnp.clip`` does, where ``clamp`` passes all of it."""
 
@@ -13,6 +14,15 @@ def _clip(u, eps: float):
     u = u.to(torch.float32)
     return torch.minimum(torch.maximum(u, u.new_full((), eps)),
                          u.new_full((), 1.0 - eps))
+
+
+def reduce_rows(loss, reduce: str):
+    """The kernel's reduction over the last axis: mean, sum or none."""
+    if reduce == "mean":
+        return loss.mean(dim=-1)
+    if reduce == "sum":
+        return loss.sum(dim=-1)
+    return loss
 
 
 def evl_loss_ref(u, v, beta0: float, beta1: float, gamma: float = 2.0,
@@ -34,8 +44,8 @@ def _dmax(a, floor: float):
 
 def evl_grad_ref(u, v, beta0: float, beta1: float, gamma: float = 2.0,
                  eps: float = 1e-7):
-    """The backward kernel's function: elementwise dL/du of
-    ``evl_loss_ref`` (to be scaled by the incoming gradient)."""
+    """Elementwise dL/du of ``evl_loss_ref`` (to be scaled by the
+    incoming gradient)."""
     u = u.to(torch.float32)
     v = v.to(torch.float32)
     lo, hi = u.new_full((), eps), u.new_full((), 1.0 - eps)
@@ -53,3 +63,15 @@ def evl_grad_ref(u, v, beta0: float, beta1: float, gamma: float = 2.0,
           - dw_neg * (1.0 - v) * torch.log(1.0 - uc)
           + w_neg * (1.0 - v) / (1.0 - uc))
     return dl * dclip
+
+
+def evl_loss_and_grad_ref(u, v, beta0: float, beta1: float,
+                          gamma: float = 2.0, eps: float = 1e-7,
+                          reduce: str = "mean"):
+    """The fused kernel's function on u, v [W, N]: the loss reduced over
+    each row (``reduce_rows``) and ``du_unit``, its derivative in u,
+    [W, N]: ``evl_grad_ref / N`` for mean, ``evl_grad_ref`` for sum and
+    none. The incoming gradient is not part of it."""
+    loss = reduce_rows(evl_loss_ref(u, v, beta0, beta1, gamma, eps), reduce)
+    du = evl_grad_ref(u, v, beta0, beta1, gamma, eps)
+    return loss, (du / u.shape[-1] if reduce == "mean" else du)

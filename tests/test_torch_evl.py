@@ -2,8 +2,10 @@
 ``repro_torch.kernels.evl``) against the JAX package's: the loss
 (mean, sum, none) against ``repro.extreme.evl.evl_loss`` and the Pallas
 kernel in interpret mode, its gradient against ``jax.grad``, the edge
-values of u included; the autograd Function's backward; the device
-route; and, on a card, the CUDA kernels against the plain version.
+values of u included; the fused kernel's plain version (the reduced
+loss and its dL/du) and the autograd Function around it, applied on the
+CPU, against the same; the device route; and, on a card, the fused
+kernel against its plain version.
 
 The JAX package is imported inside the parity tests only, so that the
 ``cuda`` tests also run on a machine with a card and no jax:
@@ -16,8 +18,9 @@ import torch
 from repro_torch.extreme import evl as tevl
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.evl import kernel as evl_kernel
-from repro_torch.kernels.evl.ops import evl_loss
-from repro_torch.kernels.evl.ref import evl_grad_ref, evl_loss_ref
+from repro_torch.kernels.evl.ops import EVLFunction, evl_loss
+from repro_torch.kernels.evl.ref import (evl_grad_ref, evl_loss_and_grad_ref,
+                                         evl_loss_ref, reduce_rows)
 
 RTOL, ATOL = 1e-5, 1e-7      # tests/test_kernels.py's EVL tolerance
 EPS = 1e-7
@@ -84,10 +87,10 @@ def test_gradient_matches_jax_grad_at_the_edges(reduce):
 
 @pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
 def test_function_backward_matches_autograd_of_plain_version(reduce):
-    """EVLFunction's backward is the closed-form dL/du kernel, scaled for
-    the reduction in the kernel; its plain version (what the kernel is
-    held against on the card) equals torch autograd through the plain
-    loss."""
+    """On the card EVLFunction's gradient is the closed-form dL/du, scaled
+    for the reduction, times the incoming gradient; its plain version
+    (what the kernel is held against on the card) equals torch autograd
+    through the plain loss."""
     W, N = 3, 32
     u = np.stack([_uv(N, seed=s)[0] for s in range(W)])
     v = np.stack([_uv(N, seed=s)[1] for s in range(W)])
@@ -149,11 +152,84 @@ def test_grad_ref_matches_autograd_of_loss_ref():
 def test_cpu_tensor_takes_plain_route_and_launches_nothing():
     u, v = (torch.from_numpy(a) for a in _uv(32))
     evl_kernel.EVL_LAUNCHES.reset()
-    evl_kernel.EVL_BWD_LAUNCHES.reset()
     uu = u[None].clone().requires_grad_(True)
     dispatch.evl_loss(uu, v[None], *BETAS).sum().backward()
+    EVLFunction.apply(uu, v[None], *BETAS, EPS, "mean").sum().backward()
     assert evl_kernel.EVL_LAUNCHES.total == 0
-    assert evl_kernel.EVL_BWD_LAUNCHES.total == 0
+
+
+def _rows(W, N, seed=0):
+    """u, v [W, N] with u at 0, eps, 1 - eps and 1 in every row."""
+    u = np.stack([_uv(N, seed=seed + s)[0] for s in range(W)])
+    v = np.stack([_uv(N, seed=seed + s)[1] for s in range(W)])
+    return u, v
+
+
+def _jax_rows(u, v, g, reduce):
+    """The JAX package on u, v [W, N]: the loss rows of
+    ``jax.vmap(evl_loss)``, the Pallas kernel's (interpret mode) row by
+    row, and ``jax.grad`` of the rows weighted by g."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.extreme.evl import evl_loss as jax_evl_loss
+    from repro.kernels.evl.ops import evl_loss_fused
+
+    ju, jv = jnp.asarray(u), jnp.asarray(v)
+
+    def rows(uu):
+        return jax.vmap(lambda a, b: jax_evl_loss(a, b, *BETAS, EPS,
+                                                  reduce))(uu, jv)
+
+    fused = np.stack([np.asarray(evl_loss_fused(ju[w], jv[w], *BETAS,
+                                                reduce=reduce))
+                      for w in range(u.shape[0])])
+    grad = jax.grad(lambda uu: jnp.sum(rows(uu) * jnp.asarray(g)))(ju)
+    return np.asarray(rows(ju)), fused, np.asarray(grad)
+
+
+def _incoming(W, N, reduce, seed=7):
+    return np.random.default_rng(seed).uniform(
+        0.5, 1.5, (W, N) if reduce == "none" else W).astype(np.float32)
+
+
+@pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
+def test_loss_and_grad_ref_matches_jax(reduce):
+    """The fused kernel's plain version: its loss rows against
+    ``jax.vmap(evl_loss)`` and the Pallas kernel, ``du_unit`` times the
+    incoming gradient against ``jax.grad``, u at the clip's edges."""
+    W, N = 3, 37
+    u, v = _rows(W, N)
+    g = _incoming(W, N, reduce)
+    want, fused, grad = _jax_rows(u, v, g, reduce)
+    loss, du = evl_loss_and_grad_ref(torch.from_numpy(u),
+                                     torch.from_numpy(v), *BETAS, EPS,
+                                     reduce)
+    assert tuple(loss.shape) == want.shape and du.shape == (W, N)
+    for other in (want, fused):
+        np.testing.assert_allclose(loss.numpy(), other, rtol=RTOL, atol=ATOL)
+    scale = torch.from_numpy(g if reduce == "none" else g[:, None])
+    np.testing.assert_allclose((du * scale).numpy(), grad, rtol=RTOL,
+                               atol=ATOL)
+    assert du[:, 0].eq(0).all() and du[:, 3].eq(0).all()  # clipped away
+    assert du[:, 1].ne(0).all() and du[:, 2].ne(0).all()  # halved ties
+
+
+@pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
+def test_function_on_cpu_matches_jax_grad(reduce):
+    """EVLFunction applied to CPU tensors: the plain fused forward and the
+    multiply-only backward, against the JAX package's loss and
+    ``jax.grad``."""
+    W, N = 4, 32
+    u, v = _rows(W, N, seed=10)
+    g = _incoming(W, N, reduce, seed=8)
+    want, _, grad = _jax_rows(u, v, g, reduce)
+    tu = torch.from_numpy(u).requires_grad_(True)
+    out = EVLFunction.apply(tu, torch.from_numpy(v), *BETAS, EPS, reduce)
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(tu.grad.numpy(), grad, rtol=RTOL, atol=ATOL)
 
 
 def test_wrapper_rejects_bad_arguments():
@@ -175,27 +251,44 @@ def _card():
 @pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
 @pytest.mark.parametrize("W,N", [(1, 32), (4, 32), (2, 300)])
 def test_cuda_kernels_match_plain_version(W, N, reduce):
+    """The fused kernel's loss and ``du_unit`` against
+    ``evl_loss_and_grad_ref``, u at the clip's edges in every row; the
+    wrapper's gradient against autograd of the plain loss, in one
+    launch."""
     _card()
-    u = np.stack([_uv(N, seed=s)[0] for s in range(W)])
-    v = np.stack([_uv(N, seed=s)[1] for s in range(W)])
-    g = np.random.default_rng(6).uniform(0.5, 1.5,
-                                         (W, N) if reduce == "none" else W)
-    g = torch.from_numpy(g.astype(np.float32)).cuda()
-    uk = torch.from_numpy(u).cuda().requires_grad_(True)
-    ur = torch.from_numpy(u).cuda().requires_grad_(True)
-    tv = torch.from_numpy(v).cuda()
-    n_fwd = evl_kernel.EVL_LAUNCHES.total
-    n_bwd = evl_kernel.EVL_BWD_LAUNCHES.total
-    out = evl_loss(uk, tv, *BETAS, EPS, reduce)
-    ref = evl_loss_ref(ur, tv, *BETAS, EPS)
-    ref = {"mean": ref.mean(-1), "sum": ref.sum(-1), "none": ref}[reduce]
-    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
-    (out * g).sum().backward()
+    u, v = _rows(W, N)
+    tu, tv = torch.from_numpy(u).cuda(), torch.from_numpy(v).cuda()
+    out, du = evl_kernel.evl_cuda(tu, tv, *BETAS, EPS, reduce, True)
+    want, dwant = evl_loss_and_grad_ref(tu, tv, *BETAS, EPS, reduce)
+    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(du, dwant, rtol=RTOL, atol=ATOL)
+    g = torch.from_numpy(_incoming(W, N, reduce, seed=6)).cuda()
+    uk = tu.clone().requires_grad_(True)
+    ur = tu.clone().requires_grad_(True)
+    before = evl_kernel.EVL_LAUNCHES.total
+    got = evl_loss(uk, tv, *BETAS, EPS, reduce)
+    ref = reduce_rows(evl_loss_ref(ur, tv, *BETAS, EPS), reduce)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    (got * g).sum().backward()
     (ref * g).sum().backward()
     torch.cuda.synchronize()
     torch.testing.assert_close(uk.grad, ur.grad, rtol=RTOL, atol=ATOL)
-    assert evl_kernel.EVL_LAUNCHES.total == n_fwd + 1
-    assert evl_kernel.EVL_BWD_LAUNCHES.total == n_bwd + 1
+    assert evl_kernel.EVL_LAUNCHES.total == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
+def test_cuda_rows_do_not_depend_on_W(reduce):
+    """A row of a W = 4 launch has the bits of the same row launched
+    alone, loss and ``du_unit``."""
+    _card()
+    u, v = (torch.from_numpy(a).cuda() for a in _rows(4, 32, seed=3))
+    out, du = evl_kernel.evl_cuda(u, v, *BETAS, EPS, reduce, True)
+    for w in range(4):
+        one, done = evl_kernel.evl_cuda(u[w:w + 1].contiguous(),
+                                        v[w:w + 1].contiguous(), *BETAS,
+                                        EPS, reduce, True)
+        assert torch.equal(one[0], out[w]) and torch.equal(done[0], du[w])
 
 
 @pytest.mark.cuda
@@ -204,8 +297,28 @@ def test_cuda_loss_is_the_same_on_every_run():
     u = torch.rand(4, 32, generator=torch.Generator().manual_seed(0)).cuda()
     v = (u > 0.7).float()
     first = evl_loss(u, v, *BETAS)
+    _, dfirst = evl_kernel.evl_cuda(u, v, *BETAS, EPS, "mean", True)
     for _ in range(5):
         assert torch.equal(evl_loss(u, v, *BETAS), first)
+        assert torch.equal(
+            evl_kernel.evl_cuda(u, v, *BETAS, EPS, "mean", True)[1], dfirst)
+
+
+@pytest.mark.cuda
+def test_cuda_call_without_grad_writes_no_gradient():
+    """Without grad the wrapper launches the loss alone: one launch, no
+    gradient output."""
+    _card()
+    u, v = (torch.from_numpy(a).cuda() for a in _rows(4, 32))
+    before = evl_kernel.EVL_LAUNCHES.total
+    out, du = evl_kernel.evl_cuda(u, v, *BETAS, EPS, "mean", False)
+    assert du is None
+    torch.testing.assert_close(out, evl_loss_and_grad_ref(
+        u, v, *BETAS, EPS, "mean")[0], rtol=RTOL, atol=ATOL)
+    with torch.no_grad():
+        got = evl_loss(u.clone().requires_grad_(True), v, *BETAS)
+    assert got.grad_fn is None and torch.equal(got, out)
+    assert evl_kernel.EVL_LAUNCHES.total == before + 2
 
 
 @pytest.mark.cuda
