@@ -755,8 +755,8 @@ def check_evl() -> float:
             out, du = kernel.evl_cuda(u, v, *betas, EVL_EPS, reduce, True)
             want, dwant = evl_loss_and_grad_ref(u, v, *betas, EVL_EPS,
                                                 reduce)
-            alone, none = kernel.evl_cuda(u, v, *betas, EVL_EPS, reduce,
-                                          False)
+            alone, no_du = kernel.evl_cuda(u, v, *betas, EVL_EPS, reduce,
+                                           False)
             uk = u.clone().requires_grad_(True)
             ur = u.clone().requires_grad_(True)
             before = kernel.EVL_LAUNCHES.total
@@ -774,7 +774,7 @@ def check_evl() -> float:
                      float((dk - dr).abs().max()))
             err = max(err, ef, eb)
             ok = (close(out, want) and close(du, dwant) and close(alone, want)
-                  and close(got, ref) and close(dk, dr) and none is None)
+                  and close(got, ref) and close(dk, dr) and no_du is None)
             print(f"[check] evl W={W} N={N} {reduce}: max |kernel - plain| "
                   f"loss {ef:.3e}, du_unit and the wrapper's dL/du {eb:.3e} "
                   f"(rtol {EVL_RTOL}, atol {EVL_ATOL}); forward + backward "
@@ -2025,25 +2025,13 @@ def time_flash(launches: dict, tag: str):
     return rows, worst
 
 
-def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
-    """Host microseconds per eager flash call at the short prompt's
-    shape (bf16, causal): through the wrapper the path calls (checks,
-    route, binding) and through the binding alone. Read on the host's
+def host_us(calls: dict, n: int, reps: int) -> dict:
+    """Host microseconds per call of each of ``calls``, on the host's
     clock over ``n`` calls with no sync between them, fewer than the
     launch queue holds, so that the kernels cannot hold the host back;
-    ``reps`` such runs, the wrapper's and the binding's in turns, give
-    the least (the call's own cost: other work on the shared host only
-    adds) and the median. Uses only what the package had before its
-    bf16 kernel ran on the tensor cores, so that it also times an
-    earlier checkout (``--flash-host``)."""
-    from repro_torch.kernels.attention import kernel as attn_kernel
-    from repro_torch.kernels.attention.ops import flash_attention
-
-    B, Sq, Skv, Hq, Hkv, D = shape
-    q, k, v = attn_inputs(*shape, torch.bfloat16, seed=B * 7 + Sq)
-    calls = {"wrapper": lambda: flash_attention(q, k, v, causal=True),
-             "binding": lambda: attn_kernel.flash_attention_cuda(
-                 q, k, v, True, None, 0, Skv)}
+    ``reps`` such runs, the calls in turns, give the least (the call's
+    own cost: other work on the shared host only adds) and the median,
+    by name."""
     times: dict = {name: [] for name in calls}
     for _ in range(reps):
         for name, fn in calls.items():
@@ -2054,8 +2042,25 @@ def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
                 fn()
             times[name].append((time.perf_counter() - t0) / n * 1e6)
             torch.cuda.synchronize()
-    us = {name: (min(ts), statistics.median(ts))
-          for name, ts in times.items()}
+    return {name: (min(ts), statistics.median(ts))
+            for name, ts in times.items()}
+
+
+def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
+    """Host microseconds per eager flash call at the short prompt's
+    shape (bf16, causal): through the wrapper the path calls (checks,
+    route, binding) and through the binding alone (``host_us``). Uses
+    only what the package had before its bf16 kernel ran on the tensor
+    cores, so that it also times an earlier checkout
+    (``--flash-host``)."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    B, Sq, Skv, Hq, Hkv, D = shape
+    q, k, v = attn_inputs(*shape, torch.bfloat16, seed=B * 7 + Sq)
+    us = host_us({"wrapper": lambda: flash_attention(q, k, v, causal=True),
+                  "binding": lambda: attn_kernel.flash_attention_cuda(
+                      q, k, v, True, None, 0, Skv)}, n, reps)
     print(f"[host] {tag}: flash_attention {shape} bf16 causal, us of host "
           f"time per call, least / median of {reps} x {n} calls: wrapper "
           f"{us['wrapper'][0]:.2f} / {us['wrapper'][1]:.2f}, binding "
@@ -2067,12 +2072,10 @@ def evl_host(tag: str, n=500, reps=15):
     """Host microseconds per local step of the EVL loss at the training
     path's shapes: the wrapper's forward with u requiring grad, and that
     forward with its backward (``torch.autograd.grad``), as a training
-    step makes them. Read on the host's clock as ``flash_host`` reads
-    it: the least and the median of ``reps`` runs of ``n`` calls, the two
-    in turns. Calls nothing but ``kernels.evl.ops.evl_loss``, whose
-    signature every version of the port has, so that a copy of this
-    script in an earlier checkout times that version in the same call
-    (``--evl-host``)."""
+    step makes them (``host_us``). Calls nothing but
+    ``kernels.evl.ops.evl_loss``, whose signature every version of the
+    port has, so that a copy of this script in an earlier checkout times
+    that version in the same call (``--evl-host``)."""
     from repro_torch.kernels.evl.ops import evl_loss
 
     betas = (0.93, 0.07, 2.0)
@@ -2081,23 +2084,14 @@ def evl_host(tag: str, n=500, reps=15):
         u = torch.rand(W, N, generator=g).cuda().requires_grad_(True)
         v = (torch.rand(W, N, generator=g) < 0.1).float().cuda()
         gout = torch.rand(W, generator=g).cuda()
-        calls = {"forward": lambda: evl_loss(u, v, *betas, EVL_EPS),
-                 "forward + backward": lambda: torch.autograd.grad(
-                     evl_loss(u, v, *betas, EVL_EPS), u, gout)}
-        times: dict = {name: [] for name in calls}
-        for _ in range(reps):
-            for name, fn in calls.items():
-                fn()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    fn()
-                times[name].append((time.perf_counter() - t0) / n * 1e6)
-                torch.cuda.synchronize()
+        us = host_us({"forward": lambda: evl_loss(u, v, *betas, EVL_EPS),
+                      "forward + backward": lambda: torch.autograd.grad(
+                          evl_loss(u, v, *betas, EVL_EPS), u, gout)},
+                     n, reps)
         print(f"[host] {tag}: evl {(W, N)} mean, us of host time per call, "
               f"least / median of {reps} x {n} calls: " + "; ".join(
-                  f"{name} {min(ts):.2f} / {statistics.median(ts):.2f}"
-                  for name, ts in times.items()))
+                  f"{name} {least:.2f} / {median:.2f}"
+                  for name, (least, median) in us.items()))
 
 
 def ablation_entries(library: str, sources, ablations: dict, entry: str,

@@ -112,7 +112,6 @@ extern "C" {
 int evl_fused(const float* u, const float* v, float* out, float* du, int W,
               int N, float beta0, float beta1, float gamma, float lo,
               float hi, int reduce, void* stream) {
-  if (W <= 0) return 0;
   const EvlParams p{beta0, beta1, gamma, lo, hi};
   const int rows = W < kRowsPerBlock ? W : kRowsPerBlock;
   const dim3 grid((W + kRowsPerBlock - 1) / kRowsPerBlock);
