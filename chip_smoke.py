@@ -4,7 +4,6 @@ NVIDIA H100.
 
     python3 chip_smoke.py            # from the repo root, on the card
     python3 chip_smoke.py --flash-host       # flash's host cost per call
-    python3 chip_smoke.py --evl-host         # EVL's host cost per step
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
     python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
@@ -45,10 +44,10 @@ exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
-``--evl-host``, ``--flash-ablation``, ``--ssd-ablation``,
-``--lstm-ablation`` or ``--evl-ablation`` it runs only that probe
-(``flash_host``, ``evl_host``, ``flash_ablation``, ``ssd_ablation``,
-``lstm_ablation``, ``evl_ablation``) and prints no result.
+``--flash-ablation``, ``--ssd-ablation``, ``--lstm-ablation`` or
+``--evl-ablation`` it runs only that probe (``flash_host``,
+``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
+``evl_ablation``) and prints no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -725,7 +724,9 @@ def check_backward() -> float:
 
 def check_evl() -> float:
     """Phase 2c: the fused EVL kernel (mean, sum, none; u at 0, eps,
-    1 - eps and 1; v at 0 and 1): its loss and du_unit against
+    1 - eps and 1; v at 0 and 1; gamma 2 and 1.5, where the weight's
+    shared power is not exact; W = 40, two blocks with the last one
+    partly empty): its loss and du_unit against
     ``evl_loss_and_grad_ref``, the wrapper's gradient (one launch, the
     backward a multiply) against autograd of the plain loss, a call
     without grad against the plain loss; a row of W = 4 bit for bit the
@@ -736,13 +737,15 @@ def check_evl() -> float:
     from repro_torch.kernels.evl.ref import (evl_loss_and_grad_ref,
                                              evl_loss_ref, reduce_rows)
 
-    betas = (0.93, 0.07, 2.0)
     err = 0.0
 
     def close(a, b):
         return torch.allclose(a, b, rtol=EVL_RTOL, atol=EVL_ATOL)
 
-    for W, N in EVL_SHAPES + [(2, 300)]:
+    cases = [(W, N, gamma) for W, N in EVL_SHAPES + [(2, 300), (40, 32)]
+             for gamma in (2.0, 1.5)]
+    for W, N, gamma in cases:
+        betas = (0.93, 0.07, gamma)
         g = torch.Generator().manual_seed(W * 1000 + N)
         u = torch.rand(W, N, generator=g)
         u[:, :4] = torch.tensor(EVL_EDGES)
@@ -775,17 +778,19 @@ def check_evl() -> float:
             err = max(err, ef, eb)
             ok = (close(out, want) and close(du, dwant) and close(alone, want)
                   and close(got, ref) and close(dk, dr) and no_du is None)
-            print(f"[check] evl W={W} N={N} {reduce}: max |kernel - plain| "
+            print(f"[check] evl W={W} N={N} gamma={gamma} {reduce}: max "
+                  f"|kernel - plain| "
                   f"loss {ef:.3e}, du_unit and the wrapper's dL/du {eb:.3e} "
                   f"(rtol {EVL_RTOL}, atol {EVL_ATOL}); forward + backward "
                   f"{launched} launch {'ok' if ok else 'MISMATCH'}")
             check(ok, f"the evl kernel disagrees with the plain version at "
-                      f"W={W} N={N} reduce={reduce}")
+                      f"W={W} N={N} gamma={gamma} reduce={reduce}")
             check(launched == 1, f"evl forward + backward made {launched} "
                                  f"launches, not 1")
             check(bool((du[:, 0] == 0).all() and (du[:, 3] == 0).all()
                        and (du[:, 1] != 0).all() and (du[:, 2] != 0).all()),
                   "evl dL/du at the clip's edges")
+    betas = (0.93, 0.07, 2.0)
     for reduce in ("mean", "sum", "none"):
         u = torch.rand(4, 32, generator=torch.Generator().manual_seed(5))
         u[:, :4] = torch.tensor(EVL_EDGES)
@@ -1349,10 +1354,14 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
         pfn = lambda: evl_loss_and_grad_ref(u, v, *betas, EVL_EPS, "mean")
         hold("evl", (W, N), kfn(), pfn(), EVL_RTOL, EVL_ATOL)
         bnd, by = evl_bound(W, N)
+        # eager: without grad (the loss alone), and under autograd (with
+        # dL/du, as a training step calls it)
         rows["evl"][(W, N)] = {
             "ms": graph_ms(kfn), "plain_ms": graph_ms(pfn),
             "library_ms": None,
-            "eager_ms": eager_ms(lambda: evl_loss(ug, v, *betas, EVL_EPS)),
+            "eager_ms": eager_ms(lambda: evl_loss(u, v, *betas, EVL_EPS)),
+            "eager_grad_ms": eager_ms(
+                lambda: evl_loss(ug, v, *betas, EVL_EPS)),
             "bound_ms": bnd, "bound_by": by}
     print(f"[check] {tag}: torch.lstm (cuDNN) against the plain layer at "
           f"every timed shape: max |torch.lstm - plain| {lib_err:.3e}, of "
@@ -1375,6 +1384,9 @@ def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
                      f"forward + backward "
                      f"{r['library_fwd_bwd_ms'] * 1e3:.2f} us"
                      if "fwd_bwd_ms" in r else "")
+            if "eager_grad_ms" in r:
+                extra += (f", eager wrapper call under autograd "
+                          f"{r['eager_grad_ms'] * 1e3:.2f} us")
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms'] * 1e3:.2f} us")
             print(f"[time] {tag}: {name} {shape}: kernel "
@@ -2025,13 +2037,25 @@ def time_flash(launches: dict, tag: str):
     return rows, worst
 
 
-def host_us(calls: dict, n: int, reps: int) -> dict:
-    """Host microseconds per call of each of ``calls``, on the host's
+def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
+    """Host microseconds per eager flash call at the short prompt's
+    shape (bf16, causal): through the wrapper the path calls (checks,
+    route, binding) and through the binding alone. Read on the host's
     clock over ``n`` calls with no sync between them, fewer than the
     launch queue holds, so that the kernels cannot hold the host back;
-    ``reps`` such runs, the calls in turns, give the least (the call's
-    own cost: other work on the shared host only adds) and the median,
-    by name."""
+    ``reps`` such runs, the wrapper's and the binding's in turns, give
+    the least (the call's own cost: other work on the shared host only
+    adds) and the median. Uses only what the package had before its
+    bf16 kernel ran on the tensor cores, so that it also times an
+    earlier checkout (``--flash-host``)."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    B, Sq, Skv, Hq, Hkv, D = shape
+    q, k, v = attn_inputs(*shape, torch.bfloat16, seed=B * 7 + Sq)
+    calls = {"wrapper": lambda: flash_attention(q, k, v, causal=True),
+             "binding": lambda: attn_kernel.flash_attention_cuda(
+                 q, k, v, True, None, 0, Skv)}
     times: dict = {name: [] for name in calls}
     for _ in range(reps):
         for name, fn in calls.items():
@@ -2042,56 +2066,13 @@ def host_us(calls: dict, n: int, reps: int) -> dict:
                 fn()
             times[name].append((time.perf_counter() - t0) / n * 1e6)
             torch.cuda.synchronize()
-    return {name: (min(ts), statistics.median(ts))
-            for name, ts in times.items()}
-
-
-def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
-    """Host microseconds per eager flash call at the short prompt's
-    shape (bf16, causal): through the wrapper the path calls (checks,
-    route, binding) and through the binding alone (``host_us``). Uses
-    only what the package had before its bf16 kernel ran on the tensor
-    cores, so that it also times an earlier checkout
-    (``--flash-host``)."""
-    from repro_torch.kernels.attention import kernel as attn_kernel
-    from repro_torch.kernels.attention.ops import flash_attention
-
-    B, Sq, Skv, Hq, Hkv, D = shape
-    q, k, v = attn_inputs(*shape, torch.bfloat16, seed=B * 7 + Sq)
-    us = host_us({"wrapper": lambda: flash_attention(q, k, v, causal=True),
-                  "binding": lambda: attn_kernel.flash_attention_cuda(
-                      q, k, v, True, None, 0, Skv)}, n, reps)
+    us = {name: (min(ts), statistics.median(ts))
+          for name, ts in times.items()}
     print(f"[host] {tag}: flash_attention {shape} bf16 causal, us of host "
           f"time per call, least / median of {reps} x {n} calls: wrapper "
           f"{us['wrapper'][0]:.2f} / {us['wrapper'][1]:.2f}, binding "
           f"{us['binding'][0]:.2f} / {us['binding'][1]:.2f}")
     return us
-
-
-def evl_host(tag: str, n=500, reps=15):
-    """Host microseconds per local step of the EVL loss at the training
-    path's shapes: the wrapper's forward with u requiring grad, and that
-    forward with its backward (``torch.autograd.grad``), as a training
-    step makes them (``host_us``). Calls nothing but
-    ``kernels.evl.ops.evl_loss``, whose signature every version of the
-    port has, so that a copy of this script in an earlier checkout times
-    that version in the same call (``--evl-host``)."""
-    from repro_torch.kernels.evl.ops import evl_loss
-
-    betas = (0.93, 0.07, 2.0)
-    for W, N in EVL_SHAPES:
-        g = torch.Generator().manual_seed(W + N)
-        u = torch.rand(W, N, generator=g).cuda().requires_grad_(True)
-        v = (torch.rand(W, N, generator=g) < 0.1).float().cuda()
-        gout = torch.rand(W, generator=g).cuda()
-        us = host_us({"forward": lambda: evl_loss(u, v, *betas, EVL_EPS),
-                      "forward + backward": lambda: torch.autograd.grad(
-                          evl_loss(u, v, *betas, EVL_EPS), u, gout)},
-                     n, reps)
-        print(f"[host] {tag}: evl {(W, N)} mean, us of host time per call, "
-              f"least / median of {reps} x {n} calls: " + "; ".join(
-                  f"{name} {least:.2f} / {median:.2f}"
-                  for name, (least, median) in us.items()))
 
 
 def ablation_entries(library: str, sources, ablations: dict, entry: str,
@@ -2592,7 +2573,6 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     tag = f"{name} | {card}"
     probes = {"--flash-host": lambda: flash_host(tag),
-              "--evl-host": lambda: evl_host(tag),
               "--flash-ablation": lambda: flash_ablation(card),
               "--ssd-ablation": lambda: ssd_ablation(card),
               "--lstm-ablation": lambda: lstm_ablation(card),

@@ -249,31 +249,34 @@ def _card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
-@pytest.mark.parametrize("W,N", [(1, 32), (4, 32), (2, 300)])
+@pytest.mark.parametrize("W,N", [(1, 32), (4, 32), (2, 300), (40, 32)])
 def test_cuda_kernels_match_plain_version(W, N, reduce):
     """The fused kernel's loss and ``du_unit`` against
     ``evl_loss_and_grad_ref``, u at the clip's edges in every row; the
     wrapper's gradient against autograd of the plain loss, in one
-    launch."""
+    launch. At gamma 2 and 1.5 (where the weight's power, taken as
+    ``pow(a, gamma - 1) * a``, is not exact); W = 40 is two blocks, the
+    last one partly empty."""
     _card()
     u, v = _rows(W, N)
     tu, tv = torch.from_numpy(u).cuda(), torch.from_numpy(v).cuda()
-    out, du = evl_kernel.evl_cuda(tu, tv, *BETAS, EPS, reduce, True)
-    want, dwant = evl_loss_and_grad_ref(tu, tv, *BETAS, EPS, reduce)
-    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(du, dwant, rtol=RTOL, atol=ATOL)
     g = torch.from_numpy(_incoming(W, N, reduce, seed=6)).cuda()
-    uk = tu.clone().requires_grad_(True)
-    ur = tu.clone().requires_grad_(True)
-    before = evl_kernel.EVL_LAUNCHES.total
-    got = evl_loss(uk, tv, *BETAS, EPS, reduce)
-    ref = reduce_rows(evl_loss_ref(ur, tv, *BETAS, EPS), reduce)
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-    (got * g).sum().backward()
-    (ref * g).sum().backward()
-    torch.cuda.synchronize()
-    torch.testing.assert_close(uk.grad, ur.grad, rtol=RTOL, atol=ATOL)
-    assert evl_kernel.EVL_LAUNCHES.total == before + 1
+    for betas in (BETAS, BETAS[:2] + (1.5,)):
+        out, du = evl_kernel.evl_cuda(tu, tv, *betas, EPS, reduce, True)
+        want, dwant = evl_loss_and_grad_ref(tu, tv, *betas, EPS, reduce)
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(du, dwant, rtol=RTOL, atol=ATOL)
+        uk = tu.clone().requires_grad_(True)
+        ur = tu.clone().requires_grad_(True)
+        before = evl_kernel.EVL_LAUNCHES.total
+        got = evl_loss(uk, tv, *betas, EPS, reduce)
+        ref = reduce_rows(evl_loss_ref(ur, tv, *betas, EPS), reduce)
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        (got * g).sum().backward()
+        (ref * g).sum().backward()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(uk.grad, ur.grad, rtol=RTOL, atol=ATOL)
+        assert evl_kernel.EVL_LAUNCHES.total == before + 1
 
 
 @pytest.mark.cuda
