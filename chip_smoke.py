@@ -26,12 +26,19 @@ bf16 on the tensor-core one; at a clip mid-chunk, kernel and plain
 version each against float64). It checks the forecaster's bitwise
 step == replay == generate contract (T = 1 launches against T = 20
 ones) and that a training step puts real gradients on every LSTM
-weight. Then it drives the port's three main
+weight. Then it drives the port's main
 paths: serving the paper LSTM (full width, random weights from seed 0)
 through ``ServingEngine`` and the ``repro_torch.launch.serve`` CLI;
 training it (serial, and asynchronous local SGD with 4 workers at tau 0
 and 1, EVL on) through ``repro_torch.training`` and the
-``repro_torch.launch.train`` CLI; and serving the zoo's Qwen1.5-4B at
+``repro_torch.launch.train`` CLI; the checkpoint bridge (``train
+--save`` then ``serve --checkpoint``, a reload whose predictions are
+bitwise the saved model's, and Mamba2-370M at full width through the
+registry's ``save_bytes``/``load_bytes`` with its dtypes and a flush
+bitwise kept); the paper's event-driven simulator (Table II's
+homogeneous runs at n = 1, 2, 5, 10, K = 2000, EVL on: speedup rising
+with n, 5 paper-kernel launches a local step); and serving the zoo's
+Qwen1.5-4B at
 full width and depth (bf16) through ``ServingEngine`` (a burst of short
 prompts, then one of 2048-token prompts) and the serve CLI, with the
 same model cut to 2 layers in fp32 held against the port on the CPU;
@@ -205,6 +212,10 @@ SERIAL_ITERATIONS = 300
 LOCAL_SGD_ITERATIONS = 800
 COMPARE_SERIAL = 20             # the first iterations held against the CPU
 COMPARE_LOCAL_SGD = 28          # W = 4: rounds of 8 and 20 iterations
+# the paper's simulator, Table II's homogeneous runs: K iterations for
+# each number of clients (benchmarks/bench_speedup.py's K and n)
+SIM_K = 2000
+SIM_CLIENTS = (1, 2, 5, 10)
 
 
 def fail(msg: str) -> None:
@@ -1166,8 +1177,214 @@ def run_clis(window: int) -> None:
           f"--evl-weight 0.5 --device cuda: ok, launches {launched}")
 
 
+def merge_launches(*paths) -> dict:
+    """Launch counts by kernel and shape summed over several paths."""
+    out: dict = {}
+    for launches in paths:
+        for name, by_shape in launches.items():
+            mine = out.setdefault(name, {})
+            for shape, n in by_shape.items():
+                mine[shape] = mine.get(shape, 0) + n
+    return out
+
+
+def checkpoint_main_path(data, tag: str) -> dict:
+    """Phase 6b, the checkpoint bridge: ``repro_torch.launch.train
+    --save`` (W = 4, 200 iterations, EVL 0.5) then ``serve --checkpoint``
+    on the card; in process, ``ModelRegistry().load`` of the file, whose
+    predictions and alert probabilities on the test windows must be
+    bitwise those of the forecaster that was saved (the same weights
+    through the same kernels), at the version max(communications, 1);
+    then Mamba2-370M at full width through ``save_bytes`` /
+    ``load_bytes`` on the card: bf16 leaves come back bf16, dt_bias and
+    A_log fp32, every leaf bitwise, and one predict flush bitwise the
+    same. Every counter is zeroed just before and read just after.
+    Returns the launches by kernel and shape."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.paper_lstm import CONFIG
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch import serve, train
+    from repro_torch.serving import (LSTMForecaster, ModelRegistry,
+                                     build_zoo_forecaster)
+    from repro_torch.tree import tree_flatten_with_path
+
+    train_ds, test_ds = data
+    reset_counters()
+    with tempfile.TemporaryDirectory() as tmp, \
+            no_plain_version_on_the_card() as plain_calls:
+        path = os.path.join(tmp, "trained.npz")
+        res = train.main(["--arch", "paper-lstm", "--workers", "4",
+                          "--iterations", "200", "--evl-weight", "0.5",
+                          "--save", path, "--device", "cuda"])
+        out = serve.main(["--checkpoint", path, "--clients", "32",
+                          "--requests", "128", "--max-batch", "32",
+                          "--device", "cuda"])
+        check(out["traffic"]["requests"] == 128,
+              "serve --checkpoint did not serve every request")
+        lstm_size = os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = ModelRegistry().load(path, key="trained", device="cuda")
+        torch.cuda.synchronize()
+        lstm_load_s = time.perf_counter() - t0
+        saved = LSTMForecaster(cfg=CONFIG, params=res.params,
+                               device="cuda").calibrate(train_ds.x)
+        reg = ModelRegistry()
+        reg.register("trained", saved, version=max(res.communications, 1))
+        t0 = time.perf_counter()
+        reg.save("trained", os.path.join(tmp, "again.npz"))
+        lstm_save_s = time.perf_counter() - t0
+        check(loaded.version == max(res.communications, 1),
+              f"loaded v{loaded.version}, saved after "
+              f"{res.communications} communications")
+        check(loaded.tail == saved.tail and loaded.eps == saved.eps
+              and loaded.cfg == saved.cfg,
+              "the loaded forecaster's calibration or config differs")
+        y1, p1 = loaded.predict(test_ds.x)
+        y0, p0 = saved.predict(test_ds.x)
+        check(np.array_equal(y1, y0) and np.array_equal(p1, p0)
+              and np.all(np.isfinite(y1)),
+              "predictions after the reload differ from the saved model's")
+        print(f"[checkpoint] {tag}: train --save (W=4, 200 iterations, "
+              f"{res.communications} communications) -> serve "
+              f"--checkpoint: 128 requests served; reload v"
+              f"{loaded.version}: {len(y1)} test predictions and alert "
+              f"probabilities bitwise equal to the saved model's; file "
+              f"{lstm_size} bytes, save {lstm_save_s * 1e3:.2f} ms, load "
+              f"{lstm_load_s * 1e3:.2f} ms")
+
+        fc = build_zoo_forecaster(MAMBA_ARCH, seed=0, reduced=False,
+                                  device="cuda")
+        reg.register(MAMBA_ARCH, fc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = reg.save_bytes(MAMBA_ARCH)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ModelRegistry().load_bytes(blob, key=MAMBA_ARCH,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = dict(tree_flatten_with_path(fc.params))
+        dtypes = {}
+        for key, leaf in tree_flatten_with_path(back.params):
+            ref = want[key]
+            check(leaf.is_cuda and leaf.dtype == ref.dtype
+                  and torch.equal(leaf, ref),
+                  f"{MAMBA_ARCH} leaf {'/'.join(map(str, key))} differs "
+                  f"after save_bytes / load_bytes")
+            dtypes[key[-1]] = str(leaf.dtype).removeprefix("torch.")
+        fp32 = sorted(k for k, d in dtypes.items() if d == "float32")
+        check(fp32 == ["A_log", "dt_bias"]
+              and set(dtypes.values()) == {"bfloat16", "float32"},
+              f"{MAMBA_ARCH} dtypes after the round trip: {dtypes}")
+        toks = synthetic_token_batch(8, 32, fc.cfg.vocab, seed=11)
+        tok1, prob1 = back.predict(toks)
+        tok0, prob0 = fc.predict(toks)
+        check(np.array_equal(tok1, tok0) and np.array_equal(prob1, prob0),
+              f"{MAMBA_ARCH}: a predict flush differs after the round trip")
+        print(f"[checkpoint] {tag}: {MAMBA_ARCH} full width "
+              f"({len(want)} leaves, bf16 but {', '.join(fp32)} fp32): "
+              f"save_bytes {len(blob)} bytes in {save_s:.3f} s, load_bytes "
+              f"onto the card {load_s:.3f} s; every leaf bitwise, one "
+              f"predict flush (8 x 32 tokens) bitwise equal")
+        del fc, back, blob
+        torch.cuda.synchronize()
+        launches = read_counters()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    totals = {k: sum(v.values()) for k, v in launches.items()}
+    check(all(totals[k] > 0 for k in (*PAPER_KERNELS, "ssd_scan")),
+          f"the checkpoint path did not launch every kernel it runs: "
+          f"{totals}")
+    print(f"[checkpoint] launches {totals}; no plain version on the card")
+    return launches
+
+
+def simulator_main_path(data, tag: str) -> dict:
+    """Phase 6c, the paper's simulator (Table II, homogeneous speeds):
+    ``repro_torch.core.simulator.AsyncSimulator`` with
+    ``benchmarks/bench_speedup.py``'s settings (K = SIM_K, batch 32,
+    server cost 0.02, network delay (0.005, 0.02), iid client splits)
+    for each n of SIM_CLIENTS, the paper LSTM at full width with EVL
+    0.5, from one seeded init. Speedup must rise with n and each run's
+    final evaluation MSE be finite; every local step launches the layer
+    kernel and its backward once per layer and EVL once, and each
+    evaluation the layer kernel once per layer. Every counter is zeroed
+    just before and read just after. Returns the launches by kernel and
+    shape."""
+    from repro_torch.configs.paper_lstm import CONFIG
+    from repro_torch.core.simulator import AsyncSimulator, SimConfig
+    from repro_torch.data.sharding import client_splits
+    from repro_torch.models.rnn import init_rnn
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.training import loop
+
+    train_ds, test_ds = data
+    init = init_rnn(torch.Generator().manual_seed(0), CONFIG, device="cpu")
+    loss_fn = loop._loss_fn_for(train_ds, CONFIG, 0.5)
+    n_layers = CONFIG.num_layers
+
+    def client(idx):
+        def gen(rng, h, batch):
+            b = [rng.choice(idx, size=batch) for _ in range(h)]
+            return (np.stack([train_ds.x[i] for i in b]),
+                    np.stack([train_ds.y[i] for i in b]),
+                    np.stack([train_ds.v.astype(np.float32)[i] for i in b]),
+                    np.ones((h, batch), np.float32))
+        return gen
+
+    speedups = []
+    reset_counters()
+    with no_plain_version_on_the_card() as plain_calls:
+        for n in SIM_CLIENTS:
+            sim = AsyncSimulator(
+                loss_fn, sgd(), init,
+                [client(s) for s in client_splits(len(train_ds), n, "iid")],
+                SimConfig(n_clients=n, total_iterations=SIM_K, batch_size=32,
+                          heterogeneous_speeds=False, server_cost=0.02,
+                          net_delay=(0.005, 0.02)),
+                eval_fn=lambda p: loop.evaluate(p, CONFIG, test_ds)[0],
+                device="cuda")
+            before = paper_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = sim.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: c - before[k] for k, c in paper_counts().items()}
+            steps, evals = s["iterations"], len(s["eval_log"])
+            want = {"lstm_layer": n_layers * (steps + evals),
+                    "lstm_layer_bwd": n_layers * steps, "evl": steps}
+            check(launched == want,
+                  f"simulator n={n}: launches {launched}, not {want}: not "
+                  f"{2 * n_layers + 1} per local step + {n_layers} per "
+                  f"evaluation")
+            mse = s["eval_log"][-1][1]
+            check(np.isfinite(mse), f"simulator n={n}: final MSE {mse}")
+            speedups.append(s["speedup"])
+            print(f"[simulator] {tag}: n={n}: speedup {s['speedup']:.4f}, "
+                  f"communications {s['communications']}, max staleness "
+                  f"{s['max_staleness']}, makespan {s['makespan']:.4f}, "
+                  f"final MSE {mse:.6f}; {steps} local steps + {evals} "
+                  f"evaluations in {wall:.3f} s wall "
+                  f"({wall / steps * 1e3:.3f} ms a step); launches "
+                  f"{launched}")
+        launches = read_counters()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    check(all(a < b for a, b in zip(speedups, speedups[1:])),
+          f"speedup does not rise with n: {speedups}")
+    print(f"[simulator] Table II (homogeneous, K={SIM_K}): speedups "
+          f"{dict(zip(SIM_CLIENTS, (round(x, 4) for x in speedups)))}; no "
+          f"plain version on the card")
+    return launches
+
+
 def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
-    """Phase 7: each kernel at every shape of the two paths, held against
+    """Phase 7: each kernel at every shape of the paper LSTM's paths
+    (serving; training, the checkpoint bridge and the simulator, summed
+    in ``train_launches``), held against
     its plain version on the same inputs, then its device time beside
     the plain version's, its PyTorch yardstick (never called by the port)
     and its bound. Returns rows by kernel and shape, the launches on the
@@ -2601,8 +2818,15 @@ def main() -> None:
         "serve paper-lstm", serve_main_path, fc, tag)
     train_launches = timed("train paper-lstm", train_main_path, data, tag)
     timed("paper-lstm CLIs", run_clis, fc.window)
+    ckpt_launches = timed("checkpoint bridge", checkpoint_main_path, data,
+                          tag)
+    sim_launches = timed("simulator (Table II)", simulator_main_path, data,
+                         tag)
+    paper_launches = {k: v for k, v in merge_launches(
+        train_launches, ckpt_launches, sim_launches).items()
+        if k in PAPER_KERNELS}
     rows, every, path_errs = timed("time paper-lstm kernels", time_kernels,
-                                   serve_launches, train_launches, tag)
+                                   serve_launches, paper_launches, tag)
     errs = {k: max(errs[k], path_errs.get(k, 0.0)) for k in errs}
     timed("profile paper-lstm serving", profile_serving, fc, payloads,
           sessions, tag)
@@ -2627,6 +2851,8 @@ def main() -> None:
     timed(f"{MAMBA_ARCH} card vs CPU", zoo_card_vs_cpu, MAMBA_ARCH, tag,
           MAMBA_NOISE)
     timed(f"{MAMBA_ARCH} CLI", zoo_cli, MAMBA_ARCH, "ssd_scan")
+    ssd_launches = merge_launches({"ssd_scan": ssd_launches},
+                                  ckpt_launches)["ssd_scan"]
     rows["ssd_scan"], ssd_err = timed("time ssd_scan", time_ssd,
                                       ssd_launches, tag)
     every["ssd_scan"] = ssd_launches

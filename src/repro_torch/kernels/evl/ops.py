@@ -7,7 +7,9 @@ A CUDA tensor goes to the hand-written kernel or raises: under autograd
 ``EVLFunction`` launches it once for the loss and its derivative in u
 together, and its backward is the chain rule's multiply alone. A CPU
 tensor goes to the plain version (``ref.evl_loss_ref`` plus the
-reduction), which torch autograd differentiates.
+reduction), which torch autograd differentiates. With no rows (W = 0)
+the card launches nothing, as the LSTM wrapper does on empty inputs,
+and the result is empty: [0] for mean and sum, [0, N] for none.
 """
 
 from __future__ import annotations
@@ -44,13 +46,23 @@ def evl_loss(u, v, beta0: float, beta1: float, gamma: float = 2.0,
                              f"is not")
     if torch.is_grad_enabled() and u.requires_grad:
         return EVLFunction.apply(u, v, beta0, beta1, gamma, eps, reduce)
+    if u.shape[0] == 0:           # no rows: CUDA refuses a grid of 0 blocks
+        return _empty(u, reduce)
     return kernel.evl_cuda(u, v, beta0, beta1, gamma, eps, reduce,
                            with_grad=False)[0]
 
 
+def _empty(u, reduce):
+    """The loss of W = 0 rows: [0] for mean and sum, [0, N] for none."""
+    return u.new_empty(tuple(u.shape) if reduce == "none" else (0,))
+
+
 def _loss_and_grad(u, v, beta0, beta1, gamma, eps, reduce):
     """The fused function, routed by device: the kernel for a CUDA
-    tensor, ``evl_loss_and_grad_ref`` for a CPU one."""
+    tensor (no launch for W = 0 rows: an empty loss and a [0, N]
+    ``du_unit``), ``evl_loss_and_grad_ref`` for a CPU one."""
+    if u.device.type == "cuda" and u.shape[0] == 0:
+        return _empty(u, reduce), torch.empty_like(u)
     if u.device.type == "cuda":
         return kernel.evl_cuda(u, v, beta0, beta1, gamma, eps, reduce,
                                with_grad=True)

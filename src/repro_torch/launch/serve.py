@@ -10,6 +10,11 @@ traffic trace against it.
     # the same on the CPU (plain PyTorch path, no kernel)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
+    # a trained serving checkpoint (``repro_torch.launch.train --save``,
+    # or the JAX package's ``repro.launch.train --save``)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --checkpoint /tmp/ckpt.npz --requests 64
+
     # a zoo arch at full width on the card (Qwen1.5-4B, bf16), serving
     # next-token forecasts over synthetic 32-token prompts; without
     # --no-reduced it hosts the reduced (2-layer, CPU smoke) config
@@ -66,6 +71,10 @@ def main(argv: list[str] | None = None) -> dict:
                     choices=["paper-lstm", *list_archs()],
                     help="the model to host: the paper LSTM or a zoo arch "
                     "the port runs")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="host a trained serving checkpoint (the output "
+                    "of `-m repro_torch.launch.train --save`) under the "
+                    "--model key instead of a freshly initialized model")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the reduced (CPU smoke) zoo config; "
@@ -96,12 +105,18 @@ def main(argv: list[str] | None = None) -> dict:
                                      build_zoo_forecaster)
 
     registry = ModelRegistry()
-    if args.model == "paper-lstm":
+    if args.checkpoint:
+        fc = registry.load(args.checkpoint, key=args.model,
+                           device=args.device)
+        print(f"hosting checkpoint {args.checkpoint} as {args.model!r} "
+              f"(kind={fc.kind}, v{registry.version(args.model)})")
+    elif args.model == "paper-lstm":
         fc = build_lstm_forecaster(seed=args.seed, device=args.device)
     else:
         fc = build_zoo_forecaster(args.model, seed=args.seed,
                                   reduced=args.reduced, device=args.device)
-    registry.register(args.model, fc)
+    if args.model not in registry:
+        registry.register(args.model, fc)
     print(f"hosting {args.model!r} on {fc.device}")
 
     labels = np.zeros((0,), np.int64)

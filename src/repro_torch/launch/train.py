@@ -9,9 +9,14 @@ stock windows with n workers and the linear schedule, on the card.
     PYTHONPATH=src python -m repro_torch.launch.train --workers 1 \
         --iterations 200 --device cpu
 
-The port of ``repro.launch.train``'s ``paper-lstm`` path. Still to come
-in later slices: ``--save`` (a serving checkpoint, which needs the
-checkpoint bridge) and the model-zoo path (``--arch <zoo id>``).
+    # save the trained model as a serving checkpoint, then serve it
+    PYTHONPATH=src python -m repro_torch.launch.train --workers 4 \
+        --iterations 200 --evl-weight 0.5 --save /tmp/ckpt.npz
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --checkpoint /tmp/ckpt.npz
+
+The port of ``repro.launch.train``'s ``paper-lstm`` path; the
+model-zoo path (``--arch <zoo id>``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -61,7 +66,26 @@ def run_paper_lstm(args, round_callback=None):
           f"{res.communications}, comm bytes {res.comm_bytes/1e6:.2f} MB")
     if res.test_extreme:
         print("extreme-event:", res.test_extreme)
+    if args.save:
+        _save_serving_checkpoint(args.save, res, train_ds, args.device)
     return res
+
+
+def _save_serving_checkpoint(path: str, res, train_ds, device) -> None:
+    """Persist the trained model as a serving checkpoint: the
+    EVT-calibrated forecaster with model-version metadata (the version
+    is the number of cross-worker exchanges that produced the weights,
+    so a registry that later loads it slots into the monotone version
+    sequence)."""
+    from repro_torch.configs.paper_lstm import CONFIG
+    from repro_torch.serving import LSTMForecaster, ModelRegistry
+
+    fc = LSTMForecaster(cfg=CONFIG, params=res.params, device=device)
+    fc.calibrate(train_ds.x)
+    reg = ModelRegistry()
+    reg.register("trained", fc, version=max(res.communications, 1))
+    reg.save("trained", path)
+    print(f"saved serving checkpoint v{reg.version('trained')} -> {path}")
 
 
 def main(argv: list[str] | None = None):
@@ -80,6 +104,9 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--evl-weight", type=float, default=0.0)
     ap.add_argument("--constant-rounds", type=int, default=0,
                     help="use constant local-SGD schedule of this size")
+    ap.add_argument("--save", default=None, metavar="PATH",
+                    help="save the trained paper model as a serving "
+                    "checkpoint (EVT-calibrated, version metadata)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default: the hand-written kernels) or "
                     "cpu (the plain PyTorch path)")

@@ -29,6 +29,24 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_flatten_with_path(tree, path=()) -> list:
+    """[(path, leaf)] in ``tree_map``'s order. A leaf's path is the tuple
+    of the dict keys, sequence indices and named-tuple field names that
+    lead to it, as ``jax.tree_util.tree_flatten_with_path`` names them;
+    ``None`` subtrees have no leaves. (A walk of its own: ``tree_map``
+    runs on every training step and stays free of path bookkeeping.)"""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = zip(getattr(tree, "_fields", range(len(tree))), tree)
+    else:
+        return [(path, tree)]
+    return [pair for key, sub in items
+            for pair in tree_flatten_with_path(sub, path + (key,))]
+
+
 def tree_unflatten(like, leaves):
     """A nest shaped like ``like`` whose leaves are ``leaves``, in
     ``tree_leaves`` order."""

@@ -122,6 +122,32 @@ def test_rows_are_vmapped_reference():
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
+def test_no_rows_give_an_empty_loss_like_the_reference(reduce):
+    """W = 0: the loss is empty, [0] for mean and sum and [0, N] for
+    none, as ``jax.vmap`` of the reference gives it; under autograd (the
+    plain route and ``EVLFunction`` applied on the CPU) the gradient is
+    [0, N]."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.extreme.evl import evl_loss as jax_evl_loss
+
+    u = np.zeros((0, 32), np.float32)
+    want = jax.vmap(lambda a, b: jax_evl_loss(a, b, *BETAS, reduce=reduce))(
+        jnp.asarray(u), jnp.asarray(u))
+    tu, tv = torch.from_numpy(u), torch.from_numpy(u)
+    for loss in (lambda a: evl_loss(a, tv, *BETAS, EPS, reduce),
+                 lambda a: EVLFunction.apply(a, tv, *BETAS, EPS, reduce),
+                 lambda a: tevl.evl_loss(a, tv, *BETAS, EPS, reduce)):
+        assert tuple(loss(tu).shape) == tuple(want.shape)
+        ug = tu.clone().requires_grad_(True)
+        out = loss(ug)
+        assert tuple(out.shape) == tuple(want.shape)
+        out.sum().backward()
+        assert tuple(ug.grad.shape) == (0, 32)
+
+
 def test_weights_and_bce_match_reference():
     import jax.numpy as jnp
 
@@ -322,6 +348,27 @@ def test_cuda_call_without_grad_writes_no_gradient():
         got = evl_loss(u.clone().requires_grad_(True), v, *BETAS)
     assert got.grad_fn is None and torch.equal(got, out)
     assert evl_kernel.EVL_LAUNCHES.total == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["mean", "sum", "none"])
+def test_cuda_no_rows_launch_nothing(reduce):
+    """W = 0 on the card: an empty loss on the card ([0], or [0, N] for
+    none) and under autograd a [0, N] gradient, with no launch (CUDA
+    refuses a grid of 0 blocks)."""
+    _card()
+    u = torch.zeros((0, 32), device="cuda")
+    want = (0, 32) if reduce == "none" else (0,)
+    before = evl_kernel.EVL_LAUNCHES.total
+    out = evl_loss(u, u, *BETAS, EPS, reduce)
+    assert tuple(out.shape) == want and out.is_cuda
+    ug = u.clone().requires_grad_(True)
+    out = evl_loss(ug, u, *BETAS, EPS, reduce)
+    assert tuple(out.shape) == want
+    out.sum().backward()
+    assert tuple(ug.grad.shape) == (0, 32) and ug.grad.is_cuda
+    torch.cuda.synchronize()
+    assert evl_kernel.EVL_LAUNCHES.total == before
 
 
 @pytest.mark.cuda

@@ -56,3 +56,41 @@ def test_quantile_thresholds_and_indicator_match_reference():
         indicators.indicator_sequence(y, 0.0, 0.1)
     # degenerate data falls back to a small positive epsilon
     assert indicators.quantile_thresholds(np.zeros(10)) == (1e-6, 1e-6)
+
+
+def _returns():
+    """The training windows' next-step returns and thresholds, as the
+    paper's sensitivity study feeds the resamplers."""
+    from repro.data import load_stock, make_windows, train_test_split
+
+    tr, _ = train_test_split(load_stock("AAPL", n_days=400, seed=0))
+    ds = make_windows(tr)
+    return ds.returns, ds.eps1, ds.eps2
+
+
+@pytest.mark.parametrize("seed", [None, 0, 7])
+def test_resampling_matches_reference(seed):
+    """The three strategies of the sensitivity study, array-equal to
+    ``repro.extreme.resampling`` (the same numpy rng draws)."""
+    from repro.extreme import resampling as jres
+    from repro_torch.extreme import resampling
+
+    targets, e1, e2 = _returns()
+    rng = lambda: None if seed is None else np.random.default_rng(seed)
+    np.testing.assert_array_equal(resampling.plain_windows(57, rng()),
+                                  jres.plain_windows(57, rng()))
+    for f in (0.1, 0.3, 0.6):
+        got = resampling.oversample_extreme_windows(targets, e1, e2, f, rng())
+        want = jres.oversample_extreme_windows(targets, e1, e2, f, rng())
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    # data without extremes: every window once
+    flat = np.zeros(33, np.float32)
+    np.testing.assert_array_equal(
+        resampling.oversample_extreme_windows(flat, e1, e2, rng=rng()),
+        jres.oversample_extreme_windows(flat, e1, e2, rng=rng()))
+    got = resampling.evl_sample_weights(targets, e1, e2)
+    want = jres.evl_sample_weights(targets, e1, e2)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert sorted(resampling.RESAMPLERS) == sorted(jres.RESAMPLERS)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports jax or anything of ``repro``; every entry
+``chip_smoke.py`` imports jax or anything of ``repro``, nor ``msgpack``
+or ``ml_dtypes`` (which the card's Python may lack); every entry
 point defaults to the card; and on a machine without one,
 ``chip_smoke.py`` and the serve and train CLIs fail instead of carrying
 on on the CPU."""
@@ -16,11 +17,13 @@ import torch
 
 from repro_torch.checkpoint.convert import (params_from_numpy,
                                            zoo_params_from_numpy)
+from repro_torch.core.simulator import AsyncSimulator
 from repro_torch.launch import serve, train
 from repro_torch.models.rnn import init_rnn
 from repro_torch.serving.forecaster import (LSTMForecaster, ZooForecaster,
                                             build_lstm_forecaster,
                                             build_zoo_forecaster)
+from repro_torch.serving.registry import ModelRegistry
 from repro_torch.training.loop import train_rnn_local_sgd, train_rnn_serial
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,7 +45,8 @@ def _imports(path: Path) -> list[str]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     bad = [n for n in _imports(path)
-           if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                  "ml_dtypes")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -65,6 +69,10 @@ def test_port_package_is_complete():
     # the Mamba2 serving slice's modules
     assert {"configs/mamba2_370m.py", "models/ssm.py", "kernels/ssd/ref.py",
             "kernels/ssd/kernel.py", "kernels/ssd/ops.py"} <= names
+    # the checkpoint bridge's and the simulator's
+    assert {"checkpoint/io.py", "checkpoint/_msgpack.py", "core/delay.py",
+            "core/simulator.py", "extreme/resampling.py",
+            "serving/registry.py"} <= names
     for src in ("kernels/lstm/csrc/lstm_layer.cu",
                 "kernels/lstm/csrc/lstm_layer_bwd.cu",
                 "kernels/evl/csrc/evl.cu",
@@ -76,7 +84,8 @@ def test_port_package_is_complete():
 def test_entry_points_default_to_cuda():
     for fn in (build_lstm_forecaster, init_rnn, params_from_numpy,
                train_rnn_serial, train_rnn_local_sgd, build_zoo_forecaster,
-               zoo_params_from_numpy):
+               zoo_params_from_numpy, AsyncSimulator, ModelRegistry.load,
+               ModelRegistry.load_bytes):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     for fc in (LSTMForecaster, ZooForecaster):
         assert fc.__dataclass_fields__["device"].default == "cuda"
