@@ -37,7 +37,12 @@ bitwise the saved model's, and Mamba2-370M at full width through the
 registry's ``save_bytes``/``load_bytes`` with its dtypes and a flush
 bitwise kept); the paper's event-driven simulator (Table II's
 homogeneous runs at n = 1, 2, 5, 10, K = 2000, EVL on: speedup rising
-with n, 5 paper-kernel launches a local step); and serving the zoo's
+with n, 5 paper-kernel launches a local step); the online path
+(``repro_torch.launch.online``: a trainer thread publishing every
+round's average into the registry while the engine serves 400 req/s,
+the two threads' launches adding up exactly, every request answered
+across at least 3 versions, the final version the trainer's weights and
+a bitwise reload); and serving the zoo's
 Qwen1.5-4B at
 full width and depth (bf16) through ``ServingEngine`` (a burst of short
 prompts, then one of 2048-token prompts) and the serve CLI, with the
@@ -216,6 +221,12 @@ COMPARE_LOCAL_SGD = 28          # W = 4: rounds of 8 and 20 iterations
 # each number of clients (benchmarks/bench_speedup.py's K and n)
 SIM_K = 2000
 SIM_CLIENTS = (1, 2, 5, 10)
+# the online path: train and serve in one process, the paper LSTM at full
+# width, W = 4 workers, EVL on, a publish every round
+ONLINE_ARGS = ["--workers", "4", "--iterations", "400", "--evl-weight",
+               "0.5", "--requests", "400", "--rps", "400", "--max-batch",
+               "16", "--calib-windows", "64", "--min-publish-interval-ms",
+               "0"]
 
 
 def fail(msg: str) -> None:
@@ -1056,7 +1067,8 @@ def train_main_path(data, tag: str):
     are held against the same runs of the port on the CPU, and each
     run's test MSE (the kernel over the whole test set in one launch per
     step) against the CPU's plain path on the trained weights. Returns
-    the launches by kernel and shape."""
+    the launches by kernel and shape, and each run's wall ms a local
+    step."""
     from repro_torch.checkpoint.convert import params_to
     from repro_torch.configs.paper_lstm import CONFIG
     from repro_torch.models.rnn import init_rnn
@@ -1066,6 +1078,7 @@ def train_main_path(data, tag: str):
 
     train_ds, test_ds = data
     init = init_rnn(torch.Generator().manual_seed(0), CONFIG, device="cpu")
+    step_ms = {}
     runs = [("serial", train_rnn_serial, {}, SERIAL_ITERATIONS,
              COMPARE_SERIAL),
             ("local SGD W=4 tau=0", train_rnn_local_sgd,
@@ -1108,6 +1121,7 @@ def train_main_path(data, tag: str):
                   f"{name}: the loss did not fall ({hist[:k].mean():.5f} -> "
                   f"{hist[-k:].mean():.5f})")
             steps = res.iterations // kw.get("n_workers", 1)
+            step_ms[name] = wall / steps * 1e3
             # each local step: the layer forward and backward once per
             # layer at T = window, the EVL loss with its dL/du once;
             # then evaluate's forward, once per layer
@@ -1150,7 +1164,7 @@ def train_main_path(data, tag: str):
     check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
     print(f"[train] kernel launches on the training path by shape: "
           f"{launches}; no plain version on the card")
-    return launches
+    return launches, step_ms
 
 
 def run_clis(window: int) -> None:
@@ -1186,6 +1200,26 @@ def merge_launches(*paths) -> dict:
             for shape, n in by_shape.items():
                 mine[shape] = mine.get(shape, 0) + n
     return out
+
+
+def check_reload(loaded, saved, version: int, windows, what: str) -> int:
+    """A serving checkpoint reloaded onto the card against the forecaster
+    that was saved: the same version, config and calibration, and
+    predictions and alert probabilities on ``windows`` bitwise the same
+    (the same weights through the same kernels). Returns the number of
+    predictions compared."""
+    check(loaded.version == version,
+          f"{what}: loaded v{loaded.version}, saved v{version}")
+    check(loaded.tail == saved.tail and loaded.eps == saved.eps
+          and loaded.cfg == saved.cfg,
+          f"{what}: the loaded forecaster's calibration or config differs")
+    y1, p1 = loaded.predict(windows)
+    y0, p0 = saved.predict(windows)
+    check(np.array_equal(y1, y0) and np.array_equal(p1, p0)
+          and np.all(np.isfinite(y1)),
+          f"{what}: predictions after the reload differ from the saved "
+          f"model's")
+    return len(y1)
 
 
 def checkpoint_main_path(data, tag: str) -> dict:
@@ -1236,21 +1270,12 @@ def checkpoint_main_path(data, tag: str) -> dict:
         t0 = time.perf_counter()
         reg.save("trained", os.path.join(tmp, "again.npz"))
         lstm_save_s = time.perf_counter() - t0
-        check(loaded.version == max(res.communications, 1),
-              f"loaded v{loaded.version}, saved after "
-              f"{res.communications} communications")
-        check(loaded.tail == saved.tail and loaded.eps == saved.eps
-              and loaded.cfg == saved.cfg,
-              "the loaded forecaster's calibration or config differs")
-        y1, p1 = loaded.predict(test_ds.x)
-        y0, p0 = saved.predict(test_ds.x)
-        check(np.array_equal(y1, y0) and np.array_equal(p1, p0)
-              and np.all(np.isfinite(y1)),
-              "predictions after the reload differ from the saved model's")
+        n_pred = check_reload(loaded, saved, max(res.communications, 1),
+                              test_ds.x, "train --save")
         print(f"[checkpoint] {tag}: train --save (W=4, 200 iterations, "
               f"{res.communications} communications) -> serve "
               f"--checkpoint: 128 requests served; reload v"
-              f"{loaded.version}: {len(y1)} test predictions and alert "
+              f"{loaded.version}: {n_pred} test predictions and alert "
               f"probabilities bitwise equal to the saved model's; file "
               f"{lstm_size} bytes, save {lstm_save_s * 1e3:.2f} ms, load "
               f"{lstm_load_s * 1e3:.2f} ms")
@@ -1381,10 +1406,137 @@ def simulator_main_path(data, tag: str) -> dict:
     return launches
 
 
+def online_main_path(alone_ms: float, tag: str) -> dict:
+    """Phase 6d, training and serving at once: ``repro_torch.launch.online``
+    in process (``run``, ONLINE_ARGS, ``--save``): the trainer thread runs
+    asynchronous local SGD (W = 4, EVL 0.5) and publishes every round's
+    average, re-calibrated on 64 windows, into the registry the engine's
+    flush thread serves from, while this thread plays 400 req/s of client
+    traffic. The launch counters are zeroed after the engine's warmup
+    (``on_serving``) and read when ``run`` returns; the two threads'
+    launches must add up exactly. Every request must be answered, across
+    at least 3 versions; the final version must hold the trainer's final
+    weights, serve them as a fresh forecaster does, carry the calibration
+    a fresh ``calibrate`` gives, and reload from ``--save`` bitwise.
+    ``alone_ms`` is ``train_main_path``'s W = 4 local step alone, printed
+    beside the trainer's step under traffic. Returns the launches by
+    kernel and shape."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.paper_lstm import CONFIG
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import online
+    from repro_torch.serving import LSTMForecaster, ModelRegistry
+    from repro_torch.tree import tree_leaves
+
+    predicts_before = []
+
+    def on_serving():
+        reset_counters()
+        predicts_before.append(counts["predict"])
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            no_plain_version_on_the_card() as plain_calls, \
+            dispatch.counting() as counts:
+        path = os.path.join(tmp, "online.npz")
+        args = online.parse_args([*ONLINE_ARGS, "--save", path,
+                                  "--device", "cuda"])
+        out = online.run(args, on_serving=on_serving)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        n_predict = counts["predict"] - predicts_before[0]
+        snap, res, registry = out["snapshot"], out["result"], out["registry"]
+        published = out["publisher"]["published"]
+        train_ds, test_ds = out["data"]
+        # one local step runs all W workers: each LSTM layer's forward and
+        # backward once and EVL once, whatever W
+        check(res.iterations % args.workers == 0,
+              f"{res.iterations} iterations over {args.workers} workers")
+        steps = res.iterations // args.workers
+        flushes = snap["batches"]
+        n_layers = len(res.params["lstm"])
+        totals = {k: sum(v.values()) for k, v in launches.items()}
+        want = {"lstm_layer": n_layers * (steps + published + flushes + 1),
+                "lstm_layer_bwd": n_layers * steps, "evl": steps,
+                "flash_attention": 0, "ssd_scan": 0}
+        check(totals == want,
+              f"online launches {totals}, not {want}: {steps} local steps, "
+              f"{published} publishes (a calibration predict each), "
+              f"{flushes} serving flushes and one evaluate, "
+              f"{n_layers} layers")
+        check(n_predict == flushes + published,
+              f"{n_predict} predict dispatches for {flushes} flushes and "
+              f"{published} calibrations")
+        check(out["served"] >= 400 and snap["requests"] == out["served"],
+              f"served {out['served']}, the engine answered "
+              f"{snap['requests']}")
+        by_version = snap["requests_by_version"]
+        check(len(by_version) >= 3,
+              f"requests served by {len(by_version)} versions: {by_version}")
+        check(snap["swaps"] == published,
+              f"{snap['swaps']} swaps for {published} publishes")
+        final_v = registry.version(online.KEY)
+        check(final_v == 1 + published
+              and out["publisher"]["last_version"] == final_v,
+              f"final version v{final_v} after {published} publishes")
+        final = registry.get(online.KEY)
+        for got, want_p in zip(tree_leaves(final.params),
+                               tree_leaves(res.params)):
+            check(got.is_cuda and not got.requires_grad
+                  and torch.allclose(got, want_p, rtol=1e-6, atol=0),
+                  "the final served weights differ from the trainer's")
+        fresh = LSTMForecaster(cfg=CONFIG, params=final.params,
+                               tail=final.tail, eps=final.eps,
+                               gamma=final.gamma, device="cuda")
+        y1, p1 = final.predict(test_ds.x)
+        y0, p0 = fresh.predict(test_ds.x)
+        check(np.array_equal(y1, y0) and np.array_equal(p1, p0)
+              and np.all(np.isfinite(y1)),
+              "the final version predicts otherwise than a fresh forecaster "
+              "on its weights")
+        recal = LSTMForecaster(cfg=CONFIG, params=final.params,
+                               device="cuda").calibrate(out["calib"])
+        check(recal.tail == final.tail and recal.eps == final.eps,
+              f"the final version's calibration {final.tail} {final.eps} "
+              f"!= a fresh calibrate's {recal.tail} {recal.eps}")
+        n_pred = check_reload(
+            ModelRegistry().load(path, key=online.KEY, device="cuda"),
+            final, final_v, test_ds.x, "online --save")
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    pubs = out["publish_s"]
+    under_ms = (out["train_s"] - sum(pubs)) / steps * 1e3
+    print(f"[online] {tag}: W=4, {res.iterations} iterations ({steps} local "
+          f"steps, {res.communications} rounds), EVL 0.5, while serving: "
+          f"{out['served']} requests in {out['wall_s']:.3f} s wall, "
+          f"{snap['throughput_rps']:.1f} req/s served, {flushes} flushes, "
+          f"p50 {snap['p50_ms']:.3f} ms, p95 {snap['p95_ms']:.3f} ms, p99 "
+          f"{snap['p99_ms']:.3f} ms; staleness at serve p50 "
+          f"{snap['staleness_p50_s'] * 1e3:.2f} ms, p95 "
+          f"{snap['staleness_p95_s'] * 1e3:.2f} ms")
+    print(f"[online] {tag}: {published} publishes (calibrate on 64 windows "
+          f"+ swap): median {statistics.median(pubs) * 1e3:.3f} ms, max "
+          f"{max(pubs) * 1e3:.3f} ms; requests by version "
+          f"{dict(sorted(by_version.items()))}; final v{final_v}")
+    print(f"[online] {tag}: the trainer's local step under traffic "
+          f"{under_ms:.3f} ms (trainer wall {out['train_s']:.3f} s less "
+          f"the publishes), alone {alone_ms:.3f} ms (train_main_path, W=4 "
+          f"tau=0, this call)")
+    print(f"[online] launches {totals} = {n_layers} x ({steps} local "
+          f"steps + {published} publishes + {flushes} flushes + 1 evaluate) "
+          f"forward, {n_layers} x {steps} backward, {steps} EVL; final "
+          f"weights "
+          f"within rtol 1e-6 of the trainer's, {len(y1)} test predictions "
+          f"bitwise a fresh forecaster's, calibration bitwise a fresh "
+          f"calibrate's, --save reload bitwise ({n_pred} predictions); no "
+          f"plain version on the card")
+    return launches
+
+
 def time_kernels(serve_launches: dict, train_launches: dict, tag: str):
     """Phase 7: each kernel at every shape of the paper LSTM's paths
-    (serving; training, the checkpoint bridge and the simulator, summed
-    in ``train_launches``), held against
+    (serving; training, the checkpoint bridge, the simulator and the
+    online path, summed in ``train_launches``), held against
     its plain version on the same inputs, then its device time beside
     the plain version's, its PyTorch yardstick (never called by the port)
     and its bound. Returns rows by kernel and shape, the launches on the
@@ -1627,7 +1779,6 @@ def profile(label: str, drive, tag: str):
     device time of the kernels it launched, and adding it too would count
     those kernels twice. Returns (wall us, busy us, [(us, count, kernel
     name)] largest first)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -1636,6 +1787,13 @@ def profile(label: str, drive, tag: str):
         drive()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return busy_share(label, prof, wall_us, tag)
+
+
+def busy_share(label: str, prof, wall_us: float, tag: str):
+    """``profile``'s reading of a finished profiler over ``wall_us``."""
+    from torch.autograd import DeviceType
+
     kernels = sorted(((e.self_device_time_total, e.count, e.key)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
@@ -1716,6 +1874,33 @@ def profile_training(train_ds, tag: str) -> None:
           f"{want}: not {2 * n_layers + 1} per local step")
     print(f"[profile] {tag}: {n} kernel launches in 15 local steps = "
           f"{n / 15:.1f} per local step ({read_counters()})")
+
+
+def profile_online(tag: str) -> None:
+    """Phase 8c, where the online path's time goes: the device's busy
+    share over ``repro_torch.launch.online.run`` (ONLINE_ARGS, no
+    ``--save``) from the engine's warmup to its return, the trainer's,
+    the flush thread's and the calibrations' kernels together."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch.launch import online
+
+    prof = torch_profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+    t0 = []
+
+    def on_serving():
+        prof.start()
+        t0.append(time.perf_counter())
+
+    out = online.run(online.parse_args([*ONLINE_ARGS, "--device", "cuda"]),
+                     on_serving=on_serving)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0[0]) * 1e6
+    prof.stop()
+    busy_share(f"online, W=4 training + {out['served']} requests "
+               f"({out['publisher']['published']} publishes)", prof,
+               wall_us, tag)
 
 
 def attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed=0):
@@ -2816,21 +3001,25 @@ def main() -> None:
     fc = timed("check forecaster", check_forecaster)
     serve_launches, payloads, sessions = timed(
         "serve paper-lstm", serve_main_path, fc, tag)
-    train_launches = timed("train paper-lstm", train_main_path, data, tag)
+    train_launches, train_step_ms = timed("train paper-lstm",
+                                          train_main_path, data, tag)
     timed("paper-lstm CLIs", run_clis, fc.window)
     ckpt_launches = timed("checkpoint bridge", checkpoint_main_path, data,
                           tag)
     sim_launches = timed("simulator (Table II)", simulator_main_path, data,
                          tag)
+    online_launches = timed("online (train + serve)", online_main_path,
+                            train_step_ms["local SGD W=4 tau=0"], tag)
     paper_launches = {k: v for k, v in merge_launches(
-        train_launches, ckpt_launches, sim_launches).items()
-        if k in PAPER_KERNELS}
+        train_launches, ckpt_launches, sim_launches,
+        online_launches).items() if k in PAPER_KERNELS}
     rows, every, path_errs = timed("time paper-lstm kernels", time_kernels,
                                    serve_launches, paper_launches, tag)
     errs = {k: max(errs[k], path_errs.get(k, 0.0)) for k in errs}
     timed("profile paper-lstm serving", profile_serving, fc, payloads,
           sessions, tag)
     timed("profile paper-lstm training", profile_training, data[0], tag)
+    timed("profile online", profile_online, tag)
     zoo_fc, flash_launches, init_s = timed(
         f"serve {ZOO_ARCH}", zoo_serve_main_path, ZOO_ARCH, "flash_attention",
         tag)

@@ -18,11 +18,15 @@ timestamps exactly, so their spans cover a request end to end.
 The in-process half of ``repro.obs.trace``: the cross-process stitching
 (``adopt``, ``add_spans``, ``export``) waits for the port's process
 mesh. ``Tracer(enabled=False)`` returns None from ``start`` and records
-nothing.
+nothing. ``Trace.to_dict`` is what the metrics endpoint's ``/traces``
+serves: spans numbered in recording order, and a trace id made only
+when it is first read.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import threading
 import time
 from collections import deque
@@ -31,25 +35,37 @@ from collections import deque
 _EPOCH = time.time() - time.perf_counter()
 _perf_counter = time.perf_counter
 
+# trace ids: pid + a per-process counter, generated lazily
+_ids = itertools.count(1)
+
 
 class Span:
     """One named [t0, t1] interval, materialized when a trace is read."""
 
-    __slots__ = ("name", "t0", "t1", "meta")
+    __slots__ = ("name", "t0", "t1", "sid", "meta")
 
-    def __init__(self, name: str, t0: float, t1: float,
+    def __init__(self, name: str, t0: float, t1: float, sid: int,
                  meta: dict | None = None):
         self.name = name
         self.t0 = t0
         self.t1 = t1
+        self.sid = sid
         self.meta = meta
 
     @property
     def dur(self) -> float:
         return self.t1 - self.t0
 
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "t0": self.t0, "t1": self.t1,
+             "sid": self.sid}
+        if self.meta:
+            d["meta"] = self.meta
+        return d
+
     def __repr__(self) -> str:
-        return f"Span({self.name!r}, dur={self.dur * 1e3:.3f}ms)"
+        return (f"Span({self.name!r}, dur={self.dur * 1e3:.3f}ms, "
+                f"sid={self.sid})")
 
 
 class FlushSpans:
@@ -84,7 +100,7 @@ class Trace:
     t_submit."""
 
     __slots__ = ("tracer", "op", "meta", "status", "closed", "t_last",
-                 "_raw")
+                 "_tid", "_raw")
 
     def __init__(self, tracer: "Tracer", op: str, meta: dict | None,
                  t0: float):
@@ -94,7 +110,14 @@ class Trace:
         self.status = "open"
         self.closed = False
         self.t_last = t0
+        self._tid: str | None = None
         self._raw: list[tuple] = []
+
+    @property
+    def trace_id(self) -> str:
+        if self._tid is None:
+            self._tid = f"{os.getpid():x}-{next(_ids)}"
+        return self._tid
 
     def mark(self, name: str, t: float | None = None, **meta) -> None:
         """Record the span [t_last, t] (t defaults to now)."""
@@ -124,16 +147,16 @@ class Trace:
         for rec in self._raw:
             if rec[0] == "m":
                 _, name, t0, t1, meta = rec
-                out.append(Span(name, t0, t1, meta))
+                out.append(Span(name, t0, t1, len(out), meta))
                 continue
             _, flush, t0, prev = rec
             if prev > t0:
-                out.append(Span("submit", t0, prev))
+                out.append(Span("submit", t0, prev, len(out)))
             for name, t, meta in flush.stamps:
-                out.append(Span(name, prev, t, meta))
+                out.append(Span(name, prev, t, len(out), meta))
                 prev = t
             if flush.umb is not None:
-                out.append(Span(*flush.umb))
+                out.append(Span(*flush.umb, len(out)))
         return out
 
     @property
@@ -142,6 +165,15 @@ class Trace:
         if not spans:
             return 0.0
         return max(s.t1 for s in spans) - min(s.t0 for s in spans)
+
+    def to_dict(self) -> dict:
+        spans = sorted(self.spans, key=lambda s: s.t0)
+        return {"trace_id": self.trace_id, "op": self.op,
+                "status": self.status, "meta": self.meta,
+                "t_start": spans[0].t0 if spans else 0.0,
+                "duration": (max(s.t1 for s in spans) - spans[0].t0
+                             if spans else 0.0),
+                "spans": [s.to_dict() for s in spans]}
 
 
 class _TraceBlock:

@@ -68,6 +68,15 @@ class ModelRegistry:
         with self._lock:
             self._subscribers.append(callback)
 
+    def unsubscribe(self, callback) -> bool:
+        """Detach a subscriber; returns whether it was subscribed."""
+        with self._lock:
+            try:
+                self._subscribers.remove(callback)
+                return True
+            except ValueError:
+                return False
+
     def _notify(self, key: str, version: int) -> None:
         with self._lock:
             subscribers = list(self._subscribers)
@@ -113,6 +122,10 @@ class ModelRegistry:
         self._notify(key, v)
         return v
 
+    def unregister(self, key: str) -> None:
+        with self._lock:
+            self._entries.pop(key, None)
+
     def get(self, key: str):
         return self.get_entry(key).forecaster
 
@@ -131,9 +144,26 @@ class ModelRegistry:
         with self._lock:
             return sorted(self._entries)
 
+    def items(self) -> list[tuple[str, Any]]:
+        """Snapshot of (key, forecaster) pairs taken under the lock: safe
+        to iterate while other threads register, unregister or swap."""
+        with self._lock:
+            return [(k, e.forecaster)
+                    for k, e in sorted(self._entries.items())]
+
+    def entries(self) -> list[tuple[str, RegistryEntry]]:
+        """Snapshot of (key, entry) pairs, the same contract as
+        ``items``."""
+        with self._lock:
+            return sorted(self._entries.items())
+
     def __contains__(self, key: str) -> bool:
         with self._lock:
             return key in self._entries
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
 
     # -- persistence -------------------------------------------------------
     def _save_meta(self, key: str):

@@ -2,15 +2,17 @@
 cache hit-rate and decode-slot occupancy. Pure stdlib, thread-safe,
 O(1) per event, cheap enough to sit on the micro-batcher's hot path.
 
-The single-engine half of ``repro.serving.telemetry``: the fleet merge,
-the sampled history and the ensemble / durable-restore counters wait
-for the slices of the port that record them.
+The single-process half of ``repro.serving.telemetry``, with the swap
+counter and the sampled history ring that the online path reads; the
+fleet merge, ``raw_samples`` and the ensemble / durable-restore
+counters wait for the slices of the port that record them.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 
 
 def _pick(data: list[float], p: float) -> float:
@@ -43,6 +45,9 @@ class _Reservoir:
             self._buf[self._pos] = value
             self._pos = (self._pos + 1) % self.capacity
 
+    def percentile(self, p: float) -> float:
+        return _pick(sorted(self._buf), p)
+
     def percentiles(self, ps) -> list[float]:
         return _percentiles(self._buf, ps)
 
@@ -55,10 +60,17 @@ class Telemetry:
     # ``untracked_client_requests``
     MAX_TRACKED_CLIENTS = 4096
 
+    # sampled time-series ring: ``sample()`` snapshots land here (the
+    # metrics endpoint's /history reads it)
+    HISTORY_CAPACITY = 512
+
     def __init__(self, clock=time.perf_counter):
         self._clock = clock
         self._lock = threading.Lock()
         self._t0 = clock()
+        self._history: deque[dict] = deque(maxlen=self.HISTORY_CAPACITY)
+        self._sampler: threading.Thread | None = None
+        self._sampler_stop = threading.Event()
         self.requests = 0
         self.batches = 0
         self.padded_slots = 0      # total batch capacity dispatched
@@ -66,6 +78,7 @@ class Telemetry:
         self.cache_hits = 0
         self.cache_misses = 0
         self.cache_evictions = 0
+        self.swaps = 0             # weight hot-swaps observed (cumulative)
         self.reprimes = 0          # session carries re-primed after a swap
         self.requests_by_version: dict[int, int] = {}
         self.requests_by_client: dict[str, int] = {}
@@ -88,6 +101,17 @@ class Telemetry:
         self._step_latency = _Reservoir()
 
     # -- recording ---------------------------------------------------------
+    def record_request(self, latency_s: float, version: int | None = None,
+                       staleness_s: float | None = None) -> None:
+        with self._lock:
+            self.requests += 1
+            self._latency.add(latency_s)
+            if version is not None:
+                self.requests_by_version[version] = \
+                    self.requests_by_version.get(version, 0) + 1
+            if staleness_s is not None:
+                self._staleness.add(staleness_s)
+
     def record_requests(self, latencies_s, version: int | None = None,
                         staleness_s: float | None = None,
                         client_ids=None, model: str | None = None) -> None:
@@ -118,6 +142,10 @@ class Telemetry:
                         self.requests_by_client.get(cid, 0) + 1
                 else:
                     self.untracked_client_requests += 1
+
+    def record_swap(self, n: int = 1) -> None:
+        with self._lock:
+            self.swaps += n
 
     def record_reprime(self, n: int = 1) -> None:
         with self._lock:
@@ -172,6 +200,10 @@ class Telemetry:
                 self.slot_lanes = lanes
 
     # -- reading -----------------------------------------------------------
+    def latency_percentile_ms(self, p: float) -> float:
+        with self._lock:
+            return self._latency.percentile(p) * 1e3
+
     def snapshot(self) -> dict:
         with self._lock:
             elapsed = max(self._clock() - self._t0, 1e-9)
@@ -196,6 +228,7 @@ class Telemetry:
                 "cache_hit_rate": (self.cache_hits / lookups
                                    if lookups else 0.0),
                 "cache_evictions": self.cache_evictions,
+                "swaps": self.swaps,
                 "reprimes": self.reprimes,
                 "staleness_p50_s": stale50,
                 "staleness_p95_s": stale95,
@@ -223,10 +256,51 @@ class Telemetry:
                                    if self.slot_lanes else 0.0),
             }
 
+    # -- sampled time series ----------------------------------------------
+    def sample(self) -> dict:
+        """One snapshot, timestamped and appended to the ``history``
+        ring: the time-series view of this engine's own metrics."""
+        snap = self.snapshot()
+        snap["ts"] = time.time()
+        self._history.append(snap)
+        return snap
+
+    def history(self, n: int | None = None) -> list[dict]:
+        """The sampled snapshot series, oldest first (bounded ring of
+        ``HISTORY_CAPACITY`` samples)."""
+        out = list(self._history)
+        return out if n is None else out[-n:]
+
+    def start_sampler(self, interval_s: float = 1.0) -> None:
+        """Sample ``snapshot()`` into the history ring every
+        ``interval_s`` on a daemon thread (idempotent)."""
+        if interval_s <= 0:
+            raise ValueError("interval_s must be > 0")
+        if self._sampler is not None:
+            return
+        self._sampler_stop.clear()
+
+        def loop() -> None:
+            while not self._sampler_stop.wait(interval_s):
+                self.sample()
+
+        self._sampler = threading.Thread(target=loop,
+                                         name="telemetry-sampler",
+                                         daemon=True)
+        self._sampler.start()
+
+    def stop_sampler(self) -> None:
+        if self._sampler is None:
+            return
+        self._sampler_stop.set()
+        self._sampler.join()
+        self._sampler = None
+
     def reset_clock(self) -> None:
         """Restart the measurement window (e.g. after warmup): throughput
         counters AND latency/batch reservoirs, so a snapshot never mixes
-        the two windows. Cache counters are cumulative state and kept."""
+        the two windows. Cache and swap counters are cumulative state and
+        kept; per-version request counts follow the window."""
         with self._lock:
             self._t0 = self._clock()
             self.requests = 0
@@ -255,6 +329,10 @@ class Telemetry:
                 f"mean batch {snap['mean_batch']:.1f} "
                 f"(occupancy {snap['batch_occupancy']:.0%}) | "
                 f"cache hit {snap['cache_hit_rate']:.0%}")
+        if snap.get("swaps"):
+            line += (f" | {snap['swaps']} swaps, staleness p95 "
+                     f"{snap['staleness_p95_s']:.2f} s, "
+                     f"{len(snap['requests_by_version'])} versions served")
         if snap.get("step_requests"):
             line += (f" | {snap['step_requests']} steps in "
                      f"{snap['step_batches']} fused flushes "

@@ -2,8 +2,8 @@
 ``chip_smoke.py`` imports jax or anything of ``repro``, nor ``msgpack``
 or ``ml_dtypes`` (which the card's Python may lack); every entry
 point defaults to the card; and on a machine without one,
-``chip_smoke.py`` and the serve and train CLIs fail instead of carrying
-on on the CPU."""
+``chip_smoke.py`` and the serve, train and online CLIs fail instead of
+carrying on on the CPU."""
 
 import ast
 import inspect
@@ -18,7 +18,7 @@ import torch
 from repro_torch.checkpoint.convert import (params_from_numpy,
                                            zoo_params_from_numpy)
 from repro_torch.core.simulator import AsyncSimulator
-from repro_torch.launch import serve, train
+from repro_torch.launch import online, serve, train
 from repro_torch.models.rnn import init_rnn
 from repro_torch.serving.forecaster import (LSTMForecaster, ZooForecaster,
                                             build_lstm_forecaster,
@@ -73,6 +73,9 @@ def test_port_package_is_complete():
     assert {"checkpoint/io.py", "checkpoint/_msgpack.py", "core/delay.py",
             "core/simulator.py", "extreme/resampling.py",
             "serving/registry.py"} <= names
+    # the online path's: hot swap, metrics export, the online CLI
+    assert {"serving/hotswap.py", "serving/telemetry.py", "obs/export.py",
+            "obs/trace.py", "launch/online.py"} <= names
     for src in ("kernels/lstm/csrc/lstm_layer.cu",
                 "kernels/lstm/csrc/lstm_layer_bwd.cu",
                 "kernels/evl/csrc/evl.cu",
@@ -89,7 +92,7 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     for fc in (LSTMForecaster, ZooForecaster):
         assert fc.__dataclass_fields__["device"].default == "cuda"
-    for cli in (serve, train):
+    for cli in (serve, train, online):
         tree = ast.parse(inspect.getsource(cli))
         defaults = [kw.value.value for node in ast.walk(tree)
                     if isinstance(node, ast.Call) and node.args
@@ -118,7 +121,9 @@ def test_without_a_card_chip_smoke_and_cli_fail(tmp_path):
     for cli in (["-m", "repro_torch.launch.serve", "--requests", "1"],
                 ["-m", "repro_torch.launch.serve", "--model", "qwen1.5-4b",
                  "--requests", "1"],
-                ["-m", "repro_torch.launch.train", "--iterations", "1"]):
+                ["-m", "repro_torch.launch.train", "--iterations", "1"],
+                ["-m", "repro_torch.launch.online", "--iterations", "1",
+                 "--requests", "1"]):
         out = _run(cli, ROOT)
         assert out.returncode != 0
         assert "no CUDA device" in out.stderr
