@@ -48,7 +48,13 @@ full width and depth (bf16) through ``ServingEngine`` (a burst of short
 prompts, then one of 2048-token prompts) and the serve CLI, with the
 same model cut to 2 layers in fp32 held against the port on the CPU;
 and the same for the zoo's Mamba2-370M, whose every layer runs the SSD
-kernel.
+kernel; and for the zoo's hybrid Zamba2-2.7B (54 Mamba2 layers through
+the SSD kernel, the shared attention block after every 6th through the
+flash kernel), with a third burst of one 133,120-token request, whose
+attention takes the long-context window of 4096 keys, and its card-vs-
+CPU copy cut to one stage (6 layers); both kernels are held against
+their plain versions at Zamba2's shapes, the windowed launch on query
+slices.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -211,6 +217,30 @@ SSD_SYMBOL, SSD_FP32_SYMBOL = "ssd_chunk_wgmma", "ssd_kernel"
 MAMBA_ARCH = "mamba2-370m"
 MAMBA_NOISE = {"A_log": 0.5, "dt_bias": 0.5, "conv_b": 0.2, "D": 0.2,
                "norm_w": 0.2, "w": 0.2}
+# the zoo's hybrid: Zamba2-2.7B at full width and depth (bf16, random
+# weights from seed 0; 54 Mamba2 layers, 80 SSD heads of 64, state 64,
+# chunk 128, and one shared attention + MLP block of 32 MHA heads of 80
+# after every 6th layer), through the same two bursts and then one
+# request of 133,120 tokens: 1,040 chunks of 128, and 2,048 tokens past
+# the 131,072 beyond which the shared block attends within the
+# long-context window (4096 keys). Its card-vs-CPU copy is one stage (6
+# Mamba2 layers, then the shared block), fp32, noised as Mamba2's (the
+# shared block's two norms are "w" leaves too).
+ZAMBA_ARCH = "zamba2-2.7b"
+LONG_CONTEXT_FROM = 131072
+ZAMBA_LONG = 133120
+ZAMBA_BURSTS = ZOO_BURSTS + [(1, ZAMBA_LONG, 1)]
+ZAMBA_CPU_LAYERS = 6
+# the kernels at Zamba2's shapes: flash (B, Sq, Skv, Hq, Hkv, D[,
+# window]) causal, and the SSD scan (B, L, H, P, N, chunk); the windowed
+# flash launch is held against its plain version on FLASH_SLICE query
+# rows at its end and in its middle, each over the keys its window
+# reaches
+ZAMBA_FLASH = [(8, 32, 32, 32, 32, 80), (4, 2048, 2048, 32, 32, 80),
+               (1, ZAMBA_LONG, ZAMBA_LONG, 32, 32, 80, 4096)]
+ZAMBA_SSD = [(8, 32, 80, 64, 64, 128), (4, 2048, 80, 64, 64, 128),
+             (1, ZAMBA_LONG, 80, 64, 64, 128)]
+FLASH_SLICE = 512
 # the paper-LSTM training runs of the main path (CLI defaults: AAPL,
 # 1430 days, batch 32, seed 0; EVL weight 0.5)
 SERIAL_ITERATIONS = 300
@@ -278,6 +308,29 @@ def reset_counters() -> None:
 
 def read_counters() -> dict:
     return {name: dict(c.by_shape) for name, c in counters().items()}
+
+
+@contextlib.contextmanager
+def flash_windows():
+    """Record the window of every flash launch, by (B, Sq, Skv, Hq, Hkv,
+    D) as the launch counter keys it; the caller reads the list."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    launch = attn_kernel.flash_attention_cuda
+    seen: list = []
+
+    def record(q, k, v, causal, window, q_offset, kv_valid):
+        out = launch(q, k, v, causal, window, q_offset, kv_valid)
+        seen.append((tuple(q.shape[:2]) + (k.shape[1],)
+                     + tuple(q.shape[2:3]) + (k.shape[2], q.shape[3]),
+                     window))
+        return out
+
+    attn_kernel.flash_attention_cuda = record
+    try:
+        yield seen
+    finally:
+        attn_kernel.flash_attention_cuda = launch
 
 
 @contextlib.contextmanager
@@ -1912,16 +1965,21 @@ def attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed=0):
                  for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
 
 
-def flash_ops(B, Sq, Skv, Hq, Hkv, D):
+def flash_ops(B, Sq, Skv, Hq, Hkv, D, window=None):
     """Causal flash attention's operations (q_offset 0): 4 B Hq D per
-    causal (query, key) pair, two for q . k and two for p v."""
-    return 4 * B * Hq * D * sum(min(i + 1, Skv) for i in range(Sq))
+    (query, key) pair it attends, two for q . k and two for p v. With a
+    window, query i attends only the keys in (i - window, i]."""
+    pos = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(pos + 1, Skv)
+    lo = np.zeros_like(pos) if window is None else np.maximum(
+        pos + 1 - window, 0)
+    return 4 * B * Hq * D * int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(B, Sq, Skv, Hq, Hkv, D, itemsize=2):
-    """Causal flash attention at the bf16 tensor-core peak; q, k, v read
-    once and o written once at the memory rate."""
-    ops = flash_ops(B, Sq, Skv, Hq, Hkv, D)
+def flash_bound(B, Sq, Skv, Hq, Hkv, D, window=None, itemsize=2):
+    """Causal (windowed) flash attention at the bf16 tensor-core peak;
+    q, k, v read once and o written once at the memory rate."""
+    ops = flash_ops(B, Sq, Skv, Hq, Hkv, D, window)
     nbytes = itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
@@ -2031,6 +2089,10 @@ def ssd_case(args, chunk):
                      float(want_s.pow(2).mean().sqrt()),
                      float(((s - want_s).abs()
                             / (SSD_ATOL + SSD_RTOL * want_s.abs())).max()))}
+    L = args[0].shape[1]
+    if L > 2048:
+        tail = slice(L - ((L - 1) % chunk + 1), L)
+        out["last"] = float((y[:, tail] - want_y[:, tail]).abs().max())
     shape = tuple(args[0].shape) + (args[2].shape[-1], chunk)
     check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
           f"ssd_scan {shape} {args[0].dtype}: a value is not finite")
@@ -2071,38 +2133,38 @@ def ssd_f64_case(args, chunk):
     return out
 
 
-def check_ssd() -> float:
-    """Phase 9b: the SSD scan against its plain version on the card,
-    through ``ops.ssd_scan``: the JAX kernel tests' sweep (a ragged L
-    included), the reduced Mamba2's shapes and the serving path's two, at
-    the three decays, in fp32 and bf16, each error printed beside the RMS
-    of what it compares; the same shapes at a mid-chunk clip, kernel and
-    plain version each read against float64; and rows of B = 1 launches
-    bit for bit the rows of a B = 8 launch. Returns the largest
-    |kernel - plain|."""
-    from repro_torch.kernels.ssd.ops import ssd_scan
-
+def check_ssd_shapes(shapes, seed0: int = 0):
+    """The SSD scan against its plain version on the card at ``shapes``
+    (B, L, H, P, N, chunk), through ``ops.ssd_scan``: at the three
+    decays, in fp32 and bf16, each error printed beside the RMS of what
+    it compares (and, past 2048 tokens, the last chunk's y error, after
+    every earlier chunk's carried state); then at a mid-chunk clip,
+    kernel and plain version each read against float64. Returns the
+    largest |kernel - plain|, the largest share of the bound and the
+    number of cases."""
     worst, share, n = 0.0, 0.0, 0
-    for B, L, H, P, N, K in SSD_SWEEP + SSD_REDUCED + SSD_PATH:
+    for B, L, H, P, N, K in shapes:
         parts = []
         for kind in SSD_DRAWS:
             for dt in (torch.float32, torch.bfloat16):
                 n += 1
                 errs = ssd_case(ssd_inputs(B, L, H, P, N, kind, dt, K,
-                                           seed=n), K)
+                                           seed=seed0 + n), K)
                 worst = max(worst, errs["y"][0], errs["state"][0])
                 share = max(share, errs["y"][2], errs["state"][2])
+                last = (f", last chunk's y {errs['last']:.2e}"
+                        if "last" in errs else "")
                 parts.append(
                     f"{kind} {str(dt)[6:]} y {errs['y'][0]:.2e} (rms "
                     f"{errs['y'][1]:.2e}, {100 * errs['y'][2]:.1f} % of the "
-                    f"bound) state {errs['state'][0]:.2e} (rms "
+                    f"bound{last}) state {errs['state'][0]:.2e} (rms "
                     f"{errs['state'][1]:.2e}, {100 * errs['state'][2]:.1f} "
                     f"%)")
         print(f"[check] ssd_scan {(B, L, H, P, N, K)} max |kernel - plain|: "
               + "; ".join(parts))
     # a clipped step mid-chunk, both sides read against float64 (see
     # SSD_F64_FACTOR)
-    for B, L, H, P, N, K in SSD_SWEEP + SSD_REDUCED + SSD_PATH:
+    for B, L, H, P, N, K in shapes:
         parts = []
         for dt in (torch.float32, torch.bfloat16):
             errs = ssd_f64_case(ssd_inputs(B, L, H, P, N, "clip-mid", dt, K,
@@ -2114,6 +2176,18 @@ def check_ssd() -> float:
         print(f"[check] ssd_scan {(B, L, H, P, N, K)} at a mid-chunk clip, "
               f"max |x - float64| of the kernel (and of the plain version): "
               + "; ".join(parts))
+    return worst, share, n
+
+
+def check_ssd() -> float:
+    """Phase 9b: the SSD scan against its plain version on the card,
+    through ``ops.ssd_scan`` (``check_ssd_shapes``): the JAX kernel
+    tests' sweep (a ragged L included), the reduced Mamba2's shapes and
+    the serving path's two; and rows of B = 1 launches bit for bit the
+    rows of a B = 8 launch. Returns the largest |kernel - plain|."""
+    from repro_torch.kernels.ssd.ops import ssd_scan
+
+    worst, share, n = check_ssd_shapes(SSD_SWEEP + SSD_REDUCED + SSD_PATH)
     for L in (32, 160):                 # one ragged chunk; two chunks
         args = ssd_inputs(8, L, 32, 64, 128, "slow", torch.bfloat16, 128,
                           seed=100 + L)
@@ -2132,10 +2206,11 @@ def check_ssd() -> float:
     return worst
 
 
-def time_ssd(launches: dict, tag: str):
-    """Phase 13b: the SSD scan at every shape of Mamba2-370M's serving
-    path, held against its plain version there through the wrapper in
-    bf16 and on fp32 copies of the same inputs; then its device time
+def time_ssd(launches: dict, tag: str, shapes=SSD_PATH):
+    """Phase 13b: the SSD scan at every shape of a serving path
+    (Mamba2-370M's, Zamba2-2.7B's), held against its plain version there
+    through the wrapper in bf16 and on fp32 copies of the same inputs;
+    then its device time
     (bf16) beside the plain version's and its bound (no single PyTorch
     call computes this scan). Returns rows by shape and the largest
     |kernel - plain|."""
@@ -2143,15 +2218,17 @@ def time_ssd(launches: dict, tag: str):
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
     rows, worst = {}, 0.0
-    for shape in sorted(set(launches) | set(SSD_PATH)):
+    for shape in sorted(set(launches) | set(shapes)):
         B, L, H, P, N, K = shape
         xd, a, Bm, Cm = ssd_inputs(B, L, H, P, N, "sweep", torch.bfloat16,
                                    K, seed=B * 7 + L)
         errs = {dt: ssd_case((xd.to(dt), a, Bm.to(dt), Cm.to(dt)), K)
                 for dt in (torch.bfloat16, torch.float32)}
-        err = max(e[0] for v in errs.values() for e in v.values())
+        err = max(v[part][0] for v in errs.values()
+                  for part in ("y", "state"))
         worst = max(worst, err)
-        inner, reps = (3, 5) if L >= 1024 else (50, 21)
+        inner, reps = ((1, 3) if L > LONG_CONTEXT_FROM else (3, 5)
+                       if L >= 1024 else (50, 21))
         bnd, by = ssd_bound(*shape)
         rows[shape] = {
             "ms": graph_ms(lambda: ssd_kernel.ssd_scan_cuda(xd, a, Bm, Cm, K),
@@ -2183,27 +2260,66 @@ def named_leaves(tree, name=None):
 
 
 def describe(cfg) -> str:
+    ssm = (f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+           f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+           f"{cfg.ssm_state}, conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}")
+    vocab = f"vocab {cfg.vocab} padded to {cfg.padded_vocab}"
     if cfg.family == "ssm":
-        return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
-                f"{cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
-                f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
-                f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab} "
-                f"padded to {cfg.padded_vocab}")
+        return f"{cfg.n_layers} layers, {ssm}, {vocab}"
+    if cfg.family == "hybrid":
+        return (f"{cfg.n_layers} Mamba2 layers, {ssm}; one shared attention "
+                f"+ MLP block after every {cfg.attn_every}th layer: "
+                f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
+                f"{cfg.activation}{'' if cfg.gated_mlp else ' ungated'}; "
+                f"{vocab}; cfg.param_count() estimates "
+                f"{cfg.param_count()}, counting the shared MLP as gated")
     return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-            f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
-            f"padded to {cfg.padded_vocab}")
+            f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, {vocab}")
 
 
-def zoo_serve_main_path(arch: str, kernel: str, tag: str):
-    """Phase 10, a zoo serving path: ``arch`` (Qwen1.5-4B, then
-    Mamba2-370M) at full width and depth (bf16, but for the leaves the
-    JAX init keeps in fp32; random weights from seed 0) behind
-    ``ServingEngine``: 64 requests of 32 tokens (max_batch 8), then 8 of
-    2048 (max_batch 4). Launch counts are zeroed just before each burst
-    and read just after; ``kernel`` (flash attention, the SSD scan) must
-    run once per layer per predict flush, no other kernel at all, and no
-    plain version on a card tensor. Returns the forecaster, the kernel's
-    launches by shape, and the init's seconds."""
+def path_kernels(cfg) -> dict:
+    """Launches of each kernel per predict flush of a zoo arch: flash
+    attention once per attention (each dense layer; the hybrid's shared
+    block once per stage), the SSD scan once per Mamba2 layer."""
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        return {"flash_attention": L}
+    if cfg.family == "ssm":
+        return {"ssd_scan": L}
+    check(cfg.family == "hybrid" and L % cfg.attn_every == 0,
+          f"no kernel path for {cfg.name}")
+    return {"ssd_scan": L, "flash_attention": L // cfg.attn_every}
+
+
+def expected_window(cfg, seq_len: int):
+    """The window the zoo's attention must take at ``seq_len``: the
+    arch's own, else the long-context window past LONG_CONTEXT_FROM
+    tokens for any family with attention."""
+    if cfg.window is not None:
+        return cfg.window
+    return cfg.long_context_window if seq_len > LONG_CONTEXT_FROM else None
+
+
+def flash_key(shape, window):
+    """A flash row's key: the launch's (B, Sq, Skv, Hq, Hkv, D), with the
+    window appended when there is one."""
+    return tuple(shape) + ((window,) if window is not None else ())
+
+
+def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS):
+    """Phase 10, a zoo serving path: ``arch`` (Qwen1.5-4B, Mamba2-370M,
+    then Zamba2-2.7B) at full width and depth (bf16, but for the leaves
+    the JAX init keeps in fp32; random weights from seed 0) behind
+    ``ServingEngine``, one burst of (requests, prompt length,
+    max_batch) after another: 64 requests of 32 tokens (max_batch 8),
+    then 8 of 2048 (max_batch 4), then for Zamba2 one of 133,120.
+    Launch counts are zeroed just before each burst and read just after;
+    each kernel of the arch's path (``path_kernels``) must run its
+    number of launches per predict flush, with the window the sequence
+    length asks for (``expected_window``), no other kernel at all, and
+    no plain version on a card tensor. Returns the forecaster, each
+    kernel's launches by row key (``flash_key`` for flash), and the
+    init's seconds."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_token_batch
     from repro_torch.models.transformer import init_lm
@@ -2216,6 +2332,7 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = fc.cfg
+    per_flush = path_kernels(cfg)
     leaves = named_leaves(fc.params)
     n_params = sum(t.numel() for _, t in leaves)
     like = named_leaves(init_lm(cfg, None))      # the init's dtypes
@@ -2224,8 +2341,8 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
           and [(k, t.shape, t.dtype) for k, t in leaves]
           == [(k, t.shape, t.dtype) for k, t in like]
           and all(t.is_cuda for _, t in leaves)
-          and set(fp32) == ({"dt_bias", "A_log"} if cfg.family == "ssm"
-                            else set()),
+          and set(fp32) == ({"dt_bias", "A_log"}
+                            if cfg.family in ("ssm", "hybrid") else set()),
           f"{arch} is not served at full width in bf16 on the card")
     print(f"[zoo] {arch}: {n_params} parameters ({describe(cfg)}, bf16"
           f"{'; ' + ', '.join(fp32) + ' fp32' if fp32 else ''}) drawn "
@@ -2233,8 +2350,8 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
           f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     registry = ModelRegistry()
     registry.register(arch, fc)
-    launches: dict = {}
-    for i, (n_req, plen, max_batch) in enumerate(ZOO_BURSTS):
+    launches: dict = {k: {} for k in per_flush}
+    for i, (n_req, plen, max_batch) in enumerate(bursts):
         toks = synthetic_token_batch(n_req, plen, cfg.vocab, seed=i)
         with ServingEngine(registry, BatcherConfig(
                 max_batch=max_batch, max_wait_ms=2.0,
@@ -2244,8 +2361,10 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
             engine.telemetry.reset_clock()
+            torch.cuda.reset_peak_memory_stats()
             reset_counters()
-            with no_plain_version_on_the_card() as plain_calls:
+            with no_plain_version_on_the_card() as plain_calls, \
+                    flash_windows() as windows:
                 t0 = time.perf_counter()
                 futs = [engine.submit(arch, t, client_id=f"client-{j}")
                         for j, t in enumerate(toks)]
@@ -2254,21 +2373,34 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
             got = read_counters()
             snap = engine.telemetry.snapshot()
         flushes = snap["batches"]
-        n_kern = sum(got[kernel].values())
+        n_kern = {k: sum(got[k].values()) for k in per_flush}
         res = np.asarray(results, np.float64)
         check(not plain_calls, f"plain versions ran on the card: "
                                f"{plain_calls}")
         check(snap["requests"] == n_req and res.shape == (n_req, 2),
               f"burst {i}: {snap['requests']} of {n_req} requests served")
-        check(n_kern == cfg.n_layers * flushes,
-              f"burst {i}: {n_kern} {kernel} launches for {flushes} predict "
-              f"flushes of a {cfg.n_layers}-layer model")
-        check(all(n == 0 for k, v in got.items() if k != kernel
+        for k, n in per_flush.items():
+            check(n_kern[k] == n * flushes,
+                  f"burst {i}: {n_kern[k]} {k} launches for {flushes} "
+                  f"predict flushes, {n} a flush expected")
+        check(all(n == 0 for k, v in got.items() if k not in per_flush
                   for n in v.values()), f"other kernels launched: {got}")
+        by_window: dict = {}
+        for shape, window in windows:
+            by_window[flash_key(shape, window)] = by_window.get(
+                flash_key(shape, window), 0) + 1
+        check(all(w == expected_window(cfg, shape[1])
+                  for shape, w in windows)
+              and len(windows) == n_kern.get("flash_attention", 0),
+              f"burst {i}: flash launches {by_window}, not with the "
+              f"window that {plen} tokens ask for")
+        if "flash_attention" in per_flush:
+            got["flash_attention"] = by_window
         check(np.all(np.isfinite(res)) and np.all(res[:, 0] == np.round(
             res[:, 0])) and np.all((res[:, 0] >= 0) & (res[:, 0] < cfg.vocab))
               and np.all((res[:, 1] >= 0) & (res[:, 1] <= 1)),
               f"burst {i}: a reply is not a token and a probability")
+        peak = torch.cuda.max_memory_allocated() / 2**30
         same = "not compared (partial flushes)"
         if flushes * max_batch == n_req:
             # every flush was full: flush j served requests [j*mb, (j+1)*mb)
@@ -2282,30 +2414,37 @@ def zoo_serve_main_path(arch: str, kernel: str, tag: str):
             bits = np.array_equal(direct, res)
             same = (f"== predict of the same batches (tokens equal, p "
                     f"{'bitwise' if bits else 'within 1e-6'})")
-        for shape, n in got[kernel].items():
-            launches[shape] = launches.get(shape, 0) + n
+        for k in per_flush:
+            for shape, n in got[k].items():
+                launches[k][shape] = launches[k].get(shape, 0) + n
+        kern = ", ".join(f"{n_kern[k]} {k} launches = "
+                         f"{n_kern[k] / flushes:.1f} per flush by shape "
+                         f"{got[k]}" for k in per_flush)
+        long = (f"; device memory peak {peak:.2f} GiB"
+                if plen > LONG_CONTEXT_FROM else "")
         print(f"[zoo] {tag}: {arch} burst {i}: {n_req} requests of {plen} "
               f"tokens "
               f"(max_batch {max_batch}) in {wall * 1e3:.1f} ms: "
               f"{snap['throughput_rps']:.2f} req/s, {n_req * plen / wall:.0f} "
               f"prompt tokens/s, p50 {snap['p50_ms']:.1f} ms, p95 "
               f"{snap['p95_ms']:.1f} ms; {flushes} predict flushes, "
-              f"{n_kern} {kernel} launches = {n_kern / flushes:.1f} per flush "
-              f"by shape {got[kernel]}; "
+              f"{kern}; "
               f"replies {same}; no plain version on the card; warmup "
               f"({n_warm} shapes) {warm_s:.2f} s; distinct tokens "
               f"{len(set(res[:, 0]))}, p in [{res[:, 1].min():.4f}, "
-              f"{res[:, 1].max():.4f}]")
+              f"{res[:, 1].max():.4f}]{long}")
     return fc, launches, init_s
 
 
-def zoo_card_vs_cpu(arch: str, tag: str, noise=None) -> float:
-    """Phase 11: ``arch`` at full width, 2 layers, fp32: the same weights
-    served on the card and by the port on the CPU give the same greedy
-    tokens and logits within the stated tolerance, over 8 windows of 32
-    tokens. ``noise`` (leaf name -> scale) adds seeded noise on the card
-    to the leaves the init sets to constants first. Returns the largest
-    |logit difference|."""
+def zoo_card_vs_cpu(arch: str, tag: str, noise=None, n_layers=2) -> float:
+    """Phase 11: ``arch`` at full width, ``n_layers`` layers (Zamba2: one
+    stage), fp32: the same weights served on the card and by the port on
+    the CPU give the same greedy tokens and logits within the stated
+    tolerance, over 8 windows of 32 tokens, and the card's forward
+    launches each of the path's kernels (their fp32 versions). ``noise``
+    (leaf name -> scale) adds seeded noise on the card to the leaves the
+    init sets to constants first. Returns the largest |logit
+    difference|."""
     import dataclasses
 
     from repro_torch.checkpoint.convert import params_to
@@ -2314,7 +2453,8 @@ def zoo_card_vs_cpu(arch: str, tag: str, noise=None) -> float:
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serving import ZooForecaster
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="float32")
     model = build_model(cfg)
     g = torch.Generator(device="cuda").manual_seed(1)
     params = model.init(g)
@@ -2328,8 +2468,10 @@ def zoo_card_vs_cpu(arch: str, tag: str, noise=None) -> float:
         toks)
     tok_c, _ = ZooForecaster(cfg=cfg, params=cpu_params,
                              device="cpu").predict(toks)
+    reset_counters()
     logits_g = model.forward(params, torch.as_tensor(
         toks, dtype=torch.long, device="cuda"))[0].cpu()
+    got = read_counters()
     logits_c = model.forward(cpu_params, torch.as_tensor(
         toks, dtype=torch.long))[0]
     err = float((logits_g - logits_c).abs().max())
@@ -2338,39 +2480,134 @@ def zoo_card_vs_cpu(arch: str, tag: str, noise=None) -> float:
     check(torch.allclose(logits_g, logits_c, rtol=ZOO_CPU_RTOL,
                          atol=ZOO_CPU_ATOL),
           f"logits on the card vs the CPU: max |diff| {err}")
-    print(f"[zoo] {tag}: {arch} full width, 2 layers, fp32, same weights "
+    kernels = path_kernels(cfg)
+    check(all(sum(got[k].values()) > 0 for k in kernels),
+          f"the fp32 forward on the card did not launch {list(kernels)}: "
+          f"{got}")
+    print(f"[zoo] {tag}: {arch} full width, {n_layers} layers, fp32, same "
+          f"weights "
           f"{'(noised: ' + ', '.join(noise) + ') ' if noise else ''}"
           f"on the card and the CPU port, 8 windows of 32 tokens: greedy "
           f"tokens equal {tok_g.astype(int).tolist()}; logits max |diff| "
           f"{err:.3e} (max |logit| {float(logits_c.abs().max()):.2f}; rtol "
-          f"{ZOO_CPU_RTOL}, atol {ZOO_CPU_ATOL})")
+          f"{ZOO_CPU_RTOL}, atol {ZOO_CPU_ATOL}); the card's forward "
+          f"launched " + ", ".join(f"{k} {got[k]}" for k in kernels))
     return err
 
 
-def zoo_cli(arch: str, kernel: str) -> None:
+def zoo_cli(arch: str, kernels) -> None:
     """Phase 12: the serve CLI with a full-width zoo arch on the card,
-    through its kernel."""
+    through each of its kernels."""
     from repro_torch.launch import serve
 
     reset_counters()
     out = serve.main(["--model", arch, "--no-reduced", "--requests", "16",
                       "--max-batch", "8", "--device", "cuda"])
-    n = counters()[kernel].total
-    check(out["traffic"]["requests"] == 16 and n > 0,
+    n = {k: counters()[k].total for k in kernels}
+    check(out["traffic"]["requests"] == 16 and all(n.values()),
           f"python -m repro_torch.launch.serve --model {arch} --no-reduced "
-          f"did not serve every request through {kernel} ({n} launches)")
+          f"did not serve every request through {kernels} ({n} launches)")
     print(f"[cli] repro_torch.launch.serve --model {arch} --no-reduced "
-          f"--requests 16 --max-batch 8 --device cuda: ok, {n} {kernel} "
-          f"launches")
+          f"--requests 16 --max-batch 8 --device cuda: ok, "
+          + ", ".join(f"{v} {k}" for k, v in n.items()) + " launches")
 
 
-def time_flash(launches: dict, tag: str):
-    """Phase 13: flash attention at every (B, S) shape of the zoo's path
-    (causal), held against its plain version there through the wrapper
-    the path runs, in bf16 and on fp32 copies of the same inputs; then
-    its device time (bf16) beside the plain version's, one
+def windowed_plain(q, k, v, window: int, rows: int = FLASH_SLICE):
+    """Causal attention with a sliding window by its plain version, one
+    block of ``rows`` queries at a time over the keys that block's
+    window reaches: the whole function, without the [Sq, Skv] scores
+    that one call of the plain version would hold."""
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    outs = []
+    for s0 in range(0, q.shape[1], rows):
+        k0 = max(0, s0 - window + 1)
+        outs.append(attention_ref(
+            q[:, s0:s0 + rows], k[:, k0:s0 + rows], v[:, k0:s0 + rows],
+            causal=True, window=window, q_offset=s0 - k0))
+    return torch.cat(outs, 1)
+
+
+def time_flash_windowed(shape, n_launches: int, tag: str):
+    """Phase 13, a windowed launch (B, S, S, Hq, Hkv, D, window) as the
+    path runs it, through the wrapper, in bf16 and on fp32 copies of the
+    same inputs. Its rows are held on FLASH_SLICE query rows at the end
+    and in the middle: against the plain version over the keys their
+    window reaches (from one key before it, a key-tile boundary, so that
+    the kernel walks the same tiles), and bit for bit against the
+    kernel's launch on just those rows and keys (``q_offset`` relative
+    to the slice). Then the bf16 launch's device time beside the plain
+    version's over the whole sequence (``windowed_plain``) and its
+    bound; no PyTorch call takes a window (``scaled_dot_product_attention``
+    would need a [S, S] mask). Returns the row and the largest |kernel -
+    plain|."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    B, Sq, Skv, Hq, Hkv, D, w = shape
+    q, k, v = attn_inputs(B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
+                          seed=B * 7 + Sq)
+    starts = (Sq - FLASH_SLICE, Sq // 2 // 128 * 128)
+    check(all(s0 % 128 == 0 and s0 >= w for s0 in starts) and w % 128 == 0,
+          f"the slices {starts} of {shape} do not start on key tiles")
+    errs = {}
+    for dt, rtol, atol in ((torch.bfloat16, FLASH_BF16_RTOL,
+                            FLASH_BF16_ATOL),
+                           (torch.float32, FLASH_RTOL, FLASH_ATOL)):
+        a, b, c = (t.to(dt) for t in (q, k, v))
+        full = flash_attention(a, b, c, causal=True, window=w)
+        errs[dt] = 0.0
+        for s0 in starts:
+            rows, keys = slice(s0, s0 + FLASH_SLICE), slice(s0 - w,
+                                                            s0 + FLASH_SLICE)
+            got = full[:, rows]
+            want = attention_ref(a[:, rows], b[:, keys], c[:, keys],
+                                 causal=True, window=w, q_offset=w).float()
+            err = float((got.float() - want).abs().max())
+            errs[dt] = max(errs[dt], err)
+            check(torch.allclose(got.float(), want, rtol=rtol, atol=atol),
+                  f"flash attention disagrees with its plain version at "
+                  f"{shape} on rows {s0}.. in {dt}: max err {err} (rtol "
+                  f"{rtol}, atol {atol})")
+            part = flash_attention(a[:, rows], b[:, keys], c[:, keys],
+                                   causal=True, window=w, q_offset=w)
+            check(torch.equal(part, got),
+                  f"flash attention at {shape} in {dt}: rows {s0}.. of the "
+                  f"full launch != the launch on their slice")
+        del a, b, c, full
+    err = max(errs.values())
+    bnd, by = flash_bound(*shape)
+    row = {"ms": graph_ms(lambda: attn_kernel.flash_attention_cuda(
+               q, k, v, True, w, 0, Skv), 3, 5),
+           "plain_ms": graph_ms(lambda: windowed_plain(q, k, v, w), 1, 3),
+           "library_ms": None, "bound_ms": bnd, "bound_by": by,
+           "max_abs_err": err}
+    tflops = flash_ops(*shape) / (row["ms"] * 1e-3) / 1e12
+    print(f"[time] {tag}: flash_attention {shape[:6]} bf16 causal, window "
+          f"{w}: kernel {row['ms'] * 1e3:.2f} us = {tflops:.1f} TFLOP/s "
+          f"(the bound's operations, the window's pairs only, over its "
+          f"time), plain by blocks of {FLASH_SLICE} queries "
+          f"{row['plain_ms'] * 1e3:.2f} us, no library call (none takes a "
+          f"window), bound {bnd * 1e3:.3f} us ({by}) = "
+          f"{100 * bnd / row['ms']:.2f} % of the kernel's time; rows "
+          f"{starts[0]}.. and {starts[1]}.. (x {FLASH_SLICE}): |kernel - "
+          f"plain| bf16 {errs[torch.bfloat16]:.3e} (rtol {FLASH_BF16_RTOL}, "
+          f"atol {FLASH_BF16_ATOL}), fp32 {errs[torch.float32]:.3e} (rtol "
+          f"{FLASH_RTOL}, atol {FLASH_ATOL}), == the launch on the slice "
+          f"bitwise; {n_launches} launches on the main path")
+    return row, err
+
+
+def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
+                                                (4, 2048, 2048, 20, 20, 128))):
+    """Phase 13: flash attention at every shape of a zoo path (causal;
+    a row key with a window goes to ``time_flash_windowed``), held
+    against its plain version there through the wrapper the path runs,
+    in bf16 and on fp32 copies of the same inputs; then its device time
+    (bf16) beside the plain version's, one
     ``scaled_dot_product_attention`` call's (never called by the port)
-    and its bound. Returns rows by shape and the largest |kernel -
+    and its bound. Returns rows by key and the largest |kernel -
     plain|."""
     import torch.nn.functional as F
 
@@ -2379,9 +2616,12 @@ def time_flash(launches: dict, tag: str):
     from repro_torch.kernels.attention.ref import attention_ref
 
     rows, worst = {}, 0.0
-    shapes = set(launches) | {(8, 32, 32, 20, 20, 128),
-                              (4, 2048, 2048, 20, 20, 128)}
-    for shape in sorted(shapes):
+    for shape in sorted(set(launches) | set(shapes)):
+        if len(shape) > 6:
+            rows[shape], err = time_flash_windowed(
+                shape, launches.get(shape, 0), tag)
+            worst = max(worst, err)
+            continue
         B, Sq, Skv, Hq, Hkv, D = shape
         q, k, v = attn_inputs(B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
                               seed=B * 7 + Sq)
@@ -2435,7 +2675,6 @@ def time_flash(launches: dict, tag: str):
               f"{FLASH_ATOL}); |sdpa - plain| bf16 {lib_err:.3e}; "
               f"{launches.get(shape, 0)} "
               f"launches on the main path")
-    flash_host(tag)
     return rows, worst
 
 
@@ -2887,65 +3126,77 @@ def evl_ablation(card: str) -> None:
     print(json.dumps({"card": card, "us": times}))
 
 
-def profile_zoo(fc, kernel: str, symbol: str, tag: str,
-                absent: str | None = None) -> None:
+def profile_zoo(fc, symbols: dict, tag: str, absent=(),
+                bursts=ZOO_BURSTS) -> None:
     """Phase 14, where a zoo flush's time goes: one predict flush at each
-    prompt length, the device's busy share, and the shares of the
-    model's kernel (``symbol`` in the device kernel's name) and of the
-    matrix products. Fails if no device kernel of a flush holds
-    ``symbol`` (a renamed kernel must not read as 0 %), or one holds
-    ``absent``."""
+    burst's shape, the device's busy share, and the shares of each of
+    the model's kernels (``symbols``: kernel -> a string in its device
+    kernel's name) and of the matrix products. Fails if no device kernel
+    of a flush holds a symbol (a renamed kernel must not read as 0 %),
+    or one holds a string of ``absent``."""
     from repro_torch.data.tokens import synthetic_token_batch
 
-    for n_req, plen, max_batch in ZOO_BURSTS:
+    for n_req, plen, max_batch in bursts:
         toks = synthetic_token_batch(max_batch, plen, fc.cfg.vocab, seed=5)
         fc.predict(toks)
         wall, busy, kernels = profile(
             f"one predict flush of {max_batch} x {plen} tokens",
             lambda: fc.predict(toks), tag)
-        own = sum(us for us, _, name in kernels if symbol in name)
-        check(own > 0, f"{fc.cfg.name} flush of {max_batch} x {plen}: no "
-                       f"device kernel's name holds {symbol!r}: "
-                       f"{[name for _, _, name in kernels]}")
-        check(absent is None or not any(absent in name
-                                        for _, _, name in kernels),
-              f"{fc.cfg.name} flush of {max_batch} x {plen} ran "
-              f"{absent!r}")
+        own = {k: sum(us for us, _, name in kernels if sym in name)
+               for k, sym in symbols.items()}
+        check(all(own.values()),
+              f"{fc.cfg.name} flush of {max_batch} x {plen}: no device "
+              f"kernel's name holds one of {symbols}: "
+              f"{[name for _, _, name in kernels]}")
+        check(not any(a in name for a in absent for _, _, name in kernels),
+              f"{fc.cfg.name} flush of {max_batch} x {plen} ran one of "
+              f"{absent}")
         gemm = sum(us for us, _, name in kernels
-                   if symbol not in name
+                   if not any(sym in name for sym in symbols.values())
                    and any(w in name.lower() for w in (
                        "nvjet", "gemm", "cutlass", "xmma")))
+        rest = busy - sum(own.values()) - gemm
         print(f"[profile] {tag}: {fc.cfg.name} flush of {max_batch} x "
-              f"{plen}: {kernel} {own:.1f} us = {100 * own / busy:.2f} % of "
-              f"the busy time, matrix products (projections, MLP, LM head) "
-              f"{gemm:.1f} us = {100 * gemm / busy:.2f} %, the rest "
-              f"{busy - own - gemm:.1f} us = "
-              f"{100 * (busy - own - gemm) / busy:.2f} %")
+              f"{plen}: " + ", ".join(
+                  f"{k} {us:.1f} us = {100 * us / busy:.2f} %"
+                  for k, us in own.items())
+              + f" of the busy time, matrix products (projections, MLP, LM "
+              f"head) {gemm:.1f} us = {100 * gemm / busy:.2f} %, the rest "
+              f"{rest:.1f} us = {100 * rest / busy:.2f} %")
 
 
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
-    each shape on the main paths. The backward's line adds the forward
-    and backward kernels plus the weight gradients beside torch.lstm's
-    forward and backward."""
+    each shape on the main paths. ``library_ms`` is weighted over the
+    launches whose shape has a library call; where some shapes have none
+    (flash with a window), ``library_launches`` says how many launches
+    it covers. The backward's line adds the forward and backward kernels
+    plus the weight gradients beside torch.lstm's forward and
+    backward."""
     n = sum(launches.values())
 
-    def weighted(key):
-        if any(rows[s][key] is None for s in launches):
+    def weighted(key, over=launches):
+        if any(rows[s][key] is None for s in over):
             return None
-        return sum(k * rows[s][key] for s, k in launches.items()) / n
+        return sum(k * rows[s][key] for s, k in over.items()) / sum(
+            over.values())
 
+    lib = {s: k for s, k in launches.items()
+           if rows[s]["library_ms"] is not None}
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n, "max_abs_err": max_err,
         "ms": weighted("ms"), "plain_ms": weighted("plain_ms"),
         "bound_ms": weighted("bound_ms"),
         "bound_by": rows[max(launches, key=launches.get)]["bound_by"],
-        "library_ms": weighted("library_ms")}
+        "library_ms": weighted("library_ms", lib) if lib else None}
+    if lib and len(lib) < len(launches):
+        entry["library_launches"] = sum(lib.values())
     for key in ("fwd_bwd_ms", "library_fwd_bwd_ms"):
         if all(key in rows[s] for s in launches):
             entry[key] = weighted(key)
-    entry["shapes"] = {"x".join(map(str, s)): k for s, k in launches.items()}
+    entry["shapes"] = {"x".join(map(str, s[:6])) + "".join(
+        f" window {w}" for w in s[6:]): k for s, k in launches.items()}
     return entry
 
 
@@ -3020,36 +3271,63 @@ def main() -> None:
           sessions, tag)
     timed("profile paper-lstm training", profile_training, data[0], tag)
     timed("profile online", profile_online, tag)
-    zoo_fc, flash_launches, init_s = timed(
-        f"serve {ZOO_ARCH}", zoo_serve_main_path, ZOO_ARCH, "flash_attention",
-        tag)
+    zoo_fc, qwen_launches, init_s = timed(
+        f"serve {ZOO_ARCH}", zoo_serve_main_path, ZOO_ARCH, tag)
     timed(f"{ZOO_ARCH} card vs CPU", zoo_card_vs_cpu, ZOO_ARCH, tag)
-    timed(f"{ZOO_ARCH} CLI", zoo_cli, ZOO_ARCH, "flash_attention")
+    timed(f"{ZOO_ARCH} CLI", zoo_cli, ZOO_ARCH, ("flash_attention",))
     rows["flash_attention"], flash_err = timed(
-        "time flash_attention", time_flash, flash_launches, tag)
-    every["flash_attention"] = flash_launches
+        "time flash_attention", time_flash, qwen_launches["flash_attention"],
+        tag)
     errs["flash_attention"] = max(errs["flash_attention"], flash_err)
+    timed("flash host cost", flash_host, tag)
     timed(f"profile {ZOO_ARCH} serving", profile_zoo, zoo_fc,
-          "flash_attention", FLASH_SYMBOL, tag, FLASH_FP32_SYMBOL)
+          {"flash_attention": FLASH_SYMBOL}, tag, (FLASH_FP32_SYMBOL,))
     print(f"[zoo] {ZOO_ARCH} init (draw on the card + calibrate): "
           f"{init_s:.2f} s")
     del zoo_fc
-    mamba_fc, ssd_launches, mamba_init_s = timed(
-        f"serve {MAMBA_ARCH}", zoo_serve_main_path, MAMBA_ARCH, "ssd_scan",
-        tag)
+    mamba_fc, mamba_launches, mamba_init_s = timed(
+        f"serve {MAMBA_ARCH}", zoo_serve_main_path, MAMBA_ARCH, tag)
     timed(f"{MAMBA_ARCH} card vs CPU", zoo_card_vs_cpu, MAMBA_ARCH, tag,
           MAMBA_NOISE)
-    timed(f"{MAMBA_ARCH} CLI", zoo_cli, MAMBA_ARCH, "ssd_scan")
-    ssd_launches = merge_launches({"ssd_scan": ssd_launches},
+    timed(f"{MAMBA_ARCH} CLI", zoo_cli, MAMBA_ARCH, ("ssd_scan",))
+    ssd_launches = merge_launches(mamba_launches,
                                   ckpt_launches)["ssd_scan"]
     rows["ssd_scan"], ssd_err = timed("time ssd_scan", time_ssd,
                                       ssd_launches, tag)
-    every["ssd_scan"] = ssd_launches
     errs["ssd_scan"] = max(errs["ssd_scan"], ssd_err)
-    timed(f"profile {MAMBA_ARCH} serving", profile_zoo, mamba_fc, "ssd_scan",
-          SSD_SYMBOL, tag, SSD_FP32_SYMBOL)
+    timed(f"profile {MAMBA_ARCH} serving", profile_zoo, mamba_fc,
+          {"ssd_scan": SSD_SYMBOL}, tag, (SSD_FP32_SYMBOL,))
     print(f"[zoo] {MAMBA_ARCH} init (draw on the card + calibrate): "
           f"{mamba_init_s:.2f} s")
+    del mamba_fc
+    zamba_fc, zamba_launches, zamba_init_s = timed(
+        f"serve {ZAMBA_ARCH}", zoo_serve_main_path, ZAMBA_ARCH, tag,
+        ZAMBA_BURSTS)
+    timed(f"{ZAMBA_ARCH} card vs CPU", zoo_card_vs_cpu, ZAMBA_ARCH, tag,
+          MAMBA_NOISE, ZAMBA_CPU_LAYERS)
+    timed(f"{ZAMBA_ARCH} CLI", zoo_cli, ZAMBA_ARCH,
+          ("ssd_scan", "flash_attention"))
+    errs["ssd_scan"] = max(errs["ssd_scan"], timed(
+        f"check ssd_scan at {ZAMBA_ARCH}'s shapes", check_ssd_shapes,
+        ZAMBA_SSD, 500)[0])
+    zamba_rows, flash_err = timed(
+        f"time flash_attention at {ZAMBA_ARCH}'s shapes", time_flash,
+        zamba_launches["flash_attention"], tag, ZAMBA_FLASH)
+    rows["flash_attention"].update(zamba_rows)
+    errs["flash_attention"] = max(errs["flash_attention"], flash_err)
+    zamba_rows, ssd_err = timed(
+        f"time ssd_scan at {ZAMBA_ARCH}'s shapes", time_ssd,
+        zamba_launches["ssd_scan"], tag, ZAMBA_SSD)
+    rows["ssd_scan"].update(zamba_rows)
+    errs["ssd_scan"] = max(errs["ssd_scan"], ssd_err)
+    timed(f"profile {ZAMBA_ARCH} serving", profile_zoo, zamba_fc,
+          {"ssd_scan": SSD_SYMBOL, "flash_attention": FLASH_SYMBOL}, tag,
+          (SSD_FP32_SYMBOL, FLASH_FP32_SYMBOL), ZAMBA_BURSTS)
+    print(f"[zoo] {ZAMBA_ARCH} init (draw on the card + calibrate): "
+          f"{zamba_init_s:.2f} s")
+    del zamba_fc
+    every.update(merge_launches(qwen_launches, {"ssd_scan": ssd_launches},
+                                zamba_launches))
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
     meta = {
         "lstm_layer": (csrc.format("lstm", "lstm_layer.cu"),

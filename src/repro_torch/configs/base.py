@@ -5,8 +5,9 @@ A copy of ``repro.configs.base`` (plain Python, no jax): ``--model
 <id>`` resolves through the registry (``get_config``); each
 architecture lives in its own module citing its source. The port
 registers an architecture once its family runs here (so far the dense
-``qwen1.5-4b`` and the SSM ``mamba2-370m``); the mesh-sharding and
-dry-run fields are kept so that a config means the same on both sides.
+``qwen1.5-4b``, the SSM ``mamba2-370m`` and the hybrid ``zamba2-2.7b``);
+the mesh-sharding and dry-run fields are kept so that a config means the
+same on both sides.
 """
 
 from __future__ import annotations

@@ -28,6 +28,14 @@ traffic trace against it.
     PYTHONPATH=src python -m repro_torch.launch.serve --model mamba2-370m \
         --device cpu --requests 32 --max-batch 8
 
+    # Zamba2-2.7B, the hybrid, at full width on the card (bf16: 54 Mamba2
+    # layers through the SSD kernel, the shared attention block after
+    # every 6th through the flash kernel); on the CPU, reduced:
+    PYTHONPATH=src python -m repro_torch.launch.serve --model zamba2-2.7b \
+        --no-reduced --requests 64 --max-batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --model zamba2-2.7b \
+        --device cpu --requests 32 --max-batch 8
+
 Single process only; the sharded mesh, process workers, ensembles and
 the durable state directory of ``repro.launch.serve`` wait for later
 slices of the port.
@@ -70,7 +78,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--model", default="paper-lstm",
                     choices=["paper-lstm", *list_archs()],
                     help="the model to host: the paper LSTM or a zoo arch "
-                    "the port runs")
+                    "the port runs (dense qwen1.5-4b, SSM mamba2-370m, "
+                    "hybrid zamba2-2.7b)")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="host a trained serving checkpoint (the output "
                     "of `-m repro_torch.launch.train --save`) under the "

@@ -1,9 +1,9 @@
 """``build_model(cfg)``: one functional handle over the zoo's
 architectures (``repro.models.model_zoo``).
 
-``init`` and ``forward`` run for the dense and ssm families (Qwen1.5-4B,
-Mamba2-370M); ``loss`` waits for
-zoo training, ``prefill``, ``decode_step`` and ``init_cache`` for the
+``init`` and ``forward`` run for the dense, ssm and hybrid families
+(Qwen1.5-4B, Mamba2-370M, Zamba2-2.7B); ``loss`` waits for zoo
+training, ``prefill``, ``decode_step`` and ``init_cache`` for the
 decode path, and raise until their slice (ROADMAP "Next").
 """
 

@@ -1,5 +1,7 @@
 """Transformer zoo (``repro.models.transformer``): the decoder LM of the
-``dense`` family and the Mamba2 stack of the ``ssm`` family, their init
+``dense`` family, the Mamba2 stack of the ``ssm`` family and the
+Zamba2 stack of the ``hybrid`` family (Mamba2 layers with one shared
+attention + MLP block after every ``attn_every`` of them), their init
 and their forward.
 
     params = init_lm(cfg, generator)                 # leaves on its device
@@ -34,10 +36,9 @@ from repro_torch.tree import tree_leaves, tree_map
 PyTree = Any
 
 # the ROADMAP "Next" item that ports each family the port lacks
-_LATER = {"hybrid": "Zamba2", "moe": "MoE", "vlm": "audio and VLM",
-          "audio": "audio and VLM"}
+_LATER = {"moe": "MoE", "vlm": "audio and VLM", "audio": "audio and VLM"}
 # the families the port runs
-_PORTED = ("dense", "ssm")
+_PORTED = ("dense", "ssm", "hybrid")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -125,9 +126,10 @@ def _stack(fn, n: int):
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator | None) -> PyTree:
-    """Random params of a dense decoder LM or a Mamba2 stack, in the
-    config's dtype (``dt_bias`` and ``A_log`` in float32, as in the JAX
-    package), drawn from ``generator`` on its own device (a CUDA
+    """Random params of a dense decoder LM, a Mamba2 stack or a Zamba2
+    stack (the Mamba2 layers, and one ``shared`` attention + MLP block),
+    in the config's dtype (``dt_bias`` and ``A_log`` in float32, as in
+    the JAX package), drawn from ``generator`` on its own device (a CUDA
     generator draws on the card, each leaf in fp32 and cast, one layer
     at a time). With no generator the leaves lie on the meta device: the
     tree's keys, shapes and dtypes, with no data."""
@@ -137,17 +139,21 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator | None) -> PyTree:
     dev = init_device(generator)
 
     def layer():
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             return {"norm1": norm_param(cfg.norm, d, dt, dev),
                     "ssm": _init_ssm_block(generator, cfg, dt)}
         return _init_decoder_layer(generator, cfg, dt)
 
-    return {
+    params = {
         "embed": embed_init(generator, (V, d), dt, dev),
         "final_norm": norm_param(cfg.norm, d, dt, dev),
         "lm_head": dense_init(generator, (d, V), dt, dev),
         "layers": _stack(layer, cfg.n_layers),
     }
+    if cfg.family == "hybrid":
+        # one SHARED attention + MLP block (tied weights, run per stage)
+        params["shared"] = _init_decoder_layer(generator, cfg, dt)
+    return params
 
 
 # ==========================================================================
@@ -213,9 +219,21 @@ def _embed(cfg: ArchConfig, params, tokens):
     return params["embed"][tokens]
 
 
+def _check_stages(cfg: ArchConfig, n_layers: int) -> None:
+    """The hybrid runs stages of ``attn_every`` Mamba2 layers, each
+    followed by the shared block. The JAX package reshapes the layer
+    stack into stages, which fails on a depth that is not a multiple of
+    ``attn_every``; so does this."""
+    if cfg.attn_every < 1 or n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: n_layers={n_layers} is not a "
+                         f"multiple of attn_every={cfg.attn_every}")
+
+
 def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
-    """Forward of a dense decoder LM or a Mamba2 stack over every
-    position.
+    """Forward of a dense decoder LM, a Mamba2 stack or a Zamba2 stack
+    over every position. The hybrid runs ``n_layers // attn_every``
+    stages, each ``attn_every`` Mamba2 layers and then the one shared
+    attention + MLP block, whose tensors every stage reads.
 
     tokens: integer [B, S] on the params' device. Returns (logits
     [B, S, padded_vocab] in the config's dtype, aux_loss: a float32
@@ -223,14 +241,20 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     """
     _require_ported(cfg)
     B, S = tokens.shape
+    layers = params["layers"]
+    n_layers = tree_leaves(layers)[0].shape[0]
+    if cfg.family == "hybrid":
+        _check_stages(cfg, n_layers)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     window = _effective_window(cfg, S)
-    layers = params["layers"]
-    for i in range(tree_leaves(layers)[0].shape[0]):
+    for i in range(n_layers):
         lp = tree_map(lambda t: t[i], layers)
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             x = _ssm_block(cfg, lp, x)
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x, _ = _decoder_block(cfg, params["shared"], x, positions,
+                                      window)
         else:
             x, _ = _decoder_block(cfg, lp, x, positions, window)
     x = apply_norm(x, params["final_norm"], cfg.norm)

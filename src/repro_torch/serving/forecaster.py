@@ -3,11 +3,12 @@ lengths) -> (forecast, extreme_probability)``.
 
 ``LSTMForecaster`` serves the paper LSTM, with O(1) streaming by
 explicit carries and device-resident decode slots besides.
-``ZooForecaster`` serves a zoo arch (so far the dense and ssm
-families: Qwen1.5-4B, Mamba2-370M) as next-token prediction over
-right-padded token windows: the forecast is the greedy next token and
-the extreme probability the EVT-calibrated surprisal of it. On the card
-every dense layer's attention runs through the hand-written CUDA
+``ZooForecaster`` serves a zoo arch (so far the dense, ssm and hybrid
+families: Qwen1.5-4B, Mamba2-370M, Zamba2-2.7B) as next-token
+prediction over right-padded token windows: the forecast is the greedy
+next token and the extreme probability the EVT-calibrated surprisal of
+it. On the card every attention (a dense layer's, or Zamba2's shared
+block after each stage) runs through the hand-written CUDA
 flash-attention kernel, and every Mamba2 layer's scan through the
 hand-written CUDA SSD kernel.
 
@@ -58,6 +59,7 @@ from repro_torch.models.rnn import (RNNConfig, init_rnn, init_rnn_carry,
                                     lstm_layer_apply, rnn_apply_padded,
                                     rnn_head, rnn_step, split_rnn_carry,
                                     stack_rnn_carries)
+from repro_torch.tree import tree_leaves
 
 PyTree = Any
 
@@ -503,12 +505,16 @@ class ZooForecaster:
 def build_zoo_forecaster(arch: str, seed: int = 0, reduced: bool = True,
                          calibrate_batch: int = 8,
                          device="cuda") -> ZooForecaster:
-    """A zoo arch served on ``device``: the full config, or its reduced
-    CPU-smoke variant; random weights drawn from a ``torch.Generator``
+    """A zoo arch (any the port registers: the dense ``qwen1.5-4b``, the
+    SSM ``mamba2-370m``, the hybrid ``zamba2-2.7b``) served on
+    ``device``: the full config, or its reduced CPU-smoke variant;
+    random weights drawn from a ``torch.Generator``
     on ``device`` seeded with ``seed`` (on the card the model is drawn
     there, with no copy on the host; the CPU and the card give different
     weights for one seed); EVT-calibrated on ``calibrate_batch``
-    synthetic token windows. Prints the init's seconds."""
+    synthetic token windows. Prints the init's seconds and the drawn
+    tree's parameters (``cfg.param_count()`` is the roofline's estimate:
+    for Zamba2 it counts the shared MLP as gated)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced as reduce_cfg
     from repro_torch.data.tokens import synthetic_token_batch
@@ -523,7 +529,8 @@ def build_zoo_forecaster(arch: str, seed: int = 0, reduced: bool = True,
         torch.Generator(device=device).manual_seed(seed))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print(f"init {cfg.name} ({cfg.param_count() / 1e6:.1f} M params, "
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"init {cfg.name} ({n_params / 1e6:.1f} M params, "
           f"{cfg.dtype}) on {device}: {time.perf_counter() - t0:.2f} s")
     fc = ZooForecaster(cfg=cfg, params=params, device=device)
     if calibrate_batch:

@@ -202,7 +202,8 @@ def test_init_lm_tree_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen1.5-4b",
+                                  "zamba2-2.7b"])
 def test_init_lm_on_the_meta_device_is_the_drawn_tree_without_data(arch,
                                                                    dtype):
     """With no generator, ``init_lm`` gives the drawn init's keys, shapes

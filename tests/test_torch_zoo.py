@@ -70,9 +70,9 @@ def test_config_equals_jax_config_full_and_reduced():
 
 
 def test_registry_lists_the_ported_archs_and_rejects_others():
-    assert list_archs() == ["mamba2-370m", ARCH]
+    assert list_archs() == ["mamba2-370m", ARCH, "zamba2-2.7b"]
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("zamba2-2.7b")
+        get_config("mixtral-8x7b")
     assert [pad_vocab(v) for v in (1, 256, 257, 151936)] == \
         [jlayers.pad_vocab(v) for v in (1, 256, 257, 151936)]
     assert layers.pad_vocab(151936) == 152064
@@ -179,7 +179,7 @@ def test_init_lm_tree_matches_jax(dtype):
 
 def test_other_families_are_not_ported_yet():
     cfg = reduced(get_config(ARCH))
-    for family, item in (("hybrid", "Zamba2"), ("audio", "audio and VLM"),
+    for family, item in (("audio", "audio and VLM"),
                          ("vlm", "audio and VLM")):
         other = dataclasses.replace(cfg, family=family)
         with pytest.raises(NotImplementedError, match=item):
