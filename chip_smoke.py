@@ -7,6 +7,7 @@ NVIDIA H100.
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
     python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
+    python3 chip_smoke.py --decode           # the [decode] phase alone
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -54,7 +55,19 @@ flash kernel), with a third burst of one 133,120-token request, whose
 attention takes the long-context window of 4096 keys, and its card-vs-
 CPU copy cut to one stage (6 layers); both kernels are held against
 their plain versions at Zamba2's shapes, the windowed launch on query
-slices.
+slices. Then the zoo's decode path (``[decode]``): each of the three
+at full width and depth in bf16, 8 prompts of 2048 tokens prefilled
+into the KV and SSM caches through ``build_model(cfg).prefill`` (40
+flash launches for Qwen, 48 SSD for Mamba2, 54 SSD + 9 flash for
+Zamba2) and 320 teacher-forced one-token ``decode_step``s with
+``flush_recent`` every 256 tokens, each step's logits held against
+``lm_forward``'s at the JAX test's bound and launching no kernel; for
+Zamba2 also a 133,120-token prompt into the ring of its 4096-key window
+and 32 steps; each model's fp32 copy (2 layers, Zamba2 one stage)
+against the forward and the CPU; ``ssd_chunk``, the port of the TPU
+kernel's single-chunk entry from a given state, against its plain
+version, and ``ssd_chunked(initial_state=...)`` through the kernel at
+the prefills' shapes.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -65,7 +78,8 @@ exits non-zero. The last two lines are a JSON object per kernel and
 ``--flash-ablation``, ``--ssd-ablation``, ``--lstm-ablation`` or
 ``--evl-ablation`` it runs only that probe (``flash_host``,
 ``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
-``evl_ablation``) and prints no result.
+``evl_ablation``) and prints no result; with ``--decode``, the build
+and the ``[decode]`` phase alone, and no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -241,6 +255,43 @@ ZAMBA_FLASH = [(8, 32, 32, 32, 32, 80), (4, 2048, 2048, 32, 32, 80),
 ZAMBA_SSD = [(8, 32, 80, 64, 64, 128), (4, 2048, 80, 64, 64, 128),
              (1, ZAMBA_LONG, 80, 64, 64, 128)]
 FLASH_SLICE = 512
+# the zoo's decode path ([decode]): each zoo arch at full width and depth
+# (bf16, random weights from seed 0), DECODE_BATCH prompts of
+# DECODE_PROMPT tokens (burst B's length) prefilled into the KV and SSM
+# caches, then DECODE_STEPS teacher-forced one-token decode steps
+# (Qwen's full-mode cache flushes its 256 recent slots once mid-run and
+# ends with 64 in them); Zamba2 also one prompt of ZAMBA_LONG tokens into
+# the ring of its long-context window and DECODE_LONG_STEPS steps. Each
+# step's logits are held against lm_forward's at the same position at
+# the JAX test's bound (tests/test_arch_smoke.py: max |got - want| /
+# max |want| < 0.05 a step); step times are medians after
+# DECODE_WARMUP steps.
+DECODE_ARCHS = (ZOO_ARCH, MAMBA_ARCH, ZAMBA_ARCH)
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 8, 2048, 320
+DECODE_LONG_STEPS = 32
+DECODE_WARMUP = 16
+DECODE_BOUND = 0.05
+# At full depth the bf16 forward itself lies several % of max |logit|
+# from the forward of an fp32 copy of the same weights (the [decode]
+# lines print how far), so two bf16 computations of one step differ by
+# about that much: the bf16 decode is also read against that fp32
+# forward, and may be no further from it than this factor times the
+# bf16 forward is.
+DECODE_FP32_REF_FACTOR = 1.25
+# each arch's fp32 copy (TF32 off): full width, 2 layers (Zamba2 one
+# stage of 6), (batch, prompt, steps, decode_buffer), so that flushes
+# land in the run; held against lm_forward on the card and against the
+# port on the CPU with the same weights at 1e-4 of max |want|
+DECODE_FP32 = (2, 48, 24, 16)
+DECODE_FP32_LAYERS = {ZOO_ARCH: 2, MAMBA_ARCH: 2, ZAMBA_ARCH: ZAMBA_CPU_LAYERS}
+DECODE_FP32_BOUND = 1e-4
+DECODE_NOISE = dict(MAMBA_NOISE, bq=0.2, bk=0.2, bv=0.2)
+# the SSD scan from a given state: ssd_chunk at (K, P, N), the JAX
+# entry's test shape and a full chunk of Mamba2-370M's; and
+# ssd_chunked(initial_state=...) at the decode prefills' SSD shapes
+# (B, L, H, P, N, chunk)
+SSD_CHUNK_SHAPES = [(32, 16, 8), (128, 64, 128)]
+SSD_FROM_STATE = [(8, 2048, 32, 64, 128, 128), (8, 2048, 80, 64, 64, 128)]
 # the paper-LSTM training runs of the main path (CLI defaults: AAPL,
 # 1430 days, batch 32, seed 0; EVL weight 0.5)
 SERIAL_ITERATIONS = 300
@@ -293,7 +344,8 @@ def counters():
             "lstm_layer_bwd": lstm_kernel.LAYER_BWD_LAUNCHES,
             "evl": evl_kernel.EVL_LAUNCHES,
             "flash_attention": attn_kernel.FLASH_LAUNCHES,
-            "ssd_scan": ssd_kernel.SSD_LAUNCHES}
+            "ssd_scan": ssd_kernel.SSD_LAUNCHES,
+            "ssd_chunk": ssd_kernel.SSD_CHUNK_LAUNCHES}
 
 
 def paper_counts() -> dict:
@@ -344,7 +396,8 @@ def no_plain_version_on_the_card():
 
     names = [(lstm_ops, "lstm_cell_ref"), (lstm_ops, "lstm_layer_ref"),
              (evl_ops, "evl_loss_ref"), (evl_ops, "evl_loss_and_grad_ref"),
-             (attn_ops, "attention_ref"), (ssd_ops, "ssd_scan_ref")]
+             (attn_ops, "attention_ref"), (ssd_ops, "ssd_scan_ref"),
+             (ssd_ops, "ssd_chunk_ref")]
     calls: list[str] = []
     saved = {(m, n): getattr(m, n) for m, n in names}
     for (mod, name), fn in saved.items():
@@ -1512,7 +1565,7 @@ def online_main_path(alone_ms: float, tag: str) -> dict:
         totals = {k: sum(v.values()) for k, v in launches.items()}
         want = {"lstm_layer": n_layers * (steps + published + flushes + 1),
                 "lstm_layer_bwd": n_layers * steps, "evl": steps,
-                "flash_attention": 0, "ssd_scan": 0}
+                "flash_attention": 0, "ssd_scan": 0, "ssd_chunk": 0}
         check(totals == want,
               f"online launches {totals}, not {want}: {steps} local steps, "
               f"{published} publishes (a calibration predict each), "
@@ -3165,6 +3218,460 @@ def profile_zoo(fc, symbols: dict, tag: str, absent=(),
               f"{rest:.1f} us = {100 * rest / busy:.2f} %")
 
 
+# ----------------------------------------------------------- [decode] --
+
+def grow_main(cache, longer):
+    """A prefill cache moved into a longer empty one (``init_cache`` at
+    the whole sequence's length), as the JAX test's ``place`` does: each
+    leaf of the same shape taken as it is, main's k and v copied into
+    the longer main's first rows. A full-mode flush past main's end
+    would be clamped onto valid keys (ROADMAP Queue 3)."""
+    out = dict(longer)
+    for k, src in cache.items():
+        dst = longer[k]
+        if dst.shape == src.shape:
+            out[k] = src
+        else:
+            check(dst.dim() == src.dim() and dst.shape[2] > src.shape[2],
+                  f"cache leaf {k}: {tuple(src.shape)} does not grow into "
+                  f"{tuple(dst.shape)}")
+            dst[:, :, :src.shape[2]].copy_(src)
+    return out
+
+
+def step_rel(got, want) -> list:
+    """max |got - want| / max |want| for each step: got, want [steps, B,
+    V], compared 32 steps at a time in fp32; one host read."""
+    out = []
+    for s0 in range(0, got.shape[0], 32):
+        g = got[s0:s0 + 32].float()
+        w = want[s0:s0 + 32].float()
+        out.append((g - w).abs().amax(dim=(1, 2))
+                   / w.abs().amax(dim=(1, 2)).clamp_min(1e-30))
+    return torch.cat(out).tolist()
+
+
+def decode_steps(cfg, model, params, toks, prompt: int, cache, on_step=None):
+    """Teacher-forced decode of toks[:, prompt:] from ``cache``, with
+    ``flush_recent`` whenever len - flushed reaches ``decode_buffer``
+    (the serving loop's rule; the host counts the tokens, so it reads
+    no counter off the card). ``on_step(t)`` runs after each step.
+    Returns the logits [steps, B, V], the cache and the flushes."""
+    from repro_torch.models import transformer as tfm
+
+    flushed = prompt if "kr" in cache else None
+    logits, flushes = [], 0
+    for t in range(toks.shape[1] - prompt):
+        lg, cache = model.decode_step(params, toks[:, prompt + t], cache)
+        logits.append(lg)
+        if flushed is not None and prompt + t + 1 - flushed >= \
+                cfg.decode_buffer:
+            cache = tfm.flush_recent(cfg, cache)
+            flushed, flushes = prompt + t + 1, flushes + 1
+        if on_step is not None:
+            on_step(t)
+    return torch.stack(logits), cache, flushes
+
+
+def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
+               bound: float, keep: bool = False,
+               fp32_reference: bool = False) -> dict:
+    """One run of the decode path on the card, under ``torch.no_grad``:
+    ``prefill`` of toks[:, :prompt] (launch counts zeroed just before
+    and read just after: the path's kernels, ``path_kernels`` each,
+    with the window the prompt's length asks for, nothing else and no
+    plain version on a card tensor), the cache moved into
+    ``init_cache`` at the whole length (``grow_main``), then one
+    ``decode_step`` a token with ``flush_recent`` every
+    ``decode_buffer`` tokens (counts zeroed again: a step launches no
+    kernel of the port; the card's sync-debug mode counts the host
+    syncs). Then ``lm_forward`` over all the tokens: the prefill's
+    logits and each step's within ``bound`` of its rows (max |got -
+    want| / max |want|). Times: the prefill on the host's clock after a
+    sync, each step between CUDA events (median after DECODE_WARMUP
+    steps); without ``keep``, three more steps under ``torch.profiler``
+    give the device's busy share. With ``keep`` the logits and the
+    cache come back instead. With
+    ``fp32_reference`` (a bf16 model) both the bf16 forward and the bf16
+    decode are read against the forward of an fp32 copy of the same
+    weights too: the decode must be no further from it than
+    DECODE_FP32_REF_FACTOR times the bf16 forward's own distance."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.tree import tree_map
+
+    model = build_model(cfg)
+    B, total = toks.shape
+    steps = total - prompt
+    per_prefill = path_kernels(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {}
+    with torch.no_grad():
+        reset_counters()
+        with no_plain_version_on_the_card() as plain_calls, \
+                flash_windows() as windows:
+            t0 = time.perf_counter()
+            first, cache = model.prefill(params, toks[:, :prompt])
+            torch.cuda.synchronize()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        pre = read_counters()
+        check(not plain_calls, f"{label}: plain versions ran on the card "
+                               f"in the prefill: {plain_calls}")
+        for k, v in pre.items():
+            check(sum(v.values()) == per_prefill.get(k, 0),
+                  f"{label}: the prefill made {v} {k} launches, "
+                  f"{per_prefill.get(k, 0)} expected")
+        check(all(w == expected_window(cfg, prompt) for _, w in windows),
+              f"{label}: flash windows {windows} at {prompt} tokens")
+        out["prefill_launches"] = pre
+        if "flash_attention" in per_prefill:
+            out["prefill_launches"]["flash_attention"] = {}
+            for shape, w in windows:
+                key = flash_key(shape, w)
+                d = out["prefill_launches"]["flash_attention"]
+                d[key] = d.get(key, 0) + 1
+        cache = grow_main(cache, model.init_cache(B, total))
+        torch.cuda.synchronize()
+        reset_counters()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        with warnings.catch_warnings(record=True) as caught, \
+                no_plain_version_on_the_card() as plain_calls:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                events[0].record()
+                logits, cache, flushes = decode_steps(
+                    cfg, model, params, toks, prompt, cache,
+                    lambda t: events[t + 1].record())
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dec = read_counters()
+        where: dict = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                at = f"{Path(w.filename).name}:{w.lineno}"
+                where[at] = where.get(at, 0) + 1
+        syncs = sum(where.values())
+        check(not plain_calls, f"{label}: plain versions ran on the card "
+                               f"in decode: {plain_calls}")
+        check(syncs <= steps, f"{label}: {syncs} host syncs in {steps} "
+                              f"decode steps, more than one a step: {where}")
+        check(all(not v for v in dec.values()),
+              f"{label}: decode launched kernels of the port: {dec}")
+        check(int(cache["len"]) == total,
+              f"{label}: the cache's len {int(cache['len'])} != {total}")
+        if "flushed" in cache:
+            flushed = prompt + flushes * cfg.decode_buffer
+            check(int(cache["flushed"]) == flushed,
+                  f"{label}: flushed {int(cache['flushed'])} != {flushed}")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+        warm = DECODE_WARMUP if steps > 2 * DECODE_WARMUP else steps // 2
+        out["step_ms"] = statistics.median(ms[warm:])
+        out["step_ms_range"] = (min(ms[warm:]), max(ms[warm:]))
+        out["tokens_per_s"] = B * 1e3 / out["step_ms"]
+        out["decode_wall_s"] = wall
+        out["flushes"], out["syncs"] = flushes, syncs
+        kept = (logits, cache) if keep else None
+        want = model.forward(params, toks)[0]
+        rel_first = step_rel(first[None], want[None, :, prompt - 1])[0]
+        rel = step_rel(logits, want[:, prompt:].transpose(0, 1))
+        if fp32_reference:
+            import dataclasses
+
+            want = want[:, prompt:].transpose(0, 1)
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            want32 = build_model(cfg32).forward(
+                tree_map(lambda t: t.float(), params), toks)[0]
+            want32 = want32[:, prompt:].transpose(0, 1)
+            ref = (max(step_rel(want, want32)), max(step_rel(logits,
+                                                             want32)))
+            del want32
+            out["fp32_reference"] = ref
+            check(ref[1] <= DECODE_FP32_REF_FACTOR * ref[0],
+                  f"{label}: the bf16 decode is {ref[1]:.3e} from an fp32 "
+                  f"forward of the same weights, over "
+                  f"{DECODE_FP32_REF_FACTOR} x the bf16 forward's own "
+                  f"{ref[0]:.3e}")
+        del want, logits
+        if not keep:
+            # where a step's time goes: three more steps (past the
+            # compared ones) under the profiler
+            def more(c=cache, tok=toks[:, -1]):
+                for _ in range(3):
+                    _, c = model.decode_step(params, tok, c)
+            out["busy"] = profile(f"{label}: 3 more decode steps", more,
+                                  tag)[:2]
+            del cache
+    out["rel_prefill"], out["rel_max"] = rel_first, max(rel)
+    out["rel_last"] = rel[-1]
+    check(all(np.isfinite(rel)) and max(rel + [rel_first]) < bound,
+          f"{label}: decode logits vs the forward's, max |got - want| / "
+          f"max |want| {max(rel):.3e} (prefill {rel_first:.3e}) over "
+          f"{bound}: {[round(r, 5) for r in rel[:8]]} ...")
+    print(f"[decode] {tag}: {label}: prefill {B} x {prompt} tokens "
+          f"{out['prefill_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v}" for k, v in out["prefill_launches"].items()
+                      if v) + "); "
+          f"{steps} decode steps ({flushes} flushes) in {wall:.2f} s: "
+          f"{out['step_ms']:.3f} ms a step (median after {warm}; "
+          f"{out['step_ms_range'][0]:.3f}-{out['step_ms_range'][1]:.3f}), "
+          f"{out['tokens_per_s']:.1f} tokens/s; 0 kernel launches in "
+          f"decode; {syncs} host syncs in {steps} steps"
+          f"{' ' + str(where) if where else ''}; peak device "
+          f"memory {out['peak_gib']:.2f} GiB; vs lm_forward max |got - "
+          f"want| / max |want| prefill {rel_first:.3e}, decode max "
+          f"{max(rel):.3e} (step 0 {rel[0]:.3e}, median "
+          f"{statistics.median(rel):.3e}, last {rel[-1]:.3e}; bound "
+          f"{bound})" + (
+              "; vs an fp32 forward of the same weights, max over the "
+              "steps: the bf16 forward {:.3e}, the bf16 decode {:.3e}"
+              .format(*out["fp32_reference"]) if fp32_reference else ""))
+    out["kept"] = kept
+    return out
+
+
+def decode_full(arch: str, tag: str) -> dict:
+    """The [decode] phase at full width and depth, bf16, random weights
+    from seed 0 drawn on the card: DECODE_BATCH prompts of DECODE_PROMPT
+    tokens, DECODE_STEPS teacher-forced steps; for Zamba2 also one
+    prompt of ZAMBA_LONG tokens (the ring of its 4096-key window) and
+    DECODE_LONG_STEPS steps. Returns the runs by label."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16", f"{arch} is not bf16")
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    runs = {}
+    shapes = [(DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS)]
+    if cfg.family == "hybrid":
+        shapes.append((1, ZAMBA_LONG, DECODE_LONG_STEPS))
+    for B, prompt, steps in shapes:
+        toks = torch.as_tensor(synthetic_token_batch(
+            B, prompt + steps, cfg.vocab, seed=prompt), dtype=torch.long,
+            device="cuda")
+        label = f"{arch} {B} x {prompt} + {steps}"
+        runs[label] = decode_run(cfg, params, toks, prompt, label, tag,
+                                 DECODE_BOUND,
+                                 fp32_reference=prompt == DECODE_PROMPT)
+        del toks
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def decode_fp32_copy(arch: str, tag: str) -> float:
+    """``arch`` at full width, cut to DECODE_FP32_LAYERS[arch] layers,
+    fp32 (TF32 off), ``decode_buffer`` DECODE_FP32[3] so that flushes
+    land in the run, noised as the card-vs-CPU copies: prefill and
+    decode on the card held against the card's ``lm_forward`` within
+    DECODE_FP32_BOUND, and against the port on the CPU with the same
+    weights (each step's logits, and every leaf of the final cache).
+    Returns the largest relative difference card vs CPU."""
+    import dataclasses
+
+    from repro_torch.checkpoint.convert import params_to
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models.model_zoo import build_model
+
+    B, prompt, steps, R = DECODE_FP32
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              n_layers=DECODE_FP32_LAYERS[arch],
+                              decode_buffer=R)
+    model = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    params = model.init(g)
+    for name, t in named_leaves(params):
+        if name in DECODE_NOISE:
+            t.add_(DECODE_NOISE[name] * torch.randn(t.shape, generator=g,
+                                                    device="cuda"))
+    toks = torch.as_tensor(synthetic_token_batch(B, prompt + steps,
+                                                 cfg.vocab, seed=11),
+                           dtype=torch.long)
+    label = (f"{arch} fp32 {cfg.n_layers} layers {B} x {prompt} + {steps} "
+             f"(decode_buffer {R})")
+    card = decode_run(cfg, params, toks.cuda(), prompt, label, tag,
+                      DECODE_FP32_BOUND, keep=True)
+    logits_g, cache_g = card["kept"]
+    cpu_params = params_to(params, "cpu")
+    with torch.no_grad():
+        first_c, cache_c = model.prefill(cpu_params, toks[:, :prompt])
+        cache_c = grow_main(cache_c, model.init_cache(B, prompt + steps,
+                                                      device="cpu"))
+        logits_c, cache_c, _ = decode_steps(cfg, model, cpu_params, toks,
+                                            prompt, cache_c)
+    rel = step_rel(logits_g.cpu(), logits_c)
+    leaves = {}
+    for k, c in cache_c.items():
+        gk = cache_g[k].cpu()
+        if k in ("len", "flushed"):
+            check(torch.equal(gk, c), f"{label}: {k} card {gk} != CPU {c}")
+            continue
+        leaves[k] = float((gk - c).abs().max()
+                          / c.abs().max().clamp_min(1e-30))
+    worst = max(rel + list(leaves.values()))
+    check(worst < DECODE_FP32_BOUND,
+          f"{label}: card vs CPU, max relative difference {worst:.3e} "
+          f"(steps {max(rel):.3e}, cache {leaves}) over {DECODE_FP32_BOUND}")
+    print(f"[decode] {tag}: {label}: card vs the CPU port, same weights: "
+          f"logits max |card - cpu| / max |cpu| over {steps} steps "
+          f"{max(rel):.3e}; final cache leaves " + ", ".join(
+              f"{k} {v:.3e}" for k, v in leaves.items())
+          + f" (bound {DECODE_FP32_BOUND})")
+    return worst
+
+
+def chunk_bound(K, P, N):
+    """``ssd_chunk`` in fp32: xd, a, B_, C_ and the given state read
+    once, y and the new state written once; C B^T and the masked mix
+    with xd on the K (K + 1) / 2 pairs j <= i, C state^T and the state
+    update (2 K N P each), at the fp32 peak (the CUDA-core kernel)."""
+    nbytes = 4 * (2 * K * P + K + 2 * K * N + 2 * P * N)
+    ops = 2 * (K * (K + 1) // 2) * (N + P) + 4 * K * N * P
+    return bound(nbytes, ops)
+
+
+def ssd_from_state(tag: str):
+    """The SSD scan from a given state: ``ssd_chunk`` (the counterpart of
+    the TPU kernel's single-chunk entry ``ssd_chunk_fused``; no path of
+    either package calls it but its tests) driven at SSD_CHUNK_SHAPES
+    (K, P, N) in fp32 at the sweep and slow decays, launch counts zeroed
+    just before and read just after, each result held against its plain
+    version (``ssd_chunk_ref``) on the same inputs; then
+    ``ssd_chunked(initial_state=...)`` through the kernel against its
+    plain version (the plain scan, the same fold) at the decode
+    prefills' SSD shapes, bf16 and fp32. Times ``ssd_chunk`` (the launch
+    and the fold) beside its plain version and its bound. Returns the
+    entry's rows by (K, P, N), its launches and its largest |kernel -
+    plain|."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ssd.ref import (fold_state, ssd_chunk_ref,
+                                             ssd_scan_ref)
+    from repro_torch.models import ssm
+
+    inputs = {}
+    for i, (K, P, N) in enumerate(SSD_CHUNK_SHAPES):
+        for kind in ("sweep", "slow"):
+            xd, a, Bm, Cm = ssd_inputs(1, K, 1, P, N, kind, torch.float32,
+                                       K, seed=300 + 10 * i + len(kind))
+            g = torch.Generator(device="cuda").manual_seed(400 + i)
+            state = 0.5 * torch.randn(P, N, generator=g, device="cuda")
+            inputs[(K, P, N, kind)] = (xd[0, :, 0].contiguous(),
+                                       a[0, :, 0].contiguous(),
+                                       Bm[0].contiguous(),
+                                       Cm[0].contiguous(), state)
+    reset_counters()
+    with torch.no_grad(), no_plain_version_on_the_card() as plain_calls, \
+            dispatch.counting() as counts:
+        outs = {key: dispatch.ssd_chunk(*args)
+                for key, args in inputs.items()}
+        torch.cuda.synchronize()
+    got = read_counters()
+    check(not plain_calls, f"ssd_chunk ran a plain version: {plain_calls}")
+    launches = got["ssd_chunk"]
+    check(sum(launches.values()) == len(inputs) == counts["ssd_chunk"]
+          and sum(got["ssd_scan"].values()) == len(inputs),
+          f"ssd_chunk: {launches} launches, {counts} dispatches for "
+          f"{len(inputs)} calls")
+    worst, parts = 0.0, []
+    for key, args in inputs.items():
+        want = ssd_chunk_ref(*args)
+        errs = [float((o - w).abs().max()) for o, w in zip(outs[key], want)]
+        for o, w, part in zip(outs[key], want, ("y", "state")):
+            check(bool(torch.isfinite(o).all())
+                  and torch.allclose(o, w, rtol=SSD_RTOL, atol=SSD_ATOL),
+                  f"ssd_chunk {part} disagrees with ssd_chunk_ref at {key}:"
+                  f" max err {float((o - w).abs().max())}")
+        worst = max(worst, *errs)
+        parts.append(f"{key}: y {errs[0]:.2e} state {errs[1]:.2e}")
+    chunk_err = worst
+    print(f"[decode] ssd_chunk driven {len(inputs)} times (launches "
+          f"{launches}; dispatches {counts.by_op()}), max |kernel - "
+          f"plain| (rtol {SSD_RTOL}, atol {SSD_ATOL}): " + "; ".join(parts))
+    for shape in SSD_FROM_STATE:
+        B, L, H, P, N, K = shape
+        parts = []
+        for dt in (torch.bfloat16, torch.float32):
+            xd, a, Bm, Cm = ssd_inputs(B, L, H, P, N, "slow", dt, K,
+                                       seed=500 + H)
+            g = torch.Generator(device="cuda").manual_seed(600 + H)
+            s0 = 0.5 * torch.randn(B, H, P, N, generator=g, device="cuda")
+            with torch.no_grad():
+                y, s = ssm.ssd_chunked(xd, a, Bm, Cm, chunk=K,
+                                       initial_state=s0)
+                wy, ws = fold_state(*ssd_scan_ref(xd, a, Bm, Cm, K), a, Cm,
+                                    s0)
+                zy, _ = ssd_scan_ref(xd, a, Bm, Cm, K)
+            torch.cuda.synchronize()
+            rtol, atol = ((SSD_BF16_RTOL, SSD_BF16_ATOL)
+                          if dt == torch.bfloat16 else (SSD_RTOL, SSD_ATOL))
+            ey = float((y.float() - wy.float()).abs().max())
+            es = float((s - ws).abs().max())
+            weight = float((wy.float() - zy.float()).abs().max())
+            # y from zero comes out of the kernel in xd's dtype and is
+            # rounded again after the fold: its error is bounded by its
+            # own magnitude, not by that of the sum, which may cancel
+            y_ok = bool(((y.float() - wy.float()).abs() <= atol + rtol * (
+                zy.float().abs() + wy.float().abs())).all())
+            check(y_ok and torch.allclose(s, ws, rtol=SSD_RTOL,
+                                          atol=SSD_ATOL),
+                  f"ssd_chunked(initial_state) at {shape} {dt}: y err {ey} "
+                  f"(bound atol {atol} + rtol {rtol} (|y from zero| + |y|))"
+                  f", state err {es}")
+            worst = max(worst, ey, es)
+            parts.append(f"{str(dt)[6:]} y {ey:.2e} state {es:.2e} (the "
+                         f"state's share of y up to {weight:.2e})")
+            del xd, a, Bm, Cm, y, s, wy, ws, zy
+        print(f"[decode] ssd_chunked(initial_state) {shape} through the "
+              f"kernel vs its plain version: " + "; ".join(parts))
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+
+    rows = {}
+    for K, P, N in SSD_CHUNK_SHAPES:
+        args = inputs[(K, P, N, "slow")]
+        bnd, by = chunk_bound(K, P, N)
+        rows[(K, P, N)] = {
+            "ms": graph_ms(lambda: ssd_chunk(*args)),
+            "plain_ms": graph_ms(lambda: ssd_chunk_ref(*args)),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "max_abs_err": chunk_err}
+        r = rows[(K, P, N)]
+        print(f"[time] {tag}: ssd_chunk (K, P, N) {(K, P, N)} fp32 (the "
+              f"scan kernel at chunk K and the fold): {r['ms'] * 1e3:.2f} "
+              f"us, plain {r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{bnd * 1e3:.4f} us ({by}) = "
+              f"{100 * bnd / r['ms']:.3f} % of its time; no library call")
+    return rows, launches, chunk_err
+
+
+def decode_main_path(tag: str) -> dict:
+    """The [decode] phase: the zoo's decode path (``build_model(cfg)``'s
+    ``prefill``, ``init_cache`` and ``decode_step``, and
+    ``flush_recent``) for Qwen1.5-4B (full-mode cache: a flush lands
+    mid-run), Mamba2-370M and Zamba2-2.7B (also the 133,120-token ring)
+    at full width and depth in bf16 (``decode_full``), each one's fp32
+    copy held against the forward and the CPU (``decode_fp32_copy``),
+    and the SSD scan from a given state (``ssd_from_state``). Returns
+    the runs, the prefills' kernel launches by kernel and row key, and
+    ``ssd_chunk``'s rows, launches and largest error."""
+    runs, launches = {}, {}
+    for arch in DECODE_ARCHS:
+        runs.update(decode_full(arch, tag))
+        decode_fp32_copy(arch, tag)
+    for run in runs.values():
+        launches = merge_launches(launches, run["prefill_launches"])
+    rows, chunk_launches, err = ssd_from_state(tag)
+    return {"runs": runs, "launches": launches, "ssd_chunk": (
+        rows, chunk_launches, err)}
+
+
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
     each shape on the main paths. ``library_ms`` is weighted over the
@@ -3229,7 +3736,8 @@ def main() -> None:
               "--flash-ablation": lambda: flash_ablation(card),
               "--ssd-ablation": lambda: ssd_ablation(card),
               "--lstm-ablation": lambda: lstm_ablation(card),
-              "--evl-ablation": lambda: evl_ablation(card)}
+              "--evl-ablation": lambda: evl_ablation(card),
+              "--decode": lambda: (build_kernels(), decode_main_path(tag))}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -3328,6 +3836,19 @@ def main() -> None:
     del zamba_fc
     every.update(merge_launches(qwen_launches, {"ssd_scan": ssd_launches},
                                 zamba_launches))
+    decode = timed("decode (prefill, decode steps, flush)", decode_main_path,
+                   tag)
+    for k, timer in (("flash_attention", time_flash), ("ssd_scan", time_ssd)):
+        new = {s: n for s, n in decode["launches"][k].items()
+               if s not in rows[k]}
+        new_rows, err = timed(f"time {k} at the decode prefills' shapes",
+                              timer, new, tag, ())
+        rows[k].update(new_rows)
+        errs[k] = max(errs[k], err)
+    every = merge_launches(every, {k: decode["launches"][k] for k in (
+        "flash_attention", "ssd_scan")})
+    rows["ssd_chunk"], every["ssd_chunk"], errs["ssd_chunk"] = \
+        decode["ssd_chunk"]
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
     meta = {
         "lstm_layer": (csrc.format("lstm", "lstm_layer.cu"),
@@ -3340,7 +3861,9 @@ def main() -> None:
                                         "flash_attention_wgmma.cu"),
                             "src/repro/kernels/attention/kernel.py:34"),
         "ssd_scan": (csrc.format("ssd", "ssd_scan_wgmma.cu"),
-                     "src/repro/kernels/ssd/kernel.py:27")}
+                     "src/repro/kernels/ssd/kernel.py:27"),
+        "ssd_chunk": (csrc.format("ssd", "ssd_scan.cu"),
+                      "src/repro/kernels/ssd/ops.py:36")}
     entries = [kernel_entry(k, *meta[k], rows[k], every[k], errs[k])
                for k in meta]
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s")

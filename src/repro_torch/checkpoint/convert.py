@@ -21,6 +21,12 @@ layer leaves) to the port's nest of the same keys and shapes on
 the JAX init. numpy has no bf16, so a bf16 config's params arrive as
 fp32 arrays (or as ``ml_dtypes`` bfloat16 arrays, widened exactly to
 fp32 first) and are cast leaf by leaf.
+
+``zoo_cache_from_numpy`` does the same for a decode cache
+(``repro.models.transformer.lm_prefill`` / ``init_cache``'s, numpy
+leaves): each leaf in the dtype of the port's ``init_cache`` (the
+counters int32, the SSM state float32, the rest the config's dtype),
+so that the port can decode on from the JAX package's own cache.
 """
 
 from __future__ import annotations
@@ -29,11 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import init_cache, init_lm
 from repro_torch.tree import stack_workers, tree_map
 
 __all__ = ["params_from_numpy", "params_to", "params_to_numpy",
-           "stack_workers", "tree_map", "zoo_params_from_numpy"]
+           "stack_workers", "tree_map", "zoo_cache_from_numpy",
+           "zoo_params_from_numpy"]
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -60,10 +67,23 @@ def zoo_params_from_numpy(cfg, tree, device="cuda"):
     on ``device``, each leaf in the dtype of the port's init."""
     device = resolve_device(device)
 
-    def leaf(a, like):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":          # ml_dtypes: widen exactly
-            a = a.astype(np.float32)
-        return torch.tensor(a).to(device=device, dtype=like.dtype)
+    return tree_map(lambda a, like: _leaf(a, like.dtype, device), tree,
+                    init_lm(cfg, None))
 
-    return tree_map(leaf, tree, init_lm(cfg, None))
+
+def _leaf(a, dtype, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":              # ml_dtypes: widen exactly
+        a = a.astype(np.float32)
+    return torch.tensor(a).to(device=device, dtype=dtype)
+
+
+def zoo_cache_from_numpy(cfg, tree, device="cuda"):
+    """A zoo arch's numpy-leaved decode cache (a dict of arrays, as the
+    JAX package's ``lm_prefill`` or ``init_cache`` builds it, full or
+    ring mode) -> the same dict of tensors on ``device``, each leaf in
+    the dtype of the port's ``init_cache``."""
+    device = resolve_device(device)
+    # max_len 1 takes full mode, whose keys hold the ring's
+    like = init_cache(cfg, 1, 1, device="meta")
+    return {k: _leaf(a, like[k].dtype, device) for k, a in tree.items()}

@@ -16,7 +16,9 @@ themselves are counted by each kernel's binding
 ``LAYER_BWD_LAUNCHES``,
 ``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` (the loss and its dL/du
 in one launch), ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``,
-``repro_torch.kernels.ssd.kernel.SSD_LAUNCHES``).
+``repro_torch.kernels.ssd.kernel.SSD_LAUNCHES``, and
+``SSD_CHUNK_LAUNCHES`` for the single-chunk entry's). ``ssd_chunk``
+records each of its dispatches as the op ``"ssd_chunk"``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.kernels.attention.ops import \
 from repro_torch.kernels.evl.ops import evl_loss as _evl_loss
 from repro_torch.kernels.lstm.ops import lstm_cell as _lstm_cell
 from repro_torch.kernels.lstm.ops import lstm_layer as _lstm_layer
+from repro_torch.kernels.ssd.ops import ssd_chunk as _ssd_chunk
 from repro_torch.kernels.ssd.ops import ssd_scan as _ssd_scan
 
 _lock = threading.Lock()
@@ -143,3 +146,15 @@ def ssd_scan(xd, a, B_, C_, chunk: int = 128):
     hand-written kernel, CPU tensors the plain version
     (``kernels.ssd.ops.ssd_scan``). Returns (y, final state)."""
     return _ssd_scan(xd, a, B_, C_, chunk)
+
+
+def ssd_chunk(xd, a, B_, C_, state):
+    """The routed SSD chunk from a given state, one (batch, head): xd
+    [K, P]; a [K] float32; B_, C_ [K, N]; state [P, N] float32. CUDA
+    tensors run the hand-written scan kernel at chunk K with the state
+    folded in after it, CPU tensors the plain version
+    (``kernels.ssd.ops.ssd_chunk``); each call is recorded as the op
+    ``"ssd_chunk"`` at (1, P). Returns (y [K, P], new state [P, N])."""
+    out = _ssd_chunk(xd, a, B_, C_, state)
+    record("ssd_chunk", batch=1, hidden=xd.shape[1], device=xd.device)
+    return out

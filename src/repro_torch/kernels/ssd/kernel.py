@@ -9,7 +9,9 @@ other kernels are: pointers, the sizes, the chunk and the current
 stream go in; the C function returns ``cudaGetLastError()``, raised here
 if it is not 0, or one of ``TMA_REFUSED``'s codes, raised as a
 ``ValueError``. ``SSD_LAUNCHES`` counts the launches by
-(B, L, H, P, N, chunk).
+(B, L, H, P, N, chunk); ``SSD_CHUNK_LAUNCHES`` counts, by (K, P, N),
+those that ``ops.ssd_chunk`` makes (one chunk of one (batch, head)
+from a given state), which ``SSD_LAUNCHES`` counts too.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ BF16_MAX_HEAD_DIM, BF16_MAX_STATE = 64, 128
 TMA_REFUSED = {-1: "xd", -2: "B_", -3: "C_"}
 
 SSD_LAUNCHES = LaunchCounter()
+SSD_CHUNK_LAUNCHES = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

@@ -2,7 +2,10 @@
 state-space-duality recurrence (``ssd_chunk_ref``, the same math as
 ``repro.kernels.ssd.ref.ssd_chunk_ref``) and the whole scan over the
 chunks (``ssd_scan_ref``, the same math, padding and casts as
-``repro.models.ssm.ssd_chunked`` with no initial state)."""
+``repro.models.ssm.ssd_chunked`` with no initial state); and
+``fold_state``, which folds a given initial state into a scan run from
+zero, on both devices, as the TPU kernel's single-chunk entry
+(``repro.kernels.ssd.ops.ssd_chunk_fused``) does."""
 
 from __future__ import annotations
 
@@ -87,3 +90,26 @@ def ssd_scan_ref(xd, a, B_, C_, chunk: int = 128):
         ys.append(Y.to(xd.dtype))
     y = torch.cat(ys, dim=1) if ys else xd.new_zeros((Bsz, 0, H, P))
     return y[:, :L], state
+
+
+def fold_state(y, state, a, C_, state0):
+    """A scan from ``state0`` out of the same scan from zero: y [B, L, H,
+    P] and state [B, H, P, N] from zero; a [B, L, H] (float32); C_
+    [B, L, N]; state0 [B, H, P, N]. The given state reaches step t
+    decayed by exp(cum_t), cum the cumsum of a over the whole sequence,
+    so that one fold over many chunks is exact algebra:
+
+        y_t   += (C_t . state0^T) * exp(cum_t)
+        state += state0 * exp(cum_{L-1})
+
+    Works in float32 (float64 when the state is float64) and returns y
+    in its own dtype and the state in the working dtype."""
+    work = torch.float64 if state.dtype == torch.float64 else torch.float32
+    s0 = state0.to(work)
+    if a.shape[1] == 0:
+        return y, state.to(work) + s0
+    cum = torch.cumsum(a.to(work), dim=1)                       # [B, L, H]
+    carried = torch.einsum("bln,bhpn->blhp", C_.to(work), s0) \
+        * torch.exp(cum)[..., None]
+    y = (y.to(work) + carried).to(y.dtype)
+    return y, state.to(work) + s0 * torch.exp(cum[:, -1])[..., None, None]

@@ -112,11 +112,13 @@ ACTIVATIONS = {
 # -------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float = 1e4, device="cpu"):
-    """[head_dim // 2] inverse frequencies (fp32)."""
+    """[head_dim // 2] inverse frequencies (fp32). theta is filled on
+    ``device``, not copied from the host: on the card a copy would make
+    every call wait for the work queued before it."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exponent)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exponent)
 
 
 def apply_rope(x, positions, theta: float = 1e4):

@@ -1,10 +1,11 @@
 """``build_model(cfg)``: one functional handle over the zoo's
 architectures (``repro.models.model_zoo``).
 
-``init`` and ``forward`` run for the dense, ssm and hybrid families
-(Qwen1.5-4B, Mamba2-370M, Zamba2-2.7B); ``loss`` waits for zoo
-training, ``prefill``, ``decode_step`` and ``init_cache`` for the
-decode path, and raise until their slice (ROADMAP "Next").
+``init``, ``forward``, ``prefill``, ``decode_step`` and ``init_cache``
+run for the dense, ssm and hybrid families (Qwen1.5-4B, Mamba2-370M,
+Zamba2-2.7B); ``loss`` waits for zoo training and raises until its
+slice (ROADMAP "Next"). ``transformer.flush_recent`` folds a full-mode
+cache's recent slots into main.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ class Model:
     loss: Callable            # (params, tokens, frames=None) -> scalar
     prefill: Callable         # (params, tokens, frames=None) -> (logits, cache)
     decode_step: Callable     # (params, token, cache) -> (logits, cache)
-    init_cache: Callable      # (batch, max_len) -> cache
+    init_cache: Callable      # (batch, max_len, device="cuda") -> cache
 
 
 def _later(what: str, item: str) -> Callable:
@@ -41,7 +42,8 @@ def build_model(cfg: ArchConfig) -> Model:
         init=lambda generator: tfm.init_lm(cfg, generator),
         forward=lambda p, t, frames=None: tfm.lm_forward(cfg, p, t, frames),
         loss=_later("lm_loss", "zoo training"),
-        prefill=_later("lm_prefill", "the decode path"),
-        decode_step=_later("lm_decode_step", "the decode path"),
-        init_cache=_later("init_cache", "the decode path"),
+        prefill=lambda p, t, frames=None: tfm.lm_prefill(cfg, p, t, frames),
+        decode_step=lambda p, tok, c: tfm.lm_decode_step(cfg, p, tok, c),
+        init_cache=lambda batch, max_len, device="cuda": tfm.init_cache(
+            cfg, batch, max_len, device),
     )

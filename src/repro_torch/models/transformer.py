@@ -1,11 +1,14 @@
 """Transformer zoo (``repro.models.transformer``): the decoder LM of the
 ``dense`` family, the Mamba2 stack of the ``ssm`` family and the
 Zamba2 stack of the ``hybrid`` family (Mamba2 layers with one shared
-attention + MLP block after every ``attn_every`` of them), their init
-and their forward.
+attention + MLP block after every ``attn_every`` of them), their init,
+their forward and their decode path.
 
     params = init_lm(cfg, generator)                 # leaves on its device
     logits, aux = lm_forward(cfg, params, tokens)    # serve (predict)
+    logits, cache = lm_prefill(cfg, params, tokens)  # prefill
+    logits, cache = lm_decode_step(cfg, params, token, cache)  # decode
+    cache = flush_recent(cfg, cache)                 # every decode_buffer
 
 Layers are stacked on a leading [L, ...] dim, as in the JAX package, so
 its params map onto these one to one (``checkpoint.convert``); the
@@ -14,8 +17,15 @@ The JAX package's ``pshard.constrain`` sharding hints have no
 single-GPU counterpart and are dropped, as is ``jax.checkpoint``
 rematerialization (a forward-only path keeps no activations).
 
+The caches are the JAX package's, leaf for leaf: ``len`` (and, in full
+mode, ``flushed``) 0-d int32 tensors on the cache's device, attention
+k/v stacked per attention layer, the SSM's conv and state per layer. A
+decode step and ``flush_recent`` write the cache's buffers in place,
+as XLA's dynamic-update-slice does on a donated buffer: decode from the
+cache they return, never again from the one passed in.
+
 Every other family raises ``NotImplementedError`` naming the ROADMAP
-item that ports it, as do the loss, prefill and decode paths.
+item that ports it, as does the loss.
 """
 
 from __future__ import annotations
@@ -25,10 +35,12 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import blocked_attention
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        embed_init, init_device, norm_param,
                                        rms_norm)
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.ssm import mamba2_apply
 from repro_torch.tree import tree_leaves, tree_map
@@ -179,10 +191,14 @@ def _project_qkv(cfg: ArchConfig, p, x, positions):
     return q, k, v
 
 
-def _attn_block(cfg: ArchConfig, p, x, positions, *, window=None):
+def _attn_block(cfg: ArchConfig, p, x, positions, *, window=None,
+                return_kv=False):
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = blocked_attention(q, k, v, causal=True, window=window)
-    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+    out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+    if return_kv:
+        return out, (k, v)      # k after RoPE, as the cache keeps it
+    return out
 
 
 def _ffn(cfg: ArchConfig, lp, h):
@@ -260,3 +276,307 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     x = apply_norm(x, params["final_norm"], cfg.norm)
     logits = x @ params["lm_head"]
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ==========================================================================
+# KV / state caches and decode
+# ==========================================================================
+
+def dynamic_update_slice_in_dim(operand, update, start, axis: int):
+    """``jax.lax.dynamic_update_slice_in_dim``, written into ``operand``
+    in place: ``update``'s n rows go to [start, start + n) along
+    ``axis``. As in JAX, a negative start counts from the end, and the
+    start is then clamped into [0, size - n] so that the update fits (a
+    start past the end overwrites the last n rows). ``start``: a 0-d
+    integer tensor, read on operand's device (one already there costs
+    no host sync), or an int. Returns ``operand``."""
+    n, size = update.shape[axis], operand.shape[axis]
+    start = torch.as_tensor(start).to(device=operand.device,
+                                      dtype=torch.long)
+    first = torch.clamp(torch.where(start < 0, start + size, start), 0,
+                        size - n)
+    idx = first + torch.arange(n, device=operand.device)
+    return operand.index_copy_(axis, idx, update.to(operand.dtype))
+
+
+def _attn_cache_mode(cfg: ArchConfig, max_len: int) -> tuple[str, int]:
+    """('ring', W) for sliding-window archs (cache = W slots, slot =
+    pos % W), else ('full', max_len) with a main + recent split."""
+    W = _effective_window(cfg, max_len)
+    if W is not None and W < max_len:
+        return "ring", W
+    return "full", max_len
+
+
+def _counter(value: int, device):
+    """A 0-d int32 cache counter, filled on its device (no copy from the
+    host)."""
+    return torch.full((), value, dtype=torch.int32, device=device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
+    """An empty decode cache for ``batch`` sequences of up to ``max_len``
+    tokens, on ``device``: the JAX package's tree, leaf for leaf.
+
+    Attention (dense; the hybrid's shared block, once per stage): a ring
+    of W slots for a sliding window shorter than max_len, else a full
+    main cache of max_len slots, read-only inside a decode step, beside
+    ``decode_buffer`` recent slots that the step writes and
+    ``flush_recent`` folds into main. SSM: each layer's last K - 1 conv
+    inputs and its float32 state."""
+    _require_ported(cfg)
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+    cache: dict = {"len": _counter(0, dev)}
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family in ("ssm", "hybrid"):
+        cache.update(_ssm_cache(cfg, batch, zeros))
+    if cfg.family in ("dense", "hybrid"):
+        # one attention cache per dense layer, one per hybrid stage
+        n = cfg.n_layers
+        if cfg.family == "hybrid":
+            _check_stages(cfg, n)
+            n //= cfg.attn_every
+        mode, size = _attn_cache_mode(cfg, max_len)
+        cache["k"] = zeros(n, batch, size, Hkv, hd)
+        cache["v"] = zeros(n, batch, size, Hkv, hd)
+        if mode == "full":
+            R = cfg.decode_buffer
+            cache["kr"] = zeros(n, batch, R, Hkv, hd)
+            cache["vr"] = zeros(n, batch, R, Hkv, hd)
+            cache["flushed"] = _counter(0, dev)
+    return cache
+
+
+def _ssm_cache(cfg: ArchConfig, batch: int, zeros) -> dict:
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {"conv": zeros(cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
+            "ssm": zeros(cfg.n_layers, batch, cfg.ssm_heads,
+                         cfg.ssm_head_dim, cfg.ssm_state,
+                         dtype=torch.float32)}
+
+
+def _decode_attn(cfg: ArchConfig, p, x, bufs, pos, flushed):
+    """x: [B, 1, d]; bufs = (k, v) ring or (k, v, kr, vr) full split, one
+    attention layer's. pos: 0-d int32 (the token being decoded);
+    flushed: 0-d int32, the tokens already in main (full mode). Writes
+    the token's k, v into the ring slot pos % W or the recent slot
+    pos - flushed; main is only read. Returns out [B, 1, d]."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(cfg, p, x, pos.reshape(1, 1).expand(B, 1))
+    if len(bufs) == 2:                      # ring (sliding window)
+        kc, vc = bufs
+        W = kc.shape[1]
+        slot = pos % W
+        dynamic_update_slice_in_dim(kc, k, slot, 1)
+        dynamic_update_slice_in_dim(vc, v, slot, 1)
+        out = decode_attention(q, [(kc, vc, torch.clamp(pos + 1, max=W))])
+    else:                                   # full: read-only main + recent
+        km, vm, kr, vr = bufs
+        slot = pos - flushed
+        dynamic_update_slice_in_dim(kr, k, slot, 1)
+        dynamic_update_slice_in_dim(vr, v, slot, 1)
+        out = decode_attention(
+            q, [(km, vm, flushed), (kr, vr, pos - flushed + 1)])
+    return out.reshape(B, 1, -1) @ p["wo"]
+
+
+def _decode_ssm_block(cfg: ArchConfig, lp, x, conv_state, ssm_state):
+    h = apply_norm(x, lp["norm1"], cfg.norm)
+    y, conv_state, ssm_state = ssm_mod.mamba2_decode(
+        lp["ssm"], h[:, 0], conv_state, ssm_state,
+        head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state)
+    return x + y[:, None], conv_state, ssm_state
+
+
+def _decode_decoder_block(cfg: ArchConfig, lp, x, bufs, pos, flushed):
+    h = apply_norm(x, lp["norm1"], cfg.norm)
+    x = x + _decode_attn(cfg, lp["attn"], h, bufs, pos, flushed)
+    h = apply_norm(x, lp["norm2"], cfg.norm)
+    out, _ = _ffn(cfg, lp, h)
+    return x + out
+
+
+def lm_decode_step(cfg: ArchConfig, params: PyTree, token, cache: PyTree):
+    """One decode step. token: integer [B] on the params' device.
+    Returns (logits [B, V], cache).
+
+    Attention caches: ring mode writes slot pos % W; full mode writes
+    only the recent buffer, main is read (and written by
+    ``flush_recent``). The SSM layers write their conv and state. All
+    in place; the counters ``len`` and ``flushed`` stay on the device,
+    so a step makes no host sync."""
+    _require_ported(cfg)
+    pos = cache["len"]
+    full = "kr" in cache
+    flushed = cache.get("flushed")
+    layers = params["layers"]
+    n_layers = tree_leaves(layers)[0].shape[0]
+    if cfg.family == "hybrid":
+        _check_stages(cfg, n_layers)
+    x = _embed(cfg, params, token[:, None])
+
+    def bufs(j):
+        names = ("k", "v", "kr", "vr") if full else ("k", "v")
+        return tuple(cache[n][j] for n in names)
+
+    stage = 0
+    for i in range(n_layers):
+        lp = tree_map(lambda t: t[i], layers)
+        if cfg.family in ("ssm", "hybrid"):
+            x, conv, st = _decode_ssm_block(cfg, lp, x, cache["conv"][i],
+                                            cache["ssm"][i])
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(st)
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = _decode_decoder_block(cfg, params["shared"], x,
+                                          bufs(stage), pos, flushed)
+                stage += 1
+        else:
+            x = _decode_decoder_block(cfg, lp, x, bufs(i), pos, flushed)
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    logits = (x @ params["lm_head"])[:, 0]
+    new_cache = dict(cache)
+    new_cache["len"] = pos + 1
+    return logits, new_cache
+
+
+def flush_recent(cfg: ArchConfig, cache: PyTree) -> PyTree:
+    """Fold the recent buffer into the main cache (full mode only): all
+    ``decode_buffer`` recent slots are written to main at ``flushed``
+    (clamped as JAX clamps, see ``dynamic_update_slice_in_dim``: grow
+    main first) and ``flushed`` becomes ``len``. The serving loop calls
+    it when len - flushed reaches ``decode_buffer``; it is the only op
+    that writes main. Writes main in place and returns the cache."""
+    if "kr" not in cache:
+        return cache
+    flushed = cache["flushed"]
+    out = dict(cache)
+    dynamic_update_slice_in_dim(cache["k"], cache["kr"], flushed, 2)
+    dynamic_update_slice_in_dim(cache["v"], cache["vr"], flushed, 2)
+    out["flushed"] = flushed + (cache["len"] - flushed)
+    return out
+
+
+class _PrefillKV:
+    """Each attention layer's prefill k, v, written as it comes into the
+    decode cache's layout for S prompt tokens: a ring of W slots holding
+    the last W rows, position p at slot p % W (the JAX package rolls the
+    stacked rows by S % W; taking each layer's rows as the layer ends
+    keeps one layer's whole k and v alive, not every layer's); else the
+    whole prompt as main, beside empty recent slots."""
+
+    def __init__(self, cfg: ArchConfig, n: int, S: int):
+        self.cfg, self.n, self.S = cfg, n, S
+        self.mode, self.size = _attn_cache_mode(cfg, S)
+        self.k = self.v = None
+        self.i = 0
+
+    def add(self, k, v) -> None:
+        S, W = self.S, self.size
+        if self.k is None:
+            shape = (self.n, k.shape[0], W) + tuple(k.shape[2:])
+            self.k = k.new_empty(shape)
+            self.v = v.new_empty(shape)
+        for dst, src in ((self.k, k), (self.v, v)):
+            if self.mode == "ring":
+                src = src[:, S - W:]
+                if S % W:
+                    src = torch.roll(src, S % W, dims=1)
+            dst[self.i].copy_(src)
+        self.i += 1
+
+    def cache(self) -> dict:
+        out = {"k": self.k, "v": self.v}
+        if self.mode == "full":
+            shape = self.k.shape[:2] + (self.cfg.decode_buffer,) \
+                + self.k.shape[3:]
+            out["kr"] = self.k.new_zeros(shape)
+            out["vr"] = self.k.new_zeros(shape)
+            out["flushed"] = _counter(self.S, self.k.device)
+        return out
+
+
+def _ssm_prefill_block(cfg: ArchConfig, p, x):
+    """Like ``mamba2_apply`` but also returns (conv_state, ssm_state)."""
+    Bsz, L, D = x.shape
+    d_inner = cfg.d_inner
+    H, N = cfg.ssm_heads, cfg.ssm_state
+
+    zxbcdt = x @ p["in_proj"]
+    z = zxbcdt[..., :d_inner]
+    xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
+    dt = zxbcdt[..., 2 * d_inner + 2 * N:]
+    # a copy: a view would hold the whole projection alive in the cache
+    conv_state = xBC[:, -(cfg.ssm_conv - 1):, :].clone()
+    xBC = ssm_mod.silu(ssm_mod.causal_conv1d(xBC, p["conv_w"], p["conv_b"]))
+    xs = xBC[..., :d_inner].reshape(Bsz, L, H, cfg.ssm_head_dim)
+    B_ = xBC[..., d_inner:d_inner + N]
+    C_ = xBC[..., d_inner + N:]
+
+    dt = ssm_mod._softplus(dt.to(torch.float32) + p["dt_bias"])
+    dt = torch.clamp(dt, 1e-4, 1e2)
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    a = dt * A[None, None, :]
+    xd = xs * dt[..., None].to(xs.dtype)
+    y, final_state = ssm_mod.ssd_chunked(xd, a, B_, C_, chunk=cfg.ssm_chunk)
+    y = y + xs * p["D"][None, None, :, None]
+    y = y.reshape(Bsz, L, d_inner)
+    y = rms_norm(y * ssm_mod.silu(z), p["norm_w"])
+    return y @ p["out_proj"], conv_state, final_state
+
+
+def lm_prefill(cfg: ArchConfig, params: PyTree, tokens, frames=None):
+    """Prefill: the forward over the prompt, building the decode cache
+    (sized to the prompt: the ring of the window the prompt's length
+    takes, or a main cache of S slots; to decode past it in full mode,
+    copy main into a longer ``init_cache``'s first). Returns
+    (last-token logits [B, V], cache)."""
+    _require_ported(cfg)
+    B, S = tokens.shape
+    layers = params["layers"]
+    n_layers = tree_leaves(layers)[0].shape[0]
+    if cfg.family == "hybrid":
+        _check_stages(cfg, n_layers)
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    window = _effective_window(cfg, S)
+    cache: dict = {"len": _counter(S, x.device)}
+    kv = _PrefillKV(cfg, n_layers // cfg.attn_every
+                    if cfg.family == "hybrid" else n_layers, S)
+    convs, states = [], []
+
+    def attn_layer(lp, x):
+        h = apply_norm(x, lp["norm1"], cfg.norm)
+        a, (k, v) = _attn_block(cfg, lp["attn"], h, positions,
+                                window=window, return_kv=True)
+        kv.add(k, v)
+        x = x + a
+        h = apply_norm(x, lp["norm2"], cfg.norm)
+        out, _ = _ffn(cfg, lp, h)
+        return x + out
+
+    for i in range(n_layers):
+        lp = tree_map(lambda t: t[i], layers)
+        if cfg.family in ("ssm", "hybrid"):
+            h = apply_norm(x, lp["norm1"], cfg.norm)
+            y, conv, st = _ssm_prefill_block(cfg, lp["ssm"], h)
+            x = x + y
+            convs.append(conv)
+            states.append(st)
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = attn_layer(params["shared"], x)
+        else:
+            x = attn_layer(lp, x)
+    if convs:
+        cache["conv"] = torch.stack(convs)
+        cache["ssm"] = torch.stack(states)
+    if cfg.family != "ssm":
+        cache.update(kv.cache())
+    x = apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
+    logits = (x @ params["lm_head"])[:, 0]
+    return logits, cache

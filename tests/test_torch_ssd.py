@@ -575,3 +575,31 @@ def test_cuda_dtype_picks_the_kernel():
                  if e.device_type == DeviceType.CUDA]
         assert any(ran in n for n in names), names
         assert not any(not_ran in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sweep", "slow"])
+@pytest.mark.parametrize("K,P,N", [(32, 16, 8), (128, 64, 128)], ids=str)
+def test_cuda_ssd_chunk_matches_plain_version(K, P, N, kind):
+    """``ssd_chunk`` (one chunk of one (batch, head) from a given state:
+    the scan kernel at chunk K from zero, the state folded in after it)
+    against its plain version, ``ssd_chunk_ref``, on the card in fp32;
+    one launch, counted under the entry's own counter too."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+
+    _card()
+    xd, a, B_, C_ = _draw(1, K, 1, P, N, kind, seed=15, chunk=K)
+    xd, a, B_, C_ = (torch.from_numpy(np.ascontiguousarray(t)).cuda()
+                     for t in (xd[0, :, 0], a[0, :, 0], B_[0], C_[0]))
+    state = (0.5 * torch.randn(P, N, generator=torch.Generator().manual_seed(
+        K + P + N))).cuda()
+    before = (ssd_kernel.SSD_LAUNCHES.total,
+              ssd_kernel.SSD_CHUNK_LAUNCHES.total)
+    y, new_state = ssd_chunk(xd, a, B_, C_, state)
+    torch.cuda.synchronize()
+    assert (ssd_kernel.SSD_LAUNCHES.total,
+            ssd_kernel.SSD_CHUNK_LAUNCHES.total) == (before[0] + 1,
+                                                     before[1] + 1)
+    want_y, want_s = ssd_chunk_ref(xd, a, B_, C_, state)
+    torch.testing.assert_close(y, want_y, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(new_state, want_s, rtol=RTOL, atol=ATOL)

@@ -188,12 +188,14 @@ def test_other_families_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="MoE"):
         lm_forward(moe, {}, torch.zeros(1, 4, dtype=torch.long))
     model = build_model(cfg)
-    for fn, item in ((model.loss, "zoo training"),
-                     (model.prefill, "the decode path"),
-                     (model.decode_step, "the decode path"),
-                     (model.init_cache, "the decode path")):
+    for fn, item in ((model.loss, "zoo training"),):
         with pytest.raises(NotImplementedError, match=item):
             fn(None, None)
+    audio = build_model(dataclasses.replace(cfg, family="audio"))
+    with pytest.raises(NotImplementedError, match="audio and VLM"):
+        audio.init_cache(1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="audio and VLM"):
+        audio.prefill({}, torch.zeros(1, 4, dtype=torch.long))
 
 
 # ------------------------------------------------------------- forward --
