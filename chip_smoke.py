@@ -8,6 +8,7 @@ NVIDIA H100.
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
     python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
     python3 chip_smoke.py --decode           # the [decode] phase alone
+    python3 chip_smoke.py --dense            # the [dense] phase alone
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -67,7 +68,17 @@ and 32 steps; each model's fp32 copy (2 layers, Zamba2 one stage)
 against the forward and the CPU; ``ssd_chunk``, the port of the TPU
 kernel's single-chunk entry from a given state, against its plain
 version, and ``ssd_chunked(initial_state=...)`` through the kernel at
-the prefills' shapes.
+the prefills' shapes. Then the rest of the dense zoo and the VLM
+(``[dense]``): Nemotron-4-15B, Granite-20B, Qwen2.5-32B and
+Chameleon-34B, one at a time on the card, each at full width and depth
+in bf16 served through ``ServingEngine`` (bursts A and B, one flash
+launch per layer a flush, at GQA 48/8, MQA 48/1, GQA 40/8 and 64/8),
+8 prompts of 2048 tokens prefilled and 32 steps decoded, each step
+held against the forward and against an fp32 forward made one layer at
+a time; each one's 2-layer fp32 copy against the CPU, forward and
+decode; the flash kernel at each one's shapes; Granite also through
+the serve CLI; the memory allocated on the card back to where it was
+after each model.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -78,8 +89,9 @@ exits non-zero. The last two lines are a JSON object per kernel and
 ``--flash-ablation``, ``--ssd-ablation``, ``--lstm-ablation`` or
 ``--evl-ablation`` it runs only that probe (``flash_host``,
 ``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
-``evl_ablation``) and prints no result; with ``--decode``, the build
-and the ``[decode]`` phase alone, and no result.
+``evl_ablation``) and prints no result; with ``--decode`` or
+``--dense``, the build and the ``[decode]`` or ``[dense]`` phase alone,
+and no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -283,9 +295,38 @@ DECODE_FP32_REF_FACTOR = 1.25
 # land in the run; held against lm_forward on the card and against the
 # port on the CPU with the same weights at 1e-4 of max |want|
 DECODE_FP32 = (2, 48, 24, 16)
-DECODE_FP32_LAYERS = {ZOO_ARCH: 2, MAMBA_ARCH: 2, ZAMBA_ARCH: ZAMBA_CPU_LAYERS}
 DECODE_FP32_BOUND = 1e-4
-DECODE_NOISE = dict(MAMBA_NOISE, bq=0.2, bk=0.2, bv=0.2)
+# the leaves the init sets to a constant: Mamba2's, the QKV biases,
+# LayerNorm's bias b and the QK-norm weights (LayerNorm's and RMSNorm's
+# weights are "w" leaves, in MAMBA_NOISE)
+DECODE_NOISE = dict(MAMBA_NOISE, bq=0.2, bk=0.2, bv=0.2, b=0.2, q_norm=0.2,
+                    k_norm=0.2)
+# the rest of the dense zoo and the VLM ([dense]): each at full width and
+# depth in bf16 (random weights from seed 0), the smallest first, one
+# model on the card at a time: Nemotron-4-15B (GQA 48/8, LayerNorm,
+# squared ReLU; 29.1 GiB of weights), Granite-20B (MQA 48/1, LayerNorm,
+# tanh-GELU; 37.8 GiB), Qwen2.5-32B (GQA 40/8, QKV bias; 61.0 GiB) and
+# the VLM Chameleon-34B (GQA 64/8, QK norm; 63.9 GiB). Each serves bursts
+# A and B, prefills DECODE_BATCH x DECODE_PROMPT tokens and decodes
+# DENSE_DECODE_STEPS steps (the 320-step run and its flush at full depth
+# stay Qwen1.5-4B's, in [decode]). The batch fits beside the largest
+# weights: Chameleon's grown cache is 3.4 GiB, its prefill's main 3.0
+# GiB and the prefill's activations some 3 GiB, 70 GiB in all on the
+# 80 GB card. The serve CLI runs Granite alone, to keep the phase short.
+DENSE_ARCHS = ("nemotron-4-15b", "granite-20b", "qwen2.5-32b",
+               "chameleon-34b")
+DENSE_DECODE_STEPS = 32
+DENSE_CLI_ARCH = "granite-20b"
+# the fp32 reference of a dense decode casts one layer at a time to fp32
+# (a whole fp32 copy is twice the model's bytes) and runs the first this
+# many of the decode's sequences through it: with all 8 (1.1 PFLOP for
+# Chameleon, TF32 off on the CUDA cores) the decode part took 23-49 s a
+# model, most of the phase
+DENSE_FP32_ROWS = 4
+# each arch's fp32 copy: 2 layers, but Zamba2's one stage of 6
+DECODE_FP32_LAYERS = dict({ZOO_ARCH: 2, MAMBA_ARCH: 2,
+                           ZAMBA_ARCH: ZAMBA_CPU_LAYERS},
+                          **{arch: 2 for arch in DENSE_ARCHS})
 # the SSD scan from a given state: ssd_chunk at (K, P, N), the JAX
 # entry's test shape and a full chunk of Mamba2-370M's; and
 # ssd_chunked(initial_state=...) at the decode prefills' SSD shapes
@@ -2039,6 +2080,22 @@ def flash_bound(B, Sq, Skv, Hq, Hkv, D, window=None, itemsize=2):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_rows_alone(shape) -> None:
+    """The rows of a bf16 flash launch at (B, S, S, Hq, Hkv, D), causal,
+    bit for bit the launches of each row alone (B = 1)."""
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    B = shape[0]
+    q, k, v = attn_inputs(*shape, torch.bfloat16, seed=99)
+    full = flash_attention(q, k, v, causal=True)
+    for b in range(B):
+        one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                              causal=True)
+        check(torch.equal(one[0], full[b]),
+              f"flash attention at {shape}: row {b} of the B={B} launch != "
+              f"its B=1 launch")
+
+
 def check_flash() -> float:
     """Phase 9: flash attention against its plain version on the card,
     over the JAX kernel tests' sweep with the causal, non-causal,
@@ -2064,12 +2121,7 @@ def check_flash() -> float:
                 check(torch.allclose(got, want, rtol=rtol, atol=atol),
                       f"flash attention disagrees with its plain version "
                       f"at {(B, S, Hq, Hkv, D)} {mask} {dt}: max err {err}")
-    q, k, v = attn_inputs(8, 32, 32, 20, 20, 128, torch.bfloat16, seed=99)
-    full = flash_attention(q, k, v, causal=True)
-    for b in range(8):
-        one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
-        check(torch.equal(one[0], full[b]),
-              f"flash attention row {b} of a B=8 launch != its B=1 launch")
+    flash_rows_alone((8, 32, 32, 20, 20, 128))
     print(f"[check] flash attention vs plain over {n} cases (the JAX sweep "
           f"and D 80 x causal, full, window 37, q_offset 29, kv_valid x "
           f"fp32 on the CUDA-core kernel, bf16 on the wgmma one): "
@@ -2326,16 +2378,25 @@ def describe(cfg) -> str:
                 f"{cfg.activation}{'' if cfg.gated_mlp else ' ungated'}; "
                 f"{vocab}; cfg.param_count() estimates "
                 f"{cfg.param_count()}, counting the shared MLP as gated")
-    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-            f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, {vocab}")
+    heads = (f"{cfg.n_heads} heads" if cfg.n_kv_heads == cfg.n_heads else
+             f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
+             f"head{'s' if cfg.n_kv_heads > 1 else ''}")
+    extras = [x for x, on in (("QKV bias", cfg.qkv_bias),
+                              ("QK norm", cfg.qk_norm)) if on]
+    return (f"{cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{heads} of {cfg.head_dim}, {cfg.norm}, d_ff {cfg.d_ff} "
+            f"{cfg.activation}{'' if cfg.gated_mlp else ' ungated'}"
+            f"{''.join(', ' + x for x in extras)}, {vocab}; "
+            f"cfg.param_count() estimates {cfg.param_count()}")
 
 
 def path_kernels(cfg) -> dict:
     """Launches of each kernel per predict flush of a zoo arch: flash
-    attention once per attention (each dense layer; the hybrid's shared
-    block once per stage), the SSD scan once per Mamba2 layer."""
+    attention once per attention (each dense or VLM layer; the hybrid's
+    shared block once per stage), the SSD scan once per Mamba2
+    layer."""
     L = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):      # the VLM runs the dense path
         return {"flash_attention": L}
     if cfg.family == "ssm":
         return {"ssd_scan": L}
@@ -2473,8 +2534,6 @@ def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS):
         kern = ", ".join(f"{n_kern[k]} {k} launches = "
                          f"{n_kern[k] / flushes:.1f} per flush by shape "
                          f"{got[k]}" for k in per_flush)
-        long = (f"; device memory peak {peak:.2f} GiB"
-                if plen > LONG_CONTEXT_FROM else "")
         print(f"[zoo] {tag}: {arch} burst {i}: {n_req} requests of {plen} "
               f"tokens "
               f"(max_batch {max_batch}) in {wall * 1e3:.1f} ms: "
@@ -2485,7 +2544,7 @@ def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS):
               f"replies {same}; no plain version on the card; warmup "
               f"({n_warm} shapes) {warm_s:.2f} s; distinct tokens "
               f"{len(set(res[:, 0]))}, p in [{res[:, 1].min():.4f}, "
-              f"{res[:, 1].max():.4f}]{long}")
+              f"{res[:, 1].max():.4f}]; device memory peak {peak:.2f} GiB")
     return fc, launches, init_s
 
 
@@ -2659,8 +2718,8 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
     against its plain version there through the wrapper the path runs,
     in bf16 and on fp32 copies of the same inputs; then its device time
     (bf16) beside the plain version's, one
-    ``scaled_dot_product_attention`` call's (never called by the port)
-    and its bound. Returns rows by key and the largest |kernel -
+    ``scaled_dot_product_attention`` call's (never called by the port;
+    ``enable_gqa`` where Hkv < Hq) and its bound. Returns rows by key and the largest |kernel -
     plain|."""
     import torch.nn.functional as F
 
@@ -2696,7 +2755,9 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
         err = max(errs.values())
         worst = max(worst, err)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gqa = Hq != Hkv
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=gqa)
         lib_err = float((lib.transpose(1, 2).float() - want_bf16).abs().max())
         check(lib_err <= LIBRARY_BF16_TOL,
               f"scaled_dot_product_attention is not the same function at "
@@ -2711,7 +2772,7 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
             "plain_ms": graph_ms(lambda: attention_ref(q, k, v, causal=True),
                                  inner, reps),
             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), inner, reps),
+                qt, kt, vt, is_causal=True, enable_gqa=gqa), inner, reps),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
         r = rows[shape]
         tflops = flash_ops(*shape) / (r["ms"] * 1e-3) / 1e12
@@ -3275,7 +3336,7 @@ def decode_steps(cfg, model, params, toks, prompt: int, cache, on_step=None):
 
 def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                bound: float, keep: bool = False,
-               fp32_reference: bool = False) -> dict:
+               fp32_reference: bool = False, fp32_forward=None) -> dict:
     """One run of the decode path on the card, under ``torch.no_grad``:
     ``prefill`` of toks[:, :prompt] (launch counts zeroed just before
     and read just after: the path's kernels, ``path_kernels`` each,
@@ -3290,12 +3351,15 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
     want| / max |want|). Times: the prefill on the host's clock after a
     sync, each step between CUDA events (median after DECODE_WARMUP
     steps); without ``keep``, three more steps under ``torch.profiler``
-    give the device's busy share. With ``keep`` the logits and the
-    cache come back instead. With
-    ``fp32_reference`` (a bf16 model) both the bf16 forward and the bf16
-    decode are read against the forward of an fp32 copy of the same
-    weights too: the decode must be no further from it than
-    DECODE_FP32_REF_FACTOR times the bf16 forward's own distance."""
+    give the device's busy share, and the cache is freed before the
+    forward. With ``keep`` the logits and the cache come back instead.
+    With ``fp32_reference`` (a bf16 model) both the bf16 forward and the
+    bf16 decode are read against the forward of an fp32 copy of the
+    same weights too: the decode must be no further from it than
+    DECODE_FP32_REF_FACTOR times the bf16 forward's own distance. The
+    copy is the whole tree cast to fp32, or where one is given
+    ``fp32_forward(params, toks, prompt)``'s logits at positions
+    prompt.., for the sequences it ran (the first ones)."""
     from repro_torch.models.model_zoo import build_model
     from repro_torch.tree import tree_map
 
@@ -3332,6 +3396,16 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                 d[key] = d.get(key, 0) + 1
         cache = grow_main(cache, model.init_cache(B, total))
         torch.cuda.synchronize()
+        # the first switch of the sync-debug mode in a process reports a
+        # sync at the switch itself (torch/cuda/__init__.py, in the
+        # first decode run), before any step: switch it once outside
+        # the counted window, and say what that reported
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            torch.cuda.set_sync_debug_mode("default")
+        switch = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                  if "synchroniz" in str(w.message)]
         reset_counters()
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(steps + 1)]
@@ -3376,28 +3450,6 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
         out["tokens_per_s"] = B * 1e3 / out["step_ms"]
         out["decode_wall_s"] = wall
         out["flushes"], out["syncs"] = flushes, syncs
-        kept = (logits, cache) if keep else None
-        want = model.forward(params, toks)[0]
-        rel_first = step_rel(first[None], want[None, :, prompt - 1])[0]
-        rel = step_rel(logits, want[:, prompt:].transpose(0, 1))
-        if fp32_reference:
-            import dataclasses
-
-            want = want[:, prompt:].transpose(0, 1)
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
-            want32 = build_model(cfg32).forward(
-                tree_map(lambda t: t.float(), params), toks)[0]
-            want32 = want32[:, prompt:].transpose(0, 1)
-            ref = (max(step_rel(want, want32)), max(step_rel(logits,
-                                                             want32)))
-            del want32
-            out["fp32_reference"] = ref
-            check(ref[1] <= DECODE_FP32_REF_FACTOR * ref[0],
-                  f"{label}: the bf16 decode is {ref[1]:.3e} from an fp32 "
-                  f"forward of the same weights, over "
-                  f"{DECODE_FP32_REF_FACTOR} x the bf16 forward's own "
-                  f"{ref[0]:.3e}")
-        del want, logits
         if not keep:
             # where a step's time goes: three more steps (past the
             # compared ones) under the profiler
@@ -3406,7 +3458,40 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                     _, c = model.decode_step(params, tok, c)
             out["busy"] = profile(f"{label}: 3 more decode steps", more,
                                   tag)[:2]
-            del cache
+            del more
+        # the cache goes before the forwards that check the steps, so
+        # that it never shares the card with them
+        kept = (logits, cache) if keep else None
+        del cache
+        want = model.forward(params, toks)[0]
+        rel_first = step_rel(first[None], want[None, :, prompt - 1])[0]
+        rel = step_rel(logits, want[:, prompt:].transpose(0, 1))
+        if fp32_reference:
+            import dataclasses
+
+            # a copy: the slice would keep the whole sequence's logits
+            want = want[:, prompt:].transpose(0, 1).clone()
+            if fp32_forward is None:
+                cfg32 = dataclasses.replace(cfg, dtype="float32")
+                want32 = build_model(cfg32).forward(
+                    tree_map(lambda t: t.float(), params), toks)[0]
+                want32 = want32[:, prompt:]
+            else:
+                want32 = fp32_forward(params, toks, prompt)
+            want32 = want32.transpose(0, 1)
+            n32 = want32.shape[1]           # the sequences it ran
+            ref = (max(step_rel(want[:, :n32], want32)),
+                   max(step_rel(logits[:, :n32], want32)))
+            del want32
+            out["fp32_reference"] = ref
+            out["fp32_rows"] = (f"all {B} sequences" if n32 == B else
+                                f"the first {n32} of the {B} sequences")
+            check(ref[1] <= DECODE_FP32_REF_FACTOR * ref[0],
+                  f"{label}: the bf16 decode is {ref[1]:.3e} from an fp32 "
+                  f"forward of the same weights, over "
+                  f"{DECODE_FP32_REF_FACTOR} x the bf16 forward's own "
+                  f"{ref[0]:.3e}")
+        del want, logits
     out["rel_prefill"], out["rel_max"] = rel_first, max(rel)
     out["rel_last"] = rel[-1]
     check(all(np.isfinite(rel)) and max(rel + [rel_first]) < bound,
@@ -3422,15 +3507,18 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
           f"{out['step_ms_range'][0]:.3f}-{out['step_ms_range'][1]:.3f}), "
           f"{out['tokens_per_s']:.1f} tokens/s; 0 kernel launches in "
           f"decode; {syncs} host syncs in {steps} steps"
-          f"{' ' + str(where) if where else ''}; peak device "
+          f"{' ' + str(where) if where else ''}"
+          f"{'; the mode switch before them ' + str(switch) if switch else ''}"
+          f"; peak device "
           f"memory {out['peak_gib']:.2f} GiB; vs lm_forward max |got - "
           f"want| / max |want| prefill {rel_first:.3e}, decode max "
           f"{max(rel):.3e} (step 0 {rel[0]:.3e}, median "
           f"{statistics.median(rel):.3e}, last {rel[-1]:.3e}; bound "
           f"{bound})" + (
-              "; vs an fp32 forward of the same weights, max over the "
-              "steps: the bf16 forward {:.3e}, the bf16 decode {:.3e}"
-              .format(*out["fp32_reference"]) if fp32_reference else ""))
+              "; vs an fp32 forward of the same weights ({}), max over "
+              "the steps: the bf16 forward {:.3e}, the bf16 decode {:.3e}"
+              .format(out["fp32_rows"], *out["fp32_reference"])
+              if fp32_reference else ""))
     out["kept"] = kept
     return out
 
@@ -3672,6 +3760,150 @@ def decode_main_path(tag: str) -> dict:
         rows, chunk_launches, err)}
 
 
+# ------------------------------------------------------------ [dense] --
+
+def dense_forward_fp32(cfg, params, toks, start: int):
+    """``lm_forward`` of an fp32 copy of a dense or VLM model's bf16
+    weights, with the copy made one layer at a time (a whole one is
+    twice the model's bytes and would not fit beside it): the walk of
+    ``lm_forward`` (the embedding, ``transformer._decoder_block`` on each
+    layer, the final norm and the LM head), the LM head at positions
+    ``start``.. only. Returns their fp32 logits [B, S - start, V]."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.tree import tree_map
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    check(cfg.family in ("dense", "vlm"), f"{cfg.name} is not dense")
+    B, S = toks.shape
+    x = params["embed"][toks].float()
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    window = tfm._effective_window(cfg32, S)
+    for i in range(cfg.n_layers):
+        lp = tree_map(lambda t: t[i].float(), params["layers"])
+        x = tfm._decoder_block(cfg32, lp, x, positions, window)[0]
+        del lp
+    norm = tree_map(lambda t: t.float(), params["final_norm"])
+    x = apply_norm(x[:, start:], norm, cfg.norm)
+    return x @ params["lm_head"].float()
+
+
+def settled_memory() -> int:
+    """The memory allocated on the card once what the smoke no longer
+    holds is dropped: ``gc``, cuBLAS's workspaces (kept per stream) and
+    the caching allocator's free blocks."""
+    import gc
+
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def release(baseline: int, what: str) -> None:
+    """Check that the memory allocated on the card is back to
+    ``baseline`` after ``what``."""
+    now = settled_memory()
+    check(now == baseline, f"{what}: {now} bytes allocated on the card "
+                           f"after it, {baseline} before")
+
+
+def dense_model(arch: str, tag: str, baseline: int):
+    """One model of the [dense] phase, alone on the card: (a) served at
+    full width and depth in bf16 through ``ServingEngine``
+    (``zoo_serve_main_path``: bursts A and B, exactly ``n_layers`` flash
+    launches a flush, no plain version on the card), burst B's flush's
+    busy share (``profile_zoo``); (c) DECODE_BATCH prompts of DECODE_PROMPT
+    tokens prefilled with the same weights (exactly ``n_layers`` flash
+    launches) and DENSE_DECODE_STEPS teacher-forced steps, each held
+    against the forward and an fp32 forward (``dense_forward_fp32``);
+    the model freed, and for Granite the serve CLI at full width; (b)
+    the 2-layer fp32 copy against the CPU (``zoo_card_vs_cpu``) and (d)
+    its decode (``decode_fp32_copy``); (e) the flash kernel at the
+    model's shapes (``time_flash``; the rows of its 8 x 32 launch bit
+    for bit each row's launch alone). Only the long flush is profiled
+    and the serve CLI runs Granite alone, to keep the phase short. The
+    memory allocated on the card is back to ``baseline`` after each part
+    that held a model. Returns the flash launches by row key, the flash
+    rows and their largest |kernel - plain|."""
+    from repro_torch.data.tokens import synthetic_token_batch
+
+    t0 = time.perf_counter()
+    fc, launches, init_s = timed(f"{arch}: serve", zoo_serve_main_path, arch,
+                                 tag)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    timed(f"{arch}: profile serving", profile_zoo, fc,
+          {"flash_attention": FLASH_SYMBOL}, tag, (FLASH_FP32_SYMBOL,),
+          ZOO_BURSTS[1:])
+    cfg, params = fc.cfg, fc.params
+    B, prompt, steps = DECODE_BATCH, DECODE_PROMPT, DENSE_DECODE_STEPS
+    toks = torch.as_tensor(synthetic_token_batch(
+        B, prompt + steps, cfg.vocab, seed=prompt), dtype=torch.long,
+        device="cuda")
+    label = f"{arch} {B} x {prompt} + {steps}"
+    run = timed(f"{arch}: decode", decode_run, cfg, params, toks, prompt,
+                label, tag, DECODE_BOUND, False, True,
+                lambda p, t, s: dense_forward_fp32(
+                    cfg, p, t[:DENSE_FP32_ROWS], s))
+    check(run["syncs"] == 0, f"{label}: {run['syncs']} host syncs in "
+                             f"{steps} decode steps")
+    del fc, params, toks
+    release(baseline, f"{arch} at full width")
+    if arch == DENSE_CLI_ARCH:
+        timed(f"{arch}: serve CLI", zoo_cli, arch, ("flash_attention",))
+        release(baseline, f"the serve CLI with {arch}")
+    cpu_err = timed(f"{arch}: card vs CPU", zoo_card_vs_cpu, arch, tag,
+                    DECODE_NOISE)
+    fp32_err = timed(f"{arch}: fp32 decode copy", decode_fp32_copy, arch,
+                     tag)
+    release(baseline, f"{arch}'s fp32 copies")
+    launches = merge_launches(launches, run["prefill_launches"])
+    flash = launches["flash_attention"]
+    rows, err = timed(f"{arch}: time flash_attention", time_flash, flash,
+                      tag, ())
+    short = next(s for s in flash if s[:3] == (8, 32, 32))
+    flash_rows_alone(short)
+    release(baseline, f"{arch}'s flash timing")
+    seconds = time.perf_counter() - t0
+    print(f"[dense] {tag}: {arch}: {describe(cfg)}; served bursts A and B "
+          f"with {cfg.n_layers} flash launches a flush (peak "
+          f"{serve_peak:.2f} GiB), decode batch {B} (not cut) x {prompt} + "
+          f"{steps}: prefill {run['prefill_ms']:.1f} ms, "
+          f"{run['step_ms']:.3f} ms a step, {run['tokens_per_s']:.1f} "
+          f"tokens/s, peak {run['peak_gib']:.2f} GiB, decode vs forward "
+          f"max {run['rel_max']:.3e}, vs fp32 forward: bf16 forward "
+          f"{run['fp32_reference'][0]:.3e}, decode "
+          f"{run['fp32_reference'][1]:.3e}; 2-layer fp32 copy vs CPU "
+          f"{cpu_err:.3e}, its decode {fp32_err:.3e}; flash at "
+          f"{sorted(flash)}: max |kernel - plain| {err:.3e}, rows of "
+          f"{short} == B=1 launches bitwise; memory back to "
+          f"{baseline / 2**30:.3f} GiB after each part; init "
+          f"{init_s:.2f} s; {seconds:.2f} s")
+    return launches, rows, err
+
+
+def dense_main_path(tag: str) -> dict:
+    """The [dense] phase: ``dense_model`` for each of DENSE_ARCHS, the
+    smallest first, with nothing else of the smoke on the card (at most
+    1 GiB allocated when it starts). Returns the flash launches by row
+    key, the flash rows and the largest |kernel - plain|."""
+    baseline = settled_memory()
+    check(baseline < 2**30, f"[dense] starts with {baseline / 2**30:.2f} "
+                            f"GiB allocated on the card")
+    launches, rows, worst = {}, {}, 0.0
+    for arch in DENSE_ARCHS:
+        got, new_rows, err = timed(f"[dense] {arch}", dense_model, arch, tag,
+                                   baseline)
+        launches = merge_launches(launches, got)
+        rows.update(new_rows)
+        worst = max(worst, err)
+    return {"launches": launches, "rows": rows, "err": worst}
+
+
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
     each shape on the main paths. ``library_ms`` is weighted over the
@@ -3737,7 +3969,8 @@ def main() -> None:
               "--ssd-ablation": lambda: ssd_ablation(card),
               "--lstm-ablation": lambda: lstm_ablation(card),
               "--evl-ablation": lambda: evl_ablation(card),
-              "--decode": lambda: (build_kernels(), decode_main_path(tag))}
+              "--decode": lambda: (build_kernels(), decode_main_path(tag)),
+              "--dense": lambda: (build_kernels(), dense_main_path(tag))}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -3847,6 +4080,10 @@ def main() -> None:
         errs[k] = max(errs[k], err)
     every = merge_launches(every, {k: decode["launches"][k] for k in (
         "flash_attention", "ssd_scan")})
+    dense = timed("dense zoo and VLM (serve, decode)", dense_main_path, tag)
+    rows["flash_attention"].update(dense["rows"])
+    errs["flash_attention"] = max(errs["flash_attention"], dense["err"])
+    every = merge_launches(every, dense["launches"])
     rows["ssd_chunk"], every["ssd_chunk"], errs["ssd_chunk"] = \
         decode["ssd_chunk"]
     csrc = "src/repro_torch/kernels/{}/csrc/{}"

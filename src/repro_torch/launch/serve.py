@@ -36,6 +36,15 @@ traffic trace against it.
     PYTHONPATH=src python -m repro_torch.launch.serve --model zamba2-2.7b \
         --device cpu --requests 32 --max-batch 8
 
+    # Granite-20B at full width on the card (bf16, 52 layers, multi-query
+    # attention: 48 query heads over one KV head through the flash
+    # kernel); Nemotron-4-15B, Qwen2.5-32B and the VLM Chameleon-34B
+    # serve the same way; on the CPU, reduced:
+    PYTHONPATH=src python -m repro_torch.launch.serve --model granite-20b \
+        --no-reduced --requests 16 --max-batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --model granite-20b \
+        --device cpu --requests 32 --max-batch 8
+
 Single process only; the sharded mesh, process workers, ensembles and
 the durable state directory of ``repro.launch.serve`` wait for later
 slices of the port.
@@ -78,8 +87,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--model", default="paper-lstm",
                     choices=["paper-lstm", *list_archs()],
                     help="the model to host: the paper LSTM or a zoo arch "
-                    "the port runs (dense qwen1.5-4b, SSM mamba2-370m, "
-                    "hybrid zamba2-2.7b)")
+                    "the port runs (dense qwen1.5-4b, nemotron-4-15b, "
+                    "granite-20b, qwen2.5-32b; VLM chameleon-34b; SSM "
+                    "mamba2-370m; hybrid zamba2-2.7b)")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="host a trained serving checkpoint (the output "
                     "of `-m repro_torch.launch.train --save`) under the "

@@ -1,8 +1,11 @@
 """Transformer zoo (``repro.models.transformer``): the decoder LM of the
-``dense`` family, the Mamba2 stack of the ``ssm`` family and the
-Zamba2 stack of the ``hybrid`` family (Mamba2 layers with one shared
-attention + MLP block after every ``attn_every`` of them), their init,
-their forward and their decode path.
+``dense`` family (and of the ``vlm`` family, Chameleon's early-fusion
+decoder, whose image tokens are ids of the one vocabulary: it runs the
+dense path throughout, as in the JAX package), the Mamba2 stack of the
+``ssm`` family and the Zamba2 stack of the ``hybrid`` family (Mamba2
+layers with one shared attention + MLP block after every
+``attn_every`` of them), their init, their forward and their decode
+path.
 
     params = init_lm(cfg, generator)                 # leaves on its device
     logits, aux = lm_forward(cfg, params, tokens)    # serve (predict)
@@ -48,9 +51,9 @@ from repro_torch.tree import tree_leaves, tree_map
 PyTree = Any
 
 # the ROADMAP "Next" item that ports each family the port lacks
-_LATER = {"moe": "MoE", "vlm": "audio and VLM", "audio": "audio and VLM"}
-# the families the port runs
-_PORTED = ("dense", "ssm", "hybrid")
+_LATER = {"moe": "MoE", "audio": "audio"}
+# the families the port runs (``vlm`` through the dense decoder)
+_PORTED = ("dense", "vlm", "ssm", "hybrid")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -318,7 +321,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
     """An empty decode cache for ``batch`` sequences of up to ``max_len``
     tokens, on ``device``: the JAX package's tree, leaf for leaf.
 
-    Attention (dense; the hybrid's shared block, once per stage): a ring
+    Attention (dense and vlm; the hybrid's shared block, once per
+    stage): a ring
     of W slots for a sliding window shorter than max_len, else a full
     main cache of max_len slots, read-only inside a decode step, beside
     ``decode_buffer`` recent slots that the step writes and
@@ -335,7 +339,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
 
     if cfg.family in ("ssm", "hybrid"):
         cache.update(_ssm_cache(cfg, batch, zeros))
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family != "ssm":
         # one attention cache per dense layer, one per hybrid stage
         n = cfg.n_layers
         if cfg.family == "hybrid":

@@ -505,8 +505,10 @@ class ZooForecaster:
 def build_zoo_forecaster(arch: str, seed: int = 0, reduced: bool = True,
                          calibrate_batch: int = 8,
                          device="cuda") -> ZooForecaster:
-    """A zoo arch (any the port registers: the dense ``qwen1.5-4b``, the
-    SSM ``mamba2-370m``, the hybrid ``zamba2-2.7b``) served on
+    """A zoo arch (any the port registers: the dense ``qwen1.5-4b``,
+    ``nemotron-4-15b``, ``granite-20b`` and ``qwen2.5-32b``, the VLM
+    ``chameleon-34b``, the SSM ``mamba2-370m``, the hybrid
+    ``zamba2-2.7b``) served on
     ``device``: the full config, or its reduced CPU-smoke variant;
     random weights drawn from a ``torch.Generator``
     on ``device`` seeded with ``seed`` (on the card the model is drawn

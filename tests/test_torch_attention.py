@@ -6,8 +6,8 @@ GQA with a ragged S, MQA, S below a block) with the causal, non-causal,
 ``blocked_attention`` vs JAX's; the wrapper's checks (TMA's layout
 rules among them) and device route; and, on a card, the hand-written
 CUDA kernels vs the plain version: fp32 on the CUDA-core kernel, bf16 on
-the tensor-core one at its tile edges, every head dim and the serving
-path's shape.
+the tensor-core one at its tile edges, every head dim, the serving
+path's shape and full-width GQA (48/8) and MQA (48/1).
 
 Tolerances against JAX are the JAX kernel tests': rtol 2e-4 / atol
 2e-5 in fp32, 0.08 in bf16 (one bf16 rounding of the output, after sums
@@ -354,6 +354,31 @@ def test_cuda_bf16_kernel_at_the_serving_paths_long_prompt():
     q, k, v = (torch.randn(4, 2048, 20, 128, generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv", [(8, 32, 48, 8), (4, 2048, 48, 8),
+                                        (8, 32, 48, 1), (4, 2048, 48, 1)],
+                         ids=["gqa-48-8-short", "gqa-48-8-long",
+                              "mqa-48-1-short", "mqa-48-1-long"])
+def test_cuda_bf16_kernel_at_full_width_gqa_and_mqa(B, S, Hq, Hkv):
+    """Nemotron-4-15B's grouped attention (48 query heads over 8 KV
+    heads) and Granite-20B's multi-query attention (48 over 1), heads of
+    128, causal, at the serving bursts' two shapes: one launch each,
+    against the plain version."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(S + Hkv)
+    q = torch.randn(B, S, Hq, 128, generator=g, device="cuda")
+    k, v = (torch.randn(B, S, Hkv, 128, generator=g, device="cuda")
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    before = flash_kernel.FLASH_LAUNCHES.total
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_kernel.FLASH_LAUNCHES.total == before + 1
     want = attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)

@@ -11,7 +11,12 @@ cache and 8 recent slots), the same with ``window`` 8 on both sides
 (ring mode: slot = pos % 8), the reduced Mamba2-370M (ssm: conv and
 state per layer) and the reduced Zamba2-2.7B (hybrid: both), the last
 also at 6 layers, every 3 (two stages, where the per-stage attention
-cache shows). A ring prompt of 16 tokens fills the ring exactly (S % W
+cache shows). Every one of those attention caches is MHA; the reduced
+Granite-20B (MQA: 4 query heads over one KV head), Qwen2.5-32B (GQA
+4/2, QKV bias), Nemotron-4-15B (GQA 4/2, LayerNorm, non-gated squared
+ReLU) and Chameleon-34B (the ``vlm`` family, GQA 4/2 with QK norm) add
+full-mode caches of ``Hkv`` < ``Hq`` and the grouped decode
+attention. A ring prompt of 16 tokens fills the ring exactly (S % W
 == 0), one of 13 leaves it rolled by 5.
 
 A JAX prefill cache's main holds the prompt only: decoding past it, the
@@ -19,8 +24,9 @@ JAX test grows main first (``place``, ``tests/test_arch_smoke.py``), as
 the ``grown`` cases do here; the ``as-prefilled`` cases do not, so that
 a flush lands past main's end and is clamped, on both sides alike.
 
-The JAX init sets biases, ``conv_b``, ``dt_bias`` and ``A_log`` to 0
-and ``D`` and the norm weights to 1: the tests add numpy noise to those
+The JAX init sets biases (LayerNorm's ``b`` among them), ``conv_b``,
+``dt_bias`` and ``A_log`` to 0 and ``D`` and the norm weights (QK
+norm's among them) to 1: the tests add numpy noise to those
 leaves first. Tolerances (ROADMAP): the logits and the attention and
 conv leaves at attention's fp32 rtol 2e-4 / atol 2e-5; the SSM state at
 SSD's rtol 1e-4 / atol 1e-5; decode against the forward in the port at
@@ -57,15 +63,22 @@ FORWARD_FP32 = 1e-4
 STEPS = 12
 # the leaves the JAX init sets to a constant, and the noise put on them
 NOISE = {"A_log": 0.5, "dt_bias": 0.5, "conv_b": 0.2, "D": 0.2,
-         "norm_w": 0.2, "w": 0.2, "bq": 0.2, "bk": 0.2, "bv": 0.2}
+         "norm_w": 0.2, "w": 0.2, "b": 0.2, "bq": 0.2, "bk": 0.2,
+         "bv": 0.2, "q_norm": 0.2, "k_norm": 0.2}
 # layout -> (arch, config overrides)
 LAYOUTS = {"dense-full": ("qwen1.5-4b", {}),
            "dense-ring": ("qwen1.5-4b", {"window": 8}),
            "ssm": ("mamba2-370m", {}),
            "hybrid": ("zamba2-2.7b", {}),
            "hybrid-6-every-3": ("zamba2-2.7b", dict(n_layers=6,
-                                                    attn_every=3))}
+                                                    attn_every=3)),
+           "dense-mqa": ("granite-20b", {}),
+           "dense-gqa": ("qwen2.5-32b", {}),
+           "dense-layernorm-relu2": ("nemotron-4-15b", {}),
+           "vlm": ("chameleon-34b", {})}
 FOUR = ["dense-full", "dense-ring", "ssm", "hybrid"]
+# the dense-branch archs whose KV heads are fewer than their query heads
+GROUPED = ["dense-mqa", "dense-gqa", "dense-layernorm-relu2", "vlm"]
 
 
 def _cfgs(layout, dtype=None):
@@ -165,7 +178,7 @@ def _needs_flush(cache, cfg):
 
 # ---------------------------------------------------------- init_cache --
 
-@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"])
+@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"] + GROUPED)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_cache_tree_matches_jax(layout, dtype):
     """Keys, shapes and dtypes leaf by leaf against ``jax.eval_shape``
@@ -180,6 +193,10 @@ def test_init_cache_tree_matches_jax(layout, dtype):
     assert ("kr" in ours) == (layout not in ("ssm",) and not ring)
     if ring:
         assert ours["k"].shape[2] == 8
+    if layout in GROUPED:
+        Hkv = 1 if layout == "dense-mqa" else 2
+        assert cfg.n_heads == 4 and ours["k"].shape[3] == Hkv
+        assert ours["kr"].shape == (2, 2, cfg.decode_buffer, Hkv, 64)
 
 
 def test_init_cache_on_the_model_handle_and_the_meta_device():
@@ -194,7 +211,7 @@ def test_init_cache_on_the_model_handle_and_the_meta_device():
 # ------------------------------------------------------------- prefill --
 
 @pytest.mark.parametrize("S", [16, 13])
-@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"])
+@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"] + GROUPED)
 def test_prefill_matches_jax(layout, S):
     """Last-token logits and every cache leaf (the ring rolled at
     S % W != 0 and not at S % W == 0)."""
@@ -252,7 +269,8 @@ def _decode_both(cfg, jcfg, params, jparams, cache, jcache, steps=STEPS,
     return flushes
 
 
-DECODE_CASES = [(layout, "grown") for layout in FOUR + ["hybrid-6-every-3"]] \
+DECODE_CASES = [(layout, "grown")
+                for layout in FOUR + ["hybrid-6-every-3"] + GROUPED] \
     + [("dense-full", "as-prefilled"), ("hybrid", "as-prefilled")]
 
 
@@ -288,7 +306,7 @@ def test_decode_from_an_empty_cache_matches_jax(layout):
     assert flushes == (1 if "kr" in jcache else 0)
 
 
-@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"])
+@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"] + GROUPED)
 def test_decode_equals_forward(layout):
     """The port alone, as ``test_prefill_decode_matches_forward``: a
     prefill of 16 of 28 tokens, then 12 teacher-forced steps (full mode:
