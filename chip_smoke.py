@@ -9,6 +9,7 @@ NVIDIA H100.
     python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
     python3 chip_smoke.py --decode           # the [decode] phase alone
     python3 chip_smoke.py --dense            # the [dense] phase alone
+    python3 chip_smoke.py --moe              # the [moe] phase alone
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -78,7 +79,18 @@ held against the forward and against an fp32 forward made one layer at
 a time; each one's 2-layer fp32 copy against the CPU, forward and
 decode; the flash kernel at each one's shapes; Granite also through
 the serve CLI; the memory allocated on the card back to where it was
-after each model.
+after each model. Then the MoE family (``[moe]``): Mixtral-8x7B and
+Qwen3-MoE-235B-A22B, one at a time, at full width in bf16 but cut in
+depth to what the card holds (24 of 32 and 13 of 94 layers), served
+through ``ServingEngine`` (one flash launch per layer a flush, at GQA
+32/8 with Mixtral's window and 64/4), 8 prompts of 2048 tokens
+prefilled and 32 steps decoded at the published capacity factor, the
+decode held against the forward and an fp32 forward at the no-drop
+factor with its router flips counted, Mixtral's 16,384-token prompt
+into its 4096-slot ring (the flash kernel's windowed launch at GQA,
+timed beside SDPA with a mask), each one's 2-layer fp32 copy against
+the CPU (logits and the load-balance loss), Mixtral's reduced config
+through the serve CLI.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -89,9 +101,9 @@ exits non-zero. The last two lines are a JSON object per kernel and
 ``--flash-ablation``, ``--ssd-ablation``, ``--lstm-ablation`` or
 ``--evl-ablation`` it runs only that probe (``flash_host``,
 ``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
-``evl_ablation``) and prints no result; with ``--decode`` or
-``--dense``, the build and the ``[decode]`` or ``[dense]`` phase alone,
-and no result.
+``evl_ablation``) and prints no result; with ``--decode``,
+``--dense`` or ``--moe``, the build and the ``[decode]``, ``[dense]``
+or ``[moe]`` phase alone, and no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -267,6 +279,11 @@ ZAMBA_FLASH = [(8, 32, 32, 32, 32, 80), (4, 2048, 2048, 32, 32, 80),
 ZAMBA_SSD = [(8, 32, 80, 64, 64, 128), (4, 2048, 80, 64, 64, 128),
              (1, ZAMBA_LONG, 80, 64, 64, 128)]
 FLASH_SLICE = 512
+# the largest [Sq, Skv] boolean window mask handed to
+# scaled_dot_product_attention to time a windowed launch beside a
+# library call (Mixtral's 16,384 tokens: 268 MB; Zamba2's 133,120 would
+# be 17.7 GB)
+SDPA_MASK_MAX = 1 << 28
 # the zoo's decode path ([decode]): each zoo arch at full width and depth
 # (bf16, random weights from seed 0), DECODE_BATCH prompts of
 # DECODE_PROMPT tokens (burst B's length) prefilled into the KV and SSM
@@ -323,10 +340,45 @@ DENSE_CLI_ARCH = "granite-20b"
 # Chameleon, TF32 off on the CUDA cores) the decode part took 23-49 s a
 # model, most of the phase
 DENSE_FP32_ROWS = 4
+# the MoE family ([moe]): Mixtral-8x7B (8 experts top-2 of d_ff 14,336,
+# GQA 32/8, its own 4096-key window) then Qwen3-MoE-235B-A22B (128
+# experts top-8 of d_ff 1536, GQA 64/4, QK norm), one at a time on the
+# card, at full width in bf16 (random weights from seed 0, the router
+# fp32) and the published capacity factor, 1.25. Neither fits one card
+# (87.0 and 437.9 GiB in bf16), so each is cut in depth, never in width:
+# from param_count(), a Mixtral layer is 2.70 GiB beside 0.49 GiB of
+# embedding and LM head, a Qwen3-MoE layer 4.63 GiB beside 2.32 GiB. 24
+# of 32 layers are 65.4 GiB, 13 of 94 62.6 GiB, near Chameleon-34B's
+# 63.9 (its peak 70.74 GiB at 8 x 2048); each run's activations (burst
+# B's logits, 2.5 GiB at Qwen3-MoE's vocab, or one layer's fp32 copy in
+# the fp32 reference forward, 5.4 and 9.3 GiB) must fit beside them,
+# under about 75 GiB in all. Burst B's batch and the 2048-token prompt
+# are not cut.
+MOE_ARCHS = ("mixtral-8x7b", "qwen3-moe-235b-a22b")
+MOE_LAYERS = {"mixtral-8x7b": 24, "qwen3-moe-235b-a22b": 13}
+MOE_DECODE_STEPS = 32
+# The decode at the published factor is held against nothing: a step's
+# group is its B tokens (capacity 2 for Mixtral and 1 for Qwen3-MoE at B
+# 8) where the forward's groups are 512 tokens (capacity 160 and 40), so
+# a step keeps or drops other pairs than the forward does, in both
+# packages (the JAX package's own decode test sets the capacity to the
+# whole group). The decode is held against the forward at the no-drop
+# factor n_experts / top_k instead, on the same weights, where every
+# expert has a slot for every token of its group: every token then
+# runs through every expert slot of its group (16 x the published work
+# for Qwen3-MoE, E x g x s x D x 2 bytes of expert input, 4.5 GiB at
+# 2 x 2080 tokens before the chunking of moe_apply), and so does the
+# fp32 reference forward, on the CUDA cores: batch 2 keeps both short.
+MOE_NODROP_BATCH = 2
+# Mixtral's long request: 16,384 tokens into its 4096-slot ring, the
+# flash kernel's windowed launch at GQA 32/8, then MOE_DECODE_STEPS
+# steps, at the no-drop factor, held against the forward
+MOE_LONG = 16384
+MOE_CLI_ARCH = "mixtral-8x7b"
 # each arch's fp32 copy: 2 layers, but Zamba2's one stage of 6
 DECODE_FP32_LAYERS = dict({ZOO_ARCH: 2, MAMBA_ARCH: 2,
                            ZAMBA_ARCH: ZAMBA_CPU_LAYERS},
-                          **{arch: 2 for arch in DENSE_ARCHS})
+                          **{arch: 2 for arch in DENSE_ARCHS + MOE_ARCHS})
 # the SSD scan from a given state: ssd_chunk at (K, P, N), the JAX
 # entry's test shape and a full chunk of Mamba2-370M's; and
 # ssd_chunked(initial_state=...) at the decode prefills' SSD shapes
@@ -2383,9 +2435,16 @@ def describe(cfg) -> str:
              f"head{'s' if cfg.n_kv_heads > 1 else ''}")
     extras = [x for x, on in (("QKV bias", cfg.qkv_bias),
                               ("QK norm", cfg.qk_norm)) if on]
+    if cfg.window is not None:
+        extras.append(f"window {cfg.window}")
+    ffn = (f"d_ff {cfg.d_ff} {cfg.activation}"
+           f"{'' if cfg.gated_mlp else ' ungated'}")
+    if cfg.n_experts:
+        ffn = (f"{cfg.n_experts} experts of {ffn}, top-{cfg.top_k}, groups "
+               f"of {cfg.moe_group_size} at capacity factor "
+               f"{cfg.moe_capacity_factor}")
     return (f"{cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-            f"{heads} of {cfg.head_dim}, {cfg.norm}, d_ff {cfg.d_ff} "
-            f"{cfg.activation}{'' if cfg.gated_mlp else ' ungated'}"
+            f"{heads} of {cfg.head_dim}, {cfg.norm}, {ffn}"
             f"{''.join(', ' + x for x in extras)}, {vocab}; "
             f"cfg.param_count() estimates {cfg.param_count()}")
 
@@ -2396,8 +2455,8 @@ def path_kernels(cfg) -> dict:
     shared block once per stage), the SSD scan once per Mamba2
     layer."""
     L = cfg.n_layers
-    if cfg.family in ("dense", "vlm"):      # the VLM runs the dense path
-        return {"flash_attention": L}
+    if cfg.family in ("dense", "vlm", "moe"):   # the VLM and MoE run the
+        return {"flash_attention": L}           # dense path
     if cfg.family == "ssm":
         return {"ssd_scan": L}
     check(cfg.family == "hybrid" and L % cfg.attn_every == 0,
@@ -2420,10 +2479,12 @@ def flash_key(shape, window):
     return tuple(shape) + ((window,) if window is not None else ())
 
 
-def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS):
+def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS, cfg=None):
     """Phase 10, a zoo serving path: ``arch`` (Qwen1.5-4B, Mamba2-370M,
     then Zamba2-2.7B) at full width and depth (bf16, but for the leaves
-    the JAX init keeps in fp32; random weights from seed 0) behind
+    the JAX init keeps in fp32; random weights from seed 0), or ``cfg``,
+    the arch's config cut in depth (the MoE family: drawn and calibrated
+    here as ``build_zoo_forecaster`` does, which takes no config), behind
     ``ServingEngine``, one burst of (requests, prompt length,
     max_batch) after another: 64 requests of 32 tokens (max_batch 8),
     then 8 of 2048 (max_batch 4), then for Zamba2 one of 133,120.
@@ -2438,11 +2499,18 @@ def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS):
     from repro_torch.data.tokens import synthetic_token_batch
     from repro_torch.models.transformer import init_lm
     from repro_torch.serving import (BatcherConfig, ModelRegistry,
-                                     ServingEngine, build_zoo_forecaster)
+                                     ServingEngine, ZooForecaster,
+                                     build_zoo_forecaster)
 
+    want_cfg = get_config(arch) if cfg is None else cfg
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fc = build_zoo_forecaster(arch, seed=0, reduced=False, device="cuda")
+    if cfg is None:
+        fc = build_zoo_forecaster(arch, seed=0, reduced=False, device="cuda")
+    else:
+        fc = ZooForecaster(cfg=cfg, params=init_lm(cfg, torch.Generator(
+            device="cuda").manual_seed(0)), device="cuda")
+        fc.calibrate(synthetic_token_batch(8, fc.window, cfg.vocab, seed=0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = fc.cfg
@@ -2451,12 +2519,13 @@ def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS):
     n_params = sum(t.numel() for _, t in leaves)
     like = named_leaves(init_lm(cfg, None))      # the init's dtypes
     fp32 = sorted({k for k, t in like if t.dtype == torch.float32})
-    check(cfg == get_config(arch) and cfg.dtype == "bfloat16"
+    want_fp32 = {"ssm": {"dt_bias", "A_log"}, "hybrid": {"dt_bias", "A_log"},
+                 "moe": {"router"}}.get(cfg.family, set())
+    check(cfg == want_cfg and cfg.dtype == "bfloat16"
           and [(k, t.shape, t.dtype) for k, t in leaves]
           == [(k, t.shape, t.dtype) for k, t in like]
           and all(t.is_cuda for _, t in leaves)
-          and set(fp32) == ({"dt_bias", "A_log"}
-                            if cfg.family in ("ssm", "hybrid") else set()),
+          and set(fp32) == want_fp32,
           f"{arch} is not served at full width in bf16 on the card")
     print(f"[zoo] {arch}: {n_params} parameters ({describe(cfg)}, bf16"
           f"{'; ' + ', '.join(fp32) + ' fp32' if fp32 else ''}) drawn "
@@ -2581,17 +2650,28 @@ def zoo_card_vs_cpu(arch: str, tag: str, noise=None, n_layers=2) -> float:
     tok_c, _ = ZooForecaster(cfg=cfg, params=cpu_params,
                              device="cpu").predict(toks)
     reset_counters()
-    logits_g = model.forward(params, torch.as_tensor(
-        toks, dtype=torch.long, device="cuda"))[0].cpu()
+    logits_g, aux_g = model.forward(params, torch.as_tensor(
+        toks, dtype=torch.long, device="cuda"))
+    logits_g, aux_g = logits_g.cpu(), aux_g.cpu()
     got = read_counters()
-    logits_c = model.forward(cpu_params, torch.as_tensor(
-        toks, dtype=torch.long))[0]
+    logits_c, aux_c = model.forward(cpu_params, torch.as_tensor(
+        toks, dtype=torch.long))
     err = float((logits_g - logits_c).abs().max())
     check(np.array_equal(tok_g, tok_c),
           f"greedy tokens on the card {tok_g} != on the CPU {tok_c}")
     check(torch.allclose(logits_g, logits_c, rtol=ZOO_CPU_RTOL,
                          atol=ZOO_CPU_ATOL),
           f"logits on the card vs the CPU: max |diff| {err}")
+    aux = ""
+    if cfg.n_experts:
+        # the MoE load-balance loss, summed over the layers
+        aux_err = float((aux_g - aux_c).abs())
+        check(aux_g.dtype == torch.float32 and torch.allclose(
+            aux_g, aux_c, rtol=ZOO_CPU_RTOL, atol=ZOO_CPU_ATOL),
+              f"the MoE aux on the card {float(aux_g)} vs the CPU "
+              f"{float(aux_c)}")
+        aux = (f"; MoE aux card {float(aux_g):.6f}, CPU {float(aux_c):.6f}, "
+               f"|diff| {aux_err:.3e}")
     kernels = path_kernels(cfg)
     check(all(sum(got[k].values()) > 0 for k in kernels),
           f"the fp32 forward on the card did not launch {list(kernels)}: "
@@ -2602,25 +2682,28 @@ def zoo_card_vs_cpu(arch: str, tag: str, noise=None, n_layers=2) -> float:
           f"on the card and the CPU port, 8 windows of 32 tokens: greedy "
           f"tokens equal {tok_g.astype(int).tolist()}; logits max |diff| "
           f"{err:.3e} (max |logit| {float(logits_c.abs().max()):.2f}; rtol "
-          f"{ZOO_CPU_RTOL}, atol {ZOO_CPU_ATOL}); the card's forward "
+          f"{ZOO_CPU_RTOL}, atol {ZOO_CPU_ATOL}){aux}; the card's forward "
           f"launched " + ", ".join(f"{k} {got[k]}" for k in kernels))
     return err
 
 
-def zoo_cli(arch: str, kernels) -> None:
-    """Phase 12: the serve CLI with a full-width zoo arch on the card,
-    through each of its kernels."""
+def zoo_cli(arch: str, kernels, full: bool = True) -> None:
+    """Phase 12: the serve CLI with a full-width zoo arch on the card
+    (``--no-reduced``), or with the CLI's reduced default where the full
+    model does not fit one card, through each of its kernels."""
     from repro_torch.launch import serve
 
+    size = ["--no-reduced"] if full else []
     reset_counters()
-    out = serve.main(["--model", arch, "--no-reduced", "--requests", "16",
+    out = serve.main(["--model", arch, *size, "--requests", "16",
                       "--max-batch", "8", "--device", "cuda"])
     n = {k: counters()[k].total for k in kernels}
+    flags = " ".join(["--model", arch, *size])
     check(out["traffic"]["requests"] == 16 and all(n.values()),
-          f"python -m repro_torch.launch.serve --model {arch} --no-reduced "
-          f"did not serve every request through {kernels} ({n} launches)")
-    print(f"[cli] repro_torch.launch.serve --model {arch} --no-reduced "
-          f"--requests 16 --max-batch 8 --device cuda: ok, "
+          f"python -m repro_torch.launch.serve {flags} did not serve every "
+          f"request through {kernels} ({n} launches)")
+    print(f"[cli] repro_torch.launch.serve {flags} --requests 16 "
+          f"--max-batch 8 --device cuda: ok, "
           + ", ".join(f"{v} {k}" for k, v in n.items()) + " launches")
 
 
@@ -2695,20 +2778,69 @@ def time_flash_windowed(shape, n_launches: int, tag: str):
            "plain_ms": graph_ms(lambda: windowed_plain(q, k, v, w), 1, 3),
            "library_ms": None, "bound_ms": bnd, "bound_by": by,
            "max_abs_err": err}
+    lib = "no library call (SDPA would need a [S, S] mask of " \
+        f"{Sq * Skv / 1e9:.1f} GB)"
+    if Sq * Skv <= SDPA_MASK_MAX:
+        row["library_ms"], lib = sdpa_windowed(q, k, v, w, starts)
     tflops = flash_ops(*shape) / (row["ms"] * 1e-3) / 1e12
     print(f"[time] {tag}: flash_attention {shape[:6]} bf16 causal, window "
           f"{w}: kernel {row['ms'] * 1e3:.2f} us = {tflops:.1f} TFLOP/s "
           f"(the bound's operations, the window's pairs only, over its "
           f"time), plain by blocks of {FLASH_SLICE} queries "
-          f"{row['plain_ms'] * 1e3:.2f} us, no library call (none takes a "
-          f"window), bound {bnd * 1e3:.3f} us ({by}) = "
-          f"{100 * bnd / row['ms']:.2f} % of the kernel's time; rows "
+          f"{row['plain_ms'] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}) = "
+          f"{100 * bnd / row['ms']:.2f} % of the kernel's time; {lib}; rows "
           f"{starts[0]}.. and {starts[1]}.. (x {FLASH_SLICE}): |kernel - "
           f"plain| bf16 {errs[torch.bfloat16]:.3e} (rtol {FLASH_BF16_RTOL}, "
           f"atol {FLASH_BF16_ATOL}), fp32 {errs[torch.float32]:.3e} (rtol "
           f"{FLASH_RTOL}, atol {FLASH_ATOL}), == the launch on the slice "
           f"bitwise; {n_launches} launches on the main path")
     return row, err
+
+
+def sdpa_windowed(q, k, v, window: int, starts):
+    """``scaled_dot_product_attention`` at a windowed causal launch, with
+    the window as an explicit boolean [Sq, Skv] mask, on the
+    memory-efficient backend (the one that takes a mask; the math
+    backend would hold every score), over k and v repeated to Hq heads
+    before the timed call: that backend refuses ``enable_gqa`` ("No
+    available kernel", torch 2.11 on an H100). Held against the plain
+    version on FLASH_SLICE query rows from each of ``starts``. Returns
+    its device time (ms) and what it ran."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    Sq, Skv, Hq, Hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    pos = torch.arange(Sq, device="cuda")[:, None]
+    key = torch.arange(Skv, device="cuda")[None, :]
+    mask = (key <= pos) & (key > pos - window)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(Hq // Hkv, 1).contiguous()
+              for t in (k, v))
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    out = call().transpose(1, 2)
+    lib_err = 0.0
+    for s0 in starts:
+        rows, keys = slice(s0, s0 + FLASH_SLICE), slice(s0 - window,
+                                                        s0 + FLASH_SLICE)
+        want = attention_ref(q[:, rows], k[:, keys], v[:, keys], causal=True,
+                             window=window, q_offset=window).float()
+        lib_err = max(lib_err, float((out[:, rows].float() - want).abs()
+                                     .max()))
+    check(lib_err <= LIBRARY_BF16_TOL,
+          f"scaled_dot_product_attention with a window mask is not the "
+          f"same function: max err {lib_err}")
+    del out
+    ms = graph_ms(call, 3, 5)
+    return ms, (f"scaled_dot_product_attention with a [{Sq} x {Skv}] bool "
+                f"mask ({Sq * Skv / 1e6:.0f} MB), memory-efficient backend, "
+                f"k and v repeated to {Hq} heads: {ms * 1e3:.2f} us, |sdpa - "
+                f"plain| {lib_err:.3e} on the slices")
 
 
 def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
@@ -2729,12 +2861,15 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
 
     rows, worst = {}, 0.0
     for shape in sorted(set(launches) | set(shapes)):
-        if len(shape) > 6:
+        if len(shape) > 6 and shape[6] < shape[2]:
             rows[shape], err = time_flash_windowed(
                 shape, launches.get(shape, 0), tag)
             worst = max(worst, err)
             continue
-        B, Sq, Skv, Hq, Hkv, D = shape
+        # a window that reaches every key (Mixtral's 4096 at a shorter
+        # prompt) is causal attention: timed so, launched with it
+        B, Sq, Skv, Hq, Hkv, D = shape[:6]
+        w = shape[6] if len(shape) > 6 else None
         q, k, v = attn_inputs(B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
                               seed=B * 7 + Sq)
         errs = {}
@@ -2742,8 +2877,8 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
                                 FLASH_BF16_ATOL),
                                (torch.float32, FLASH_RTOL, FLASH_ATOL)):
             a, b, c = (t.to(dt) for t in (q, k, v))
-            got = flash_attention(a, b, c, causal=True).float()
-            want = attention_ref(a, b, c, causal=True).float()
+            got = flash_attention(a, b, c, causal=True, window=w).float()
+            want = attention_ref(a, b, c, causal=True, window=w).float()
             errs[dt] = float((got - want).abs().max())
             check(torch.allclose(got, want, rtol=rtol, atol=atol),
                   f"flash attention disagrees with its plain version at the "
@@ -2768,15 +2903,17 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
         bnd, by = flash_bound(*shape)
         rows[shape] = {
             "ms": graph_ms(lambda: attn_kernel.flash_attention_cuda(
-                q, k, v, True, None, 0, Skv), inner, reps),
-            "plain_ms": graph_ms(lambda: attention_ref(q, k, v, causal=True),
+                q, k, v, True, w, 0, Skv), inner, reps),
+            "plain_ms": graph_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                       window=w),
                                  inner, reps),
             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=gqa), inner, reps),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
         r = rows[shape]
         tflops = flash_ops(*shape) / (r["ms"] * 1e-3) / 1e12
-        print(f"[time] {tag}: flash_attention {shape} bf16 causal: kernel "
+        print(f"[time] {tag}: flash_attention {shape[:6]} bf16 causal"
+              f"{f' (window {w}, every key)' if w else ''}: kernel "
               f"{r['ms'] * 1e3:.2f} us = {tflops:.1f} TFLOP/s (the bound's "
               f"operations over its time), plain "
               f"{r['plain_ms'] * 1e3:.2f} us, "
@@ -3300,16 +3437,17 @@ def grow_main(cache, longer):
     return out
 
 
-def step_rel(got, want) -> list:
-    """max |got - want| / max |want| for each step: got, want [steps, B,
-    V], compared 32 steps at a time in fp32; one host read."""
+def row_rel(got, want):
+    """max |got - want| over each row of [steps, B, V] logits, over max
+    |want| of its step: a numpy [steps, B], compared 32 steps at a time
+    in fp32; one host read."""
     out = []
     for s0 in range(0, got.shape[0], 32):
         g = got[s0:s0 + 32].float()
         w = want[s0:s0 + 32].float()
-        out.append((g - w).abs().amax(dim=(1, 2))
-                   / w.abs().amax(dim=(1, 2)).clamp_min(1e-30))
-    return torch.cat(out).tolist()
+        out.append((g - w).abs().amax(dim=2)
+                   / w.abs().amax(dim=(1, 2))[:, None].clamp_min(1e-30))
+    return torch.cat(out).cpu().numpy()
 
 
 def decode_steps(cfg, model, params, toks, prompt: int, cache, on_step=None):
@@ -3336,7 +3474,8 @@ def decode_steps(cfg, model, params, toks, prompt: int, cache, on_step=None):
 
 def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                bound: float, keep: bool = False,
-               fp32_reference: bool = False, fp32_forward=None) -> dict:
+               fp32_reference: bool = False, fp32_forward=None,
+               against_forward: bool = True, routes=None) -> dict:
     """One run of the decode path on the card, under ``torch.no_grad``:
     ``prefill`` of toks[:, :prompt] (launch counts zeroed just before
     and read just after: the path's kernels, ``path_kernels`` each,
@@ -3359,7 +3498,15 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
     DECODE_FP32_REF_FACTOR times the bf16 forward's own distance. The
     copy is the whole tree cast to fp32, or where one is given
     ``fp32_forward(params, toks, prompt)``'s logits at positions
-    prompt.., for the sequences it ran (the first ones)."""
+    prompt.., for the sequences it ran (the first ones). Without
+    ``against_forward`` (an MoE model at a capacity factor that drops:
+    a step routes its own B tokens, the forward groups of 512) no
+    forward is run and nothing is held against one. ``routes`` (an MoE
+    model, a ``moe_routes`` recorder) reads each layer's top-k experts
+    in the prefill, the steps and the forward: a (step, sequence) row
+    whose experts differ from the forward's at some layer (a near-tie
+    flipped by bf16 rounding, a discontinuity of the function) may
+    miss the bounds, and is counted; every other row must meet them."""
     from repro_torch.models.model_zoo import build_model
     from repro_torch.tree import tree_map
 
@@ -3374,6 +3521,7 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
         reset_counters()
         with no_plain_version_on_the_card() as plain_calls, \
                 flash_windows() as windows:
+            route_phase(routes, "prefill")
             t0 = time.perf_counter()
             first, cache = model.prefill(params, toks[:, :prompt])
             torch.cuda.synchronize()
@@ -3414,6 +3562,7 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
+                route_phase(routes, "decode")
                 t0 = time.perf_counter()
                 events[0].record()
                 logits, cache, flushes = decode_steps(
@@ -3421,6 +3570,7 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                     lambda t: events[t + 1].record())
             finally:
                 torch.cuda.set_sync_debug_mode("default")
+                route_phase(routes, None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         dec = read_counters()
@@ -3463,14 +3613,29 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
         # that it never shares the card with them
         kept = (logits, cache) if keep else None
         del cache
+        if not against_forward:
+            del logits
+            out["kept"] = kept
+            print(f"[decode] {tag}: {label}: "
+                  f"{decode_line(out, B, prompt, steps, warm, where, switch)}"
+                  f"; not held against lm_forward (at this capacity factor "
+                  f"a step's group, its {B} tokens, drops other pairs than "
+                  f"the forward's groups do)")
+            return out
+        route_phase(routes, "forward")
         want = model.forward(params, toks)[0]
-        rel_first = step_rel(first[None], want[None, :, prompt - 1])[0]
-        rel = step_rel(logits, want[:, prompt:].transpose(0, 1))
+        route_phase(routes, None)
+        want = want[:, prompt - 1:].transpose(0, 1)
+        # rows [steps + 1, B]: the prefill's last logits, then each step
+        rel_rows = row_rel(torch.cat([first[None], logits]), want)
+        flipped = np.zeros(rel_rows.shape, bool)
+        if routes is not None:
+            flipped, out["prefill_flips"] = route_flips(routes, prompt, B)
         if fp32_reference:
             import dataclasses
 
             # a copy: the slice would keep the whole sequence's logits
-            want = want[:, prompt:].transpose(0, 1).clone()
+            want = want[1:].clone()
             if fp32_forward is None:
                 cfg32 = dataclasses.replace(cfg, dtype="float32")
                 want32 = build_model(cfg32).forward(
@@ -3480,47 +3645,74 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                 want32 = fp32_forward(params, toks, prompt)
             want32 = want32.transpose(0, 1)
             n32 = want32.shape[1]           # the sequences it ran
-            ref = (max(step_rel(want[:, :n32], want32)),
-                   max(step_rel(logits[:, :n32], want32)))
+            ref_rows = row_rel(logits[:, :n32], want32)
+            ref = (float(row_rel(want[:, :n32], want32).max()),
+                   float(ref_rows.max()),
+                   float(ref_rows[~flipped[1:, :n32]].max(initial=0.0)))
             del want32
             out["fp32_reference"] = ref
             out["fp32_rows"] = (f"all {B} sequences" if n32 == B else
                                 f"the first {n32} of the {B} sequences")
-            check(ref[1] <= DECODE_FP32_REF_FACTOR * ref[0],
-                  f"{label}: the bf16 decode is {ref[1]:.3e} from an fp32 "
+            check(min(ref[1], ref[2]) <= DECODE_FP32_REF_FACTOR * ref[0],
+                  f"{label}: the bf16 decode is {ref[1]:.3e} ({ref[2]:.3e} "
+                  f"on the rows without a router flip) from an fp32 "
                   f"forward of the same weights, over "
                   f"{DECODE_FP32_REF_FACTOR} x the bf16 forward's own "
                   f"{ref[0]:.3e}")
         del want, logits
+    # the run's peak with the forwards that check it
+    out["check_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rel_first, rel = float(rel_rows[0].max()), rel_rows[1:].max(1).tolist()
     out["rel_prefill"], out["rel_max"] = rel_first, max(rel)
     out["rel_last"] = rel[-1]
-    check(all(np.isfinite(rel)) and max(rel + [rel_first]) < bound,
+    missed = rel_rows >= bound
+    out["flipped_rows"] = int(flipped.sum())
+    out["rel_unflipped"] = float(rel_rows[~flipped].max(initial=0.0))
+    check(np.all(np.isfinite(rel_rows)) and not np.any(missed & ~flipped),
           f"{label}: decode logits vs the forward's, max |got - want| / "
           f"max |want| {max(rel):.3e} (prefill {rel_first:.3e}) over "
-          f"{bound}: {[round(r, 5) for r in rel[:8]]} ...")
-    print(f"[decode] {tag}: {label}: prefill {B} x {prompt} tokens "
-          f"{out['prefill_ms']:.1f} ms ("
-          + ", ".join(f"{k} {v}" for k, v in out["prefill_launches"].items()
-                      if v) + "); "
-          f"{steps} decode steps ({flushes} flushes) in {wall:.2f} s: "
-          f"{out['step_ms']:.3f} ms a step (median after {warm}; "
-          f"{out['step_ms_range'][0]:.3f}-{out['step_ms_range'][1]:.3f}), "
-          f"{out['tokens_per_s']:.1f} tokens/s; 0 kernel launches in "
-          f"decode; {syncs} host syncs in {steps} steps"
-          f"{' ' + str(where) if where else ''}"
-          f"{'; the mode switch before them ' + str(switch) if switch else ''}"
-          f"; peak device "
-          f"memory {out['peak_gib']:.2f} GiB; vs lm_forward max |got - "
+          f"{bound}: {[round(r, 5) for r in rel[:8]]} ... on "
+          f"{int((missed & ~flipped).sum())} rows without a router flip")
+    flips = ""
+    if routes is not None:
+        flips = (f"; router top-k sets against the forward's: "
+                 f"{out['flipped_rows']} of {flipped.size} (step, "
+                 f"sequence) rows with a flip at some layer, "
+                 f"{int((missed & flipped).sum())} of them over the bound, "
+                 f"the rest max {out['rel_unflipped']:.3e}; "
+                 f"{out['prefill_flips']} flipped (layer, prompt token) "
+                 f"pairs in the prefill")
+    fp32_ref = ""
+    if fp32_reference:
+        fp32_ref = ("; vs an fp32 forward of the same weights ({}), max "
+                    "over the steps: the bf16 forward {:.3e}, the bf16 "
+                    "decode {:.3e} ({:.3e} without the flipped rows)"
+                    .format(out["fp32_rows"], *out["fp32_reference"]))
+    print(f"[decode] {tag}: {label}: "
+          f"{decode_line(out, B, prompt, steps, warm, where, switch)}; "
+          f"vs lm_forward max |got - "
           f"want| / max |want| prefill {rel_first:.3e}, decode max "
           f"{max(rel):.3e} (step 0 {rel[0]:.3e}, median "
           f"{statistics.median(rel):.3e}, last {rel[-1]:.3e}; bound "
-          f"{bound})" + (
-              "; vs an fp32 forward of the same weights ({}), max over "
-              "the steps: the bf16 forward {:.3e}, the bf16 decode {:.3e}"
-              .format(out["fp32_rows"], *out["fp32_reference"])
-              if fp32_reference else ""))
+          f"{bound}){fp32_ref}{flips}; peak device memory with the checking "
+          f"forwards {out['check_peak_gib']:.2f} GiB")
     out["kept"] = kept
     return out
+
+
+def decode_line(out, B, prompt, steps, warm, where, switch) -> str:
+    """A decode run's times, launches, syncs and memory, as printed."""
+    return (f"prefill {B} x {prompt} tokens {out['prefill_ms']:.1f} ms ("
+            + ", ".join(f"{k} {v}" for k, v in
+                        out["prefill_launches"].items() if v) + "); "
+            f"{steps} decode steps ({out['flushes']} flushes) in "
+            f"{out['decode_wall_s']:.2f} s: {out['step_ms']:.3f} ms a step "
+            f"(median after {warm}; {out['step_ms_range'][0]:.3f}-"
+            f"{out['step_ms_range'][1]:.3f}), {out['tokens_per_s']:.1f} "
+            f"tokens/s; 0 kernel launches in decode; {out['syncs']} host "
+            f"syncs in {steps} steps{' ' + str(where) if where else ''}"
+            f"{'; the mode switch before them ' + str(switch) if switch else ''}"
+            f"; peak device memory {out['peak_gib']:.2f} GiB")
 
 
 def decode_full(arch: str, tag: str) -> dict:
@@ -3554,14 +3746,20 @@ def decode_full(arch: str, tag: str) -> dict:
     return runs
 
 
-def decode_fp32_copy(arch: str, tag: str) -> float:
+def decode_fp32_copy(arch: str, tag: str, overrides=None,
+                     against_forward: bool = True, cpu: bool = True,
+                     n_layers=None) -> float:
     """``arch`` at full width, cut to DECODE_FP32_LAYERS[arch] layers,
     fp32 (TF32 off), ``decode_buffer`` DECODE_FP32[3] so that flushes
     land in the run, noised as the card-vs-CPU copies: prefill and
     decode on the card held against the card's ``lm_forward`` within
-    DECODE_FP32_BOUND, and against the port on the CPU with the same
-    weights (each step's logits, and every leaf of the final cache).
-    Returns the largest relative difference card vs CPU."""
+    DECODE_FP32_BOUND (unless not ``against_forward``: an MoE model at a
+    capacity factor that drops), and with ``cpu`` against the port on
+    the CPU with the same weights (each step's logits, and every leaf
+    of the final cache). ``overrides``: config fields to set (an MoE
+    model's capacity factor); ``n_layers`` in place of
+    DECODE_FP32_LAYERS[arch]. Returns the largest relative difference
+    card vs CPU, or the card's against the forward without ``cpu``."""
     import dataclasses
 
     from repro_torch.checkpoint.convert import params_to
@@ -3570,9 +3768,10 @@ def decode_fp32_copy(arch: str, tag: str) -> float:
     from repro_torch.models.model_zoo import build_model
 
     B, prompt, steps, R = DECODE_FP32
-    cfg = dataclasses.replace(get_config(arch), dtype="float32",
-                              n_layers=DECODE_FP32_LAYERS[arch],
-                              decode_buffer=R)
+    cfg = dataclasses.replace(
+        get_config(arch), dtype="float32",
+        n_layers=n_layers or DECODE_FP32_LAYERS[arch], decode_buffer=R,
+        **(overrides or {}))
     model = build_model(cfg)
     g = torch.Generator(device="cuda").manual_seed(2)
     params = model.init(g)
@@ -3584,9 +3783,16 @@ def decode_fp32_copy(arch: str, tag: str) -> float:
                                                  cfg.vocab, seed=11),
                            dtype=torch.long)
     label = (f"{arch} fp32 {cfg.n_layers} layers {B} x {prompt} + {steps} "
-             f"(decode_buffer {R})")
+             f"(decode_buffer {R}"
+             + (f", capacity factor {cfg.moe_capacity_factor}"
+                if cfg.n_experts else "") + ")")
     card = decode_run(cfg, params, toks.cuda(), prompt, label, tag,
-                      DECODE_FP32_BOUND, keep=True)
+                      DECODE_FP32_BOUND, keep=True,
+                      against_forward=against_forward)
+    if not cpu:
+        rel = max(card["rel_max"], card["rel_prefill"])
+        del card, params
+        return rel
     logits_g, cache_g = card["kept"]
     cpu_params = params_to(params, "cpu")
     with torch.no_grad():
@@ -3595,7 +3801,7 @@ def decode_fp32_copy(arch: str, tag: str) -> float:
                                                       device="cpu"))
         logits_c, cache_c, _ = decode_steps(cfg, model, cpu_params, toks,
                                             prompt, cache_c)
-    rel = step_rel(logits_g.cpu(), logits_c)
+    rel = row_rel(logits_g.cpu(), logits_c).max(1).tolist()
     leaves = {}
     for k, c in cache_c.items():
         gk = cache_g[k].cpu()
@@ -3763,7 +3969,7 @@ def decode_main_path(tag: str) -> dict:
 # ------------------------------------------------------------ [dense] --
 
 def dense_forward_fp32(cfg, params, toks, start: int):
-    """``lm_forward`` of an fp32 copy of a dense or VLM model's bf16
+    """``lm_forward`` of an fp32 copy of a dense, VLM or MoE model's bf16
     weights, with the copy made one layer at a time (a whole one is
     twice the model's bytes and would not fit beside it): the walk of
     ``lm_forward`` (the embedding, ``transformer._decoder_block`` on each
@@ -3776,7 +3982,8 @@ def dense_forward_fp32(cfg, params, toks, start: int):
     from repro_torch.tree import tree_map
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    check(cfg.family in ("dense", "vlm"), f"{cfg.name} is not dense")
+    check(cfg.family in ("dense", "vlm", "moe"),
+          f"{cfg.name} is not a dense decoder")
     B, S = toks.shape
     x = params["embed"][toks].float()
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -3904,6 +4111,241 @@ def dense_main_path(tag: str) -> dict:
     return {"launches": launches, "rows": rows, "err": worst}
 
 
+# -------------------------------------------------------------- [moe] --
+
+class MoERoutes:
+    """What ``moe_routes`` records: ``calls[phase]``, one [B, S, k]
+    tensor of expert indices (ascending) per MoE layer call made while
+    ``phase`` was set (``route_phase``)."""
+
+    def __init__(self):
+        self.phase = None
+        self.calls: dict = {}
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Record each MoE layer's top-k experts: the port's own
+    ``mlp.moe_route`` (the same groups, the same fp32 router product)
+    run again on the layer's input, on the card, no host read."""
+    from repro_torch.models import mlp
+    from repro_torch.models import transformer as tfm
+
+    apply = tfm.moe_apply
+    rec = MoERoutes()
+
+    def record(p, x, *, top_k, group_size, **kwargs):
+        if rec.phase is not None:
+            idx = mlp.moe_route(p["router"], x, top_k=top_k,
+                                group_size=group_size)[3]
+            B, S = x.shape[:2]
+            idx = idx.reshape(-1, top_k)[:B * S].reshape(B, S, top_k)
+            rec.calls.setdefault(rec.phase, []).append(
+                torch.sort(idx, dim=-1).values)
+        return apply(p, x, top_k=top_k, group_size=group_size, **kwargs)
+
+    tfm.moe_apply = record
+    try:
+        yield rec
+    finally:
+        tfm.moe_apply = apply
+
+
+def route_phase(routes, phase) -> None:
+    if routes is not None:
+        routes.phase = phase
+
+
+def route_flips(routes, prompt: int, B: int):
+    """Where a decode run's routes differ from the forward's: (a numpy
+    bool [steps + 1, B], row 0 the prefill's last token and row 1 + t
+    step t, true where some layer's top-k set differs from the
+    forward's at that position; the number of (layer, sequence, prompt
+    token) triples whose set differs in the prefill)."""
+    fwd = torch.stack(routes.calls.pop("forward"))       # [L, B, S, k]
+    L, k = fwd.shape[0], fwd.shape[-1]
+    pre = torch.stack(routes.calls.pop("prefill"))       # [L, B, prompt, k]
+    dec = torch.stack(routes.calls.pop("decode")).reshape(-1, L, B, k)
+    pre_diff = (pre != fwd[:, :, :prompt]).any(-1)       # [L, B, prompt]
+    dec_diff = (dec != fwd[:, :, prompt:].permute(2, 0, 1, 3)).any(-1)
+    flipped = torch.cat([pre_diff[:, :, -1].any(0)[None], dec_diff.any(1)])
+    return flipped.cpu().numpy(), int(pre_diff.sum())
+
+
+def cpu_copy_layers(cfg, want: int) -> tuple[int, str]:
+    """The depth of a model's fp32 copies that the host holds: ``want``
+    layers if MemAvailable covers 1.5 x their fp32 bytes (the CPU
+    params and what the runs hold beside them), else 1."""
+    import dataclasses
+
+    need = 1.5 * 4 * dataclasses.replace(cfg, n_layers=want).param_count()
+    avail = 0
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            avail = int(line.split()[1]) * 1024
+    if avail >= need:
+        return want, (f"{want} layers ({need / 2**30:.1f} GiB needed, "
+                      f"{avail / 2**30:.1f} GiB available on the host)")
+    return 1, (f"1 layer: {want} would need {need / 2**30:.1f} GiB, the host "
+               f"has {avail / 2**30:.1f} GiB available")
+
+
+def moe_model(arch: str, tag: str, baseline: int):
+    """One model of the [moe] phase, alone on the card, at full width in
+    bf16 and MOE_LAYERS[arch] layers (random weights from seed 0, the
+    router fp32): (a) served through ``ServingEngine``
+    (``zoo_serve_main_path``: bursts A and B, exactly the cut depth's
+    flash launches a flush, no plain version on the card), burst B's
+    flush profiled; (c) DECODE_BATCH x DECODE_PROMPT tokens prefilled
+    (the cut depth's flash launches) and MOE_DECODE_STEPS teacher-forced
+    steps at the published capacity factor (0 launches, 0 host syncs a
+    step), held against nothing: a step's group is its own 8 tokens;
+    (d) the same weights at the no-drop factor ``n_experts / top_k``,
+    MOE_NODROP_BATCH x DECODE_PROMPT + MOE_DECODE_STEPS, each step held
+    against the forward and an fp32 forward (``dense_forward_fp32``),
+    the router flips counted (``moe_routes``); (f) Mixtral: MOE_LONG
+    tokens into its 4096-slot ring and MOE_DECODE_STEPS steps, at the
+    no-drop factor, against the forward; the model freed, the serve CLI
+    with Mixtral's reduced default; (b) the 2-layer fp32 copy against
+    the CPU at the published factor, logits and aux
+    (``zoo_card_vs_cpu``); (e) its decode at the published factor
+    against the CPU's decode, and at the no-drop factor against the
+    forward (``decode_fp32_copy``); (g) the flash kernel at the model's
+    shapes (``time_flash``). The memory allocated on the card is back to
+    ``baseline`` after each part that held a model. Returns the flash
+    launches by row key, the flash rows and their largest |kernel -
+    plain|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_LAYERS[arch])
+    fc, launches, init_s = timed(f"{arch}: serve", zoo_serve_main_path,
+                                 arch, tag, ZOO_BURSTS, cfg)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for _, t in named_leaves(fc.params))
+    check(n_params == cfg.param_count() + (2 * cfg.n_layers * cfg.head_dim
+                                           if cfg.qk_norm else 0),
+          f"{arch}: {n_params} parameters drawn, param_count() "
+          f"{cfg.param_count()}")
+    timed(f"{arch}: profile serving", profile_zoo, fc,
+          {"flash_attention": FLASH_SYMBOL}, tag, (FLASH_FP32_SYMBOL,),
+          ZOO_BURSTS[1:])
+    params = fc.params
+    prompt, steps = DECODE_PROMPT, MOE_DECODE_STEPS
+
+    def tokens(B, n, seed):
+        return torch.as_tensor(synthetic_token_batch(B, n, cfg.vocab,
+                                                     seed=seed),
+                               dtype=torch.long, device="cuda")
+
+    B = DECODE_BATCH
+    label = (f"{arch} ({cfg.n_layers} layers) {B} x {prompt} + {steps}, "
+             f"capacity factor {cfg.moe_capacity_factor}")
+    run = timed(f"{arch}: decode", decode_run, cfg, params,
+                tokens(B, prompt + steps, prompt), prompt, label, tag,
+                DECODE_BOUND, False, False, None, False)
+    check(run["syncs"] == 0, f"{label}: {run['syncs']} host syncs in "
+                             f"{steps} decode steps")
+    nodrop = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    Bn = MOE_NODROP_BATCH
+    label = (f"{arch} ({cfg.n_layers} layers) {Bn} x {prompt} + {steps}, "
+             f"no-drop capacity factor {nodrop.moe_capacity_factor}")
+    with moe_routes() as routes:
+        nd = timed(f"{arch}: decode at the no-drop factor", decode_run,
+                   nodrop, params, tokens(Bn, prompt + steps, prompt + 1),
+                   prompt, label, tag, DECODE_BOUND, False, True,
+                   lambda p, t, s: dense_forward_fp32(
+                       nodrop, p, t[:DENSE_FP32_ROWS], s), True, routes)
+    check(nd["syncs"] == 0, f"{label}: {nd['syncs']} host syncs in "
+                            f"{steps} decode steps")
+    runs = [run, nd]
+    if cfg.window is not None:
+        label = (f"{arch} ({cfg.n_layers} layers) 1 x {MOE_LONG} + {steps}, "
+                 f"ring of {cfg.window}, no-drop capacity factor "
+                 f"{nodrop.moe_capacity_factor}")
+        with moe_routes() as routes:
+            runs.append(timed(
+                f"{arch}: decode {MOE_LONG} tokens", decode_run, nodrop,
+                params, tokens(1, MOE_LONG + steps, MOE_LONG), MOE_LONG,
+                label, tag, DECODE_BOUND, False, False, None, True, routes))
+    del fc, params
+    release(baseline, f"{arch} at full width, {cfg.n_layers} layers")
+    if arch == MOE_CLI_ARCH:
+        timed(f"{arch}: serve CLI (reduced)", zoo_cli, arch,
+              ("flash_attention",), False)
+        release(baseline, f"the serve CLI with {arch}")
+    layers, why = cpu_copy_layers(cfg, DECODE_FP32_LAYERS[arch])
+    print(f"[moe] {tag}: {arch}: fp32 copies of {why}")
+    cpu_err = timed(f"{arch}: card vs CPU", zoo_card_vs_cpu, arch, tag,
+                    DECODE_NOISE, layers)
+    fp32_err = timed(f"{arch}: fp32 decode copy vs CPU", decode_fp32_copy,
+                     arch, tag, None, False, True, layers)
+    fp32_fwd = timed(f"{arch}: fp32 decode copy vs the forward, no drop",
+                     decode_fp32_copy, arch, tag,
+                     {"moe_capacity_factor": nodrop.moe_capacity_factor},
+                     True, False, layers)
+    release(baseline, f"{arch}'s fp32 copies")
+    for r in runs:
+        launches = merge_launches(launches, r["prefill_launches"])
+    flash = launches["flash_attention"]
+    rows, err = timed(f"{arch}: time flash_attention", time_flash, flash,
+                      tag, ())
+    short = next(s for s in flash if s[:3] == (8, 32, 32))
+    flash_rows_alone(short[:6])
+    release(baseline, f"{arch}'s flash timing")
+    seconds = time.perf_counter() - t0
+    long = (f"; 1 x {MOE_LONG} into the ring: prefill "
+            f"{runs[2]['prefill_ms']:.1f} ms, {runs[2]['step_ms']:.3f} ms a "
+            f"step, vs forward max {runs[2]['rel_max']:.3e}, "
+            f"{runs[2]['flipped_rows']} flipped rows"
+            if len(runs) > 2 else "")
+    print(f"[moe] {tag}: {arch}: {describe(cfg)}; {n_params} parameters "
+          f"drawn (param_count() of the {cfg.n_layers}-layer config "
+          f"{cfg.param_count()}, plus the QK norms' "
+          f"{n_params - cfg.param_count()}); served bursts A and B with "
+          f"{cfg.n_layers} flash launches a flush (peak {serve_peak:.2f} "
+          f"GiB); decode batch {B} x {prompt} + {steps} at factor "
+          f"{cfg.moe_capacity_factor}: prefill {run['prefill_ms']:.1f} ms, "
+          f"{run['step_ms']:.3f} ms a step, {run['tokens_per_s']:.1f} "
+          f"tokens/s, peak {run['peak_gib']:.2f} GiB, 0 host syncs; the "
+          f"no-drop check at batch {Bn} (factor "
+          f"{nodrop.moe_capacity_factor}): decode vs forward max "
+          f"{nd['rel_max']:.3e} ({nd['flipped_rows']} of "
+          f"{(steps + 1) * Bn} rows with a router flip, the others max "
+          f"{nd['rel_unflipped']:.3e}), vs fp32 forward: bf16 forward "
+          f"{nd['fp32_reference'][0]:.3e}, decode "
+          f"{nd['fp32_reference'][1]:.3e}, peak {nd['peak_gib']:.2f} GiB "
+          f"({nd['check_peak_gib']:.2f} with the fp32 forward)"
+          f"{long}; {layers}-layer fp32 copy vs CPU {cpu_err:.3e}, its "
+          f"decode vs the CPU's {fp32_err:.3e}, at no drop vs the forward "
+          f"{fp32_fwd:.3e}; flash at {sorted(flash)}: max |kernel - plain| "
+          f"{err:.3e}; memory back to {baseline / 2**30:.3f} GiB after each "
+          f"part; init {init_s:.2f} s; {seconds:.2f} s")
+    return launches, rows, err
+
+
+def moe_main_path(tag: str) -> dict:
+    """The [moe] phase: ``moe_model`` for each of MOE_ARCHS, Mixtral
+    first, with nothing else of the smoke on the card (at most 1 GiB
+    allocated when it starts). Returns the flash launches by row key,
+    the flash rows and the largest |kernel - plain|."""
+    baseline = settled_memory()
+    check(baseline < 2**30, f"[moe] starts with {baseline / 2**30:.2f} GiB "
+                            f"allocated on the card")
+    launches, rows, worst = {}, {}, 0.0
+    for arch in MOE_ARCHS:
+        got, new_rows, err = timed(f"[moe] {arch}", moe_model, arch, tag,
+                                   baseline)
+        launches = merge_launches(launches, got)
+        rows.update(new_rows)
+        worst = max(worst, err)
+    return {"launches": launches, "rows": rows, "err": worst}
+
+
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
     each shape on the main paths. ``library_ms`` is weighted over the
@@ -3970,7 +4412,8 @@ def main() -> None:
               "--lstm-ablation": lambda: lstm_ablation(card),
               "--evl-ablation": lambda: evl_ablation(card),
               "--decode": lambda: (build_kernels(), decode_main_path(tag)),
-              "--dense": lambda: (build_kernels(), dense_main_path(tag))}
+              "--dense": lambda: (build_kernels(), dense_main_path(tag)),
+              "--moe": lambda: (build_kernels(), moe_main_path(tag))}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -4084,6 +4527,10 @@ def main() -> None:
     rows["flash_attention"].update(dense["rows"])
     errs["flash_attention"] = max(errs["flash_attention"], dense["err"])
     every = merge_launches(every, dense["launches"])
+    moe = timed("MoE family (serve, decode)", moe_main_path, tag)
+    rows["flash_attention"].update(moe["rows"])
+    errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
+    every = merge_launches(every, moe["launches"])
     rows["ssd_chunk"], every["ssd_chunk"], errs["ssd_chunk"] = \
         decode["ssd_chunk"]
     csrc = "src/repro_torch/kernels/{}/csrc/{}"

@@ -45,6 +45,15 @@ traffic trace against it.
     PYTHONPATH=src python -m repro_torch.launch.serve --model granite-20b \
         --device cpu --requests 32 --max-batch 8
 
+    # the MoE family: Mixtral-8x7B (8 experts top-2, its own 4096-key
+    # window) and Qwen3-MoE-235B-A22B (128 experts top-8); neither fits
+    # one 80 GB card at full depth (87.0 and 437.9 GiB in bf16), so the
+    # CLI hosts them reduced, on the card or the CPU:
+    PYTHONPATH=src python -m repro_torch.launch.serve --model mixtral-8x7b \
+        --requests 16 --max-batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --model qwen3-moe-235b-a22b --device cpu --requests 32 --max-batch 8
+
 Single process only; the sharded mesh, process workers, ensembles and
 the durable state directory of ``repro.launch.serve`` wait for later
 slices of the port.
@@ -88,8 +97,9 @@ def main(argv: list[str] | None = None) -> dict:
                     choices=["paper-lstm", *list_archs()],
                     help="the model to host: the paper LSTM or a zoo arch "
                     "the port runs (dense qwen1.5-4b, nemotron-4-15b, "
-                    "granite-20b, qwen2.5-32b; VLM chameleon-34b; SSM "
-                    "mamba2-370m; hybrid zamba2-2.7b)")
+                    "granite-20b, qwen2.5-32b; VLM chameleon-34b; MoE "
+                    "mixtral-8x7b, qwen3-moe-235b-a22b; SSM mamba2-370m; "
+                    "hybrid zamba2-2.7b)")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="host a trained serving checkpoint (the output "
                     "of `-m repro_torch.launch.train --save`) under the "

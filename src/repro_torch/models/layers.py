@@ -29,7 +29,9 @@ def _normal(generator: torch.Generator | None, shape, std: float, dtype,
         return torch.empty(tuple(shape), dtype=dtype, device=device)
     w = torch.randn(tuple(shape), generator=generator,
                     device=generator.device, dtype=torch.float32)
-    return (w * std).to(dtype=dtype, device=device)
+    # scaled in place: one fp32 copy of the leaf at a time, beside the
+    # stacked tree of a model that nearly fills the card
+    return w.mul_(std).to(dtype=dtype, device=device)
 
 
 def dense_init(generator: torch.Generator, shape, dtype=torch.float32,

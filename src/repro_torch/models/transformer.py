@@ -1,14 +1,16 @@
 """Transformer zoo (``repro.models.transformer``): the decoder LM of the
 ``dense`` family (and of the ``vlm`` family, Chameleon's early-fusion
 decoder, whose image tokens are ids of the one vocabulary: it runs the
-dense path throughout, as in the JAX package), the Mamba2 stack of the
-``ssm`` family and the Zamba2 stack of the ``hybrid`` family (Mamba2
-layers with one shared attention + MLP block after every
-``attn_every`` of them), their init, their forward and their decode
-path.
+dense path throughout, as in the JAX package; and of the ``moe``
+family, the same decoder with a Mixture-of-Experts layer, ``moe_apply``,
+in place of each MLP), the Mamba2 stack of the ``ssm`` family and the
+Zamba2 stack of the ``hybrid`` family (Mamba2 layers with one shared
+attention + MLP block after every ``attn_every`` of them), their init,
+their forward and their decode path.
 
     params = init_lm(cfg, generator)                 # leaves on its device
     logits, aux = lm_forward(cfg, params, tokens)    # serve (predict)
+                                                     # aux: MoE's loss
     logits, cache = lm_prefill(cfg, params, tokens)  # prefill
     logits, cache = lm_decode_step(cfg, params, token, cache)  # decode
     cache = flush_recent(cfg, cache)                 # every decode_buffer
@@ -27,6 +29,13 @@ decode step and ``flush_recent`` write the cache's buffers in place,
 as XLA's dynamic-update-slice does on a donated buffer: decode from the
 cache they return, never again from the one passed in.
 
+An MoE layer's answer for a token depends on the other tokens of its
+group, through each expert's capacity, in both packages: the prefill
+and a decode step route in groups of their own tokens, so where the
+forward drops a pair a decode step may keep it, and the other way
+round. At a capacity factor of ``n_experts / top_k`` (the reduced
+configs') no pair is ever dropped and they agree.
+
 Every other family raises ``NotImplementedError`` naming the ROADMAP
 item that ports it, as does the loss.
 """
@@ -44,16 +53,17 @@ from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        embed_init, init_device, norm_param,
                                        rms_norm)
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.mlp import mlp_apply
+from repro_torch.models.mlp import mlp_apply, moe_apply
 from repro_torch.models.ssm import mamba2_apply
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
 # the ROADMAP "Next" item that ports each family the port lacks
-_LATER = {"moe": "MoE", "audio": "audio"}
-# the families the port runs (``vlm`` through the dense decoder)
-_PORTED = ("dense", "vlm", "ssm", "hybrid")
+_LATER = {"audio": "audio"}
+# the families the port runs (``vlm`` and ``moe`` through the dense
+# decoder)
+_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -104,6 +114,18 @@ def _init_mlp(g, cfg: ArchConfig, dt):
     return p
 
 
+def _init_moe(g, cfg: ArchConfig, dt):
+    """The router in float32 whatever the model's dtype, as in the JAX
+    package; the experts stacked on a leading [E] dim."""
+    d, f, E, dev = cfg.d_model, cfg.d_ff, cfg.n_experts, init_device(g)
+    p = {"router": dense_init(g, (d, E), torch.float32, dev),
+         "w1": dense_init(g, (E, d, f), dt, dev),
+         "w2": dense_init(g, (E, f, d), dt, dev)}
+    if cfg.gated_mlp:
+        p["w3"] = dense_init(g, (E, d, f), dt, dev)
+    return p
+
+
 def _init_ssm_block(g, cfg: ArchConfig, dt):
     d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * N
@@ -123,31 +145,39 @@ def _init_ssm_block(g, cfg: ArchConfig, dt):
 
 def _init_decoder_layer(g, cfg: ArchConfig, dt):
     dev = init_device(g)
-    return {"norm1": norm_param(cfg.norm, cfg.d_model, dt, dev),
-            "attn": _init_attn(g, cfg, dt),
-            "norm2": norm_param(cfg.norm, cfg.d_model, dt, dev),
-            "mlp": _init_mlp(g, cfg, dt)}
+    p = {"norm1": norm_param(cfg.norm, cfg.d_model, dt, dev),
+         "attn": _init_attn(g, cfg, dt),
+         "norm2": norm_param(cfg.norm, cfg.d_model, dt, dev)}
+    if cfg.n_experts:
+        p["moe"] = _init_moe(g, cfg, dt)
+    else:
+        p["mlp"] = _init_mlp(g, cfg, dt)
+    return p
 
 
 def _stack(fn, n: int):
     """``n`` draws of a param subtree stacked on a leading dim, written
-    layer by layer into the stacked leaves (no list of layers held)."""
-    first = fn()
-    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    layer by layer into the stacked leaves: one drawn layer is held at a
+    time beside them."""
+    layer = fn()
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
     for i in range(n):
-        tree_map(lambda dst, src: dst[i].copy_(src), out,
-                 first if i == 0 else fn())
+        if i:
+            layer = fn()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
+        layer = None
     return out
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator | None) -> PyTree:
-    """Random params of a dense decoder LM, a Mamba2 stack or a Zamba2
-    stack (the Mamba2 layers, and one ``shared`` attention + MLP block),
-    in the config's dtype (``dt_bias`` and ``A_log`` in float32, as in
-    the JAX package), drawn from ``generator`` on its own device (a CUDA
-    generator draws on the card, each leaf in fp32 and cast, one layer
-    at a time). With no generator the leaves lie on the meta device: the
-    tree's keys, shapes and dtypes, with no data."""
+    """Random params of a dense or MoE decoder LM, a Mamba2 stack or a
+    Zamba2 stack (the Mamba2 layers, and one ``shared`` attention + MLP
+    block), in the config's dtype (``dt_bias``, ``A_log`` and the MoE
+    ``router`` in float32, as in the JAX package), drawn from
+    ``generator`` on its own device (a CUDA generator draws on the card,
+    each leaf in fp32 and cast, one layer at a time). With no generator
+    the leaves lie on the meta device: the tree's keys, shapes and
+    dtypes, with no data."""
     _require_ported(cfg)
     dt = _dtype(cfg)
     V, d = cfg.padded_vocab, cfg.d_model
@@ -205,8 +235,13 @@ def _attn_block(cfg: ArchConfig, p, x, positions, *, window=None,
 
 
 def _ffn(cfg: ArchConfig, lp, h):
+    """The layer's MLP, or its MoE layer. Returns (out, aux): the MoE
+    load-balance loss, or 0.0."""
     if cfg.n_experts:
-        raise not_ported("moe_apply", _LATER["moe"])
+        return moe_apply(lp["moe"], h, top_k=cfg.top_k,
+                         activation=cfg.activation, gated=cfg.gated_mlp,
+                         group_size=cfg.moe_group_size,
+                         capacity_factor=cfg.moe_capacity_factor)
     return mlp_apply(lp["mlp"], h, cfg.activation, cfg.gated_mlp), 0.0
 
 
@@ -249,14 +284,16 @@ def _check_stages(cfg: ArchConfig, n_layers: int) -> None:
 
 
 def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
-    """Forward of a dense decoder LM, a Mamba2 stack or a Zamba2 stack
-    over every position. The hybrid runs ``n_layers // attn_every``
-    stages, each ``attn_every`` Mamba2 layers and then the one shared
-    attention + MLP block, whose tensors every stage reads.
+    """Forward of a dense or MoE decoder LM, a Mamba2 stack or a Zamba2
+    stack over every position. The hybrid runs ``n_layers //
+    attn_every`` stages, each ``attn_every`` Mamba2 layers and then the
+    one shared attention + MLP block, whose tensors every stage reads.
 
     tokens: integer [B, S] on the params' device. Returns (logits
     [B, S, padded_vocab] in the config's dtype, aux_loss: a float32
-    zero, the MoE load-balance loss of the families to come).
+    scalar on that device, the MoE load-balance loss summed over the
+    layers, as the JAX package's scan sums it; zero for the other
+    families).
     """
     _require_ported(cfg)
     B, S = tokens.shape
@@ -267,6 +304,7 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     window = _effective_window(cfg, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_layers):
         lp = tree_map(lambda t: t[i], layers)
         if cfg.family in ("ssm", "hybrid"):
@@ -275,10 +313,11 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
                 x, _ = _decoder_block(cfg, params["shared"], x, positions,
                                       window)
         else:
-            x, _ = _decoder_block(cfg, lp, x, positions, window)
+            x, aux = _decoder_block(cfg, lp, x, positions, window)
+            aux_total = aux_total + aux
     x = apply_norm(x, params["final_norm"], cfg.norm)
     logits = x @ params["lm_head"]
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 # ==========================================================================

@@ -3,8 +3,10 @@ lengths) -> (forecast, extreme_probability)``.
 
 ``LSTMForecaster`` serves the paper LSTM, with O(1) streaming by
 explicit carries and device-resident decode slots besides.
-``ZooForecaster`` serves a zoo arch (so far the dense, ssm and hybrid
-families: Qwen1.5-4B, Mamba2-370M, Zamba2-2.7B) as next-token
+``ZooForecaster`` serves a zoo arch (so far the dense, vlm, moe, ssm
+and hybrid families: Qwen1.5-4B, Nemotron-4-15B, Granite-20B,
+Qwen2.5-32B, Chameleon-34B, Mixtral-8x7B, Qwen3-MoE-235B-A22B,
+Mamba2-370M, Zamba2-2.7B) as next-token
 prediction over right-padded token windows: the forecast is the greedy
 next token and the extreme probability the EVT-calibrated surprisal of
 it. On the card every attention (a dense layer's, or Zamba2's shared
@@ -507,7 +509,8 @@ def build_zoo_forecaster(arch: str, seed: int = 0, reduced: bool = True,
                          device="cuda") -> ZooForecaster:
     """A zoo arch (any the port registers: the dense ``qwen1.5-4b``,
     ``nemotron-4-15b``, ``granite-20b`` and ``qwen2.5-32b``, the VLM
-    ``chameleon-34b``, the SSM ``mamba2-370m``, the hybrid
+    ``chameleon-34b``, the MoE ``mixtral-8x7b`` and
+    ``qwen3-moe-235b-a22b``, the SSM ``mamba2-370m``, the hybrid
     ``zamba2-2.7b``) served on
     ``device``: the full config, or its reduced CPU-smoke variant;
     random weights drawn from a ``torch.Generator``

@@ -235,6 +235,26 @@ def test_cuda_kernel_matches_plain_version(shape, kwargs, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", [((2, 300, 32, 8, 128), 64),
+                                          ((2, 300, 64, 4, 128), None)],
+                         ids=["gqa32/8-window64", "gqa64/4"])
+def test_cuda_bf16_kernel_at_the_moe_familys_heads(shape, window):
+    """The bf16 kernel at Mixtral's GQA 32/8 with a sliding window and at
+    Qwen3-MoE's 64/4 (16 query heads a KV head), causal, against its
+    plain version."""
+    _card()
+    q, k, v = (t.cuda().to(torch.bfloat16)
+               for t in _t(*_qkv(*shape, seed=12)))
+    before = flash_kernel.FLASH_LAUNCHES.total
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_kernel.FLASH_LAUNCHES.total == before + 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
+
+
 def test_tma_checks_refuse_a_misaligned_base_or_stride():
     """The CUDA driver holds TMA's 16-byte rules when the entry point
     encodes a bf16 operand's tensor map; the entry point then returns that

@@ -16,8 +16,14 @@ Granite-20B (MQA: 4 query heads over one KV head), Qwen2.5-32B (GQA
 4/2, QKV bias), Nemotron-4-15B (GQA 4/2, LayerNorm, non-gated squared
 ReLU) and Chameleon-34B (the ``vlm`` family, GQA 4/2 with QK norm) add
 full-mode caches of ``Hkv`` < ``Hq`` and the grouped decode
-attention. A ring prompt of 16 tokens fills the ring exactly (S % W
-== 0), one of 13 leaves it rolled by 5.
+attention. The MoE family runs the dense branch with ``moe_apply``
+in place of the MLP: the reduced Qwen3-MoE-235B-A22B (GQA 4/2, QK norm,
+a full-mode cache) and Mixtral-8x7B with ``window`` 8 (a ring), both at
+the reduced configs' capacity factor, ``n_experts / top_k``, where no
+pair is dropped; and, in the decode from the JAX package's cache only,
+Mixtral at 0.5 (``moe-drop``), where a step's group is its batch and
+both packages drop the same pairs. A ring prompt of 16 tokens fills
+the ring exactly (S % W == 0), one of 13 leaves it rolled by 5.
 
 A JAX prefill cache's main holds the prompt only: decoding past it, the
 JAX test grows main first (``place``, ``tests/test_arch_smoke.py``), as
@@ -75,10 +81,16 @@ LAYOUTS = {"dense-full": ("qwen1.5-4b", {}),
            "dense-mqa": ("granite-20b", {}),
            "dense-gqa": ("qwen2.5-32b", {}),
            "dense-layernorm-relu2": ("nemotron-4-15b", {}),
-           "vlm": ("chameleon-34b", {})}
+           "vlm": ("chameleon-34b", {}),
+           "moe": ("qwen3-moe-235b-a22b", {}),
+           "moe-ring": ("mixtral-8x7b", {"window": 8}),
+           "moe-drop": ("mixtral-8x7b", {"moe_capacity_factor": 0.5})}
 FOUR = ["dense-full", "dense-ring", "ssm", "hybrid"]
 # the dense-branch archs whose KV heads are fewer than their query heads
 GROUPED = ["dense-mqa", "dense-gqa", "dense-layernorm-relu2", "vlm"]
+# the MoE family at the reduced configs' no-drop capacity factor
+MOE = ["moe", "moe-ring"]
+RING = ("dense-ring", "moe-ring")
 
 
 def _cfgs(layout, dtype=None):
@@ -178,7 +190,8 @@ def _needs_flush(cache, cfg):
 
 # ---------------------------------------------------------- init_cache --
 
-@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"] + GROUPED)
+@pytest.mark.parametrize("layout",
+                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_cache_tree_matches_jax(layout, dtype):
     """Keys, shapes and dtypes leaf by leaf against ``jax.eval_shape``
@@ -189,7 +202,7 @@ def test_init_cache_tree_matches_jax(layout, dtype):
     want = jax.eval_shape(lambda: jtfm.init_cache(jcfg, 2, 24))
     assert _tree(ours) == _tree(want)
     assert all(not torch.any(t != 0) for t in ours.values())
-    ring = layout == "dense-ring"
+    ring = layout in RING
     assert ("kr" in ours) == (layout not in ("ssm",) and not ring)
     if ring:
         assert ours["k"].shape[2] == 8
@@ -211,7 +224,8 @@ def test_init_cache_on_the_model_handle_and_the_meta_device():
 # ------------------------------------------------------------- prefill --
 
 @pytest.mark.parametrize("S", [16, 13])
-@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"] + GROUPED)
+@pytest.mark.parametrize("layout",
+                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE)
 def test_prefill_matches_jax(layout, S):
     """Last-token logits and every cache leaf (the ring rolled at
     S % W != 0 and not at S % W == 0)."""
@@ -222,7 +236,7 @@ def test_prefill_matches_jax(layout, S):
     assert logits.shape == (2, cfg.padded_vocab)
     _close_logits(logits, want_logits, f"{layout} S {S}")
     _close_cache(cache, want, f"{layout} S {S}")
-    if layout == "dense-ring":
+    if layout in RING:
         assert cache["k"].shape[2] == 8 and "kr" not in cache
 
 
@@ -270,7 +284,8 @@ def _decode_both(cfg, jcfg, params, jparams, cache, jcache, steps=STEPS,
 
 
 DECODE_CASES = [(layout, "grown")
-                for layout in FOUR + ["hybrid-6-every-3"] + GROUPED] \
+                for layout in FOUR + ["hybrid-6-every-3"] + GROUPED + MOE
+                + ["moe-drop"]] \
     + [("dense-full", "as-prefilled"), ("hybrid", "as-prefilled")]
 
 
@@ -306,7 +321,8 @@ def test_decode_from_an_empty_cache_matches_jax(layout):
     assert flushes == (1 if "kr" in jcache else 0)
 
 
-@pytest.mark.parametrize("layout", FOUR + ["hybrid-6-every-3"] + GROUPED)
+@pytest.mark.parametrize("layout",
+                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE)
 def test_decode_equals_forward(layout):
     """The port alone, as ``test_prefill_decode_matches_forward``: a
     prefill of 16 of 28 tokens, then 12 teacher-forced steps (full mode:

@@ -76,6 +76,9 @@ def test_port_package_is_complete():
     # the online path's: hot swap, metrics export, the online CLI
     assert {"serving/hotswap.py", "serving/telemetry.py", "obs/export.py",
             "obs/trace.py", "launch/online.py"} <= names
+    # the MoE family's: its configs and moe_apply
+    assert {"configs/mixtral_8x7b.py", "configs/qwen3_moe_235b_a22b.py",
+            "models/mlp.py"} <= names
     for src in ("kernels/lstm/csrc/lstm_layer.cu",
                 "kernels/lstm/csrc/lstm_layer_bwd.cu",
                 "kernels/evl/csrc/evl.cu",
