@@ -10,6 +10,7 @@ NVIDIA H100.
     python3 chip_smoke.py --decode           # the [decode] phase alone
     python3 chip_smoke.py --dense            # the [dense] phase alone
     python3 chip_smoke.py --moe              # the [moe] phase alone
+    python3 chip_smoke.py --audio            # the [audio] phase alone
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -90,7 +91,17 @@ factor with its router flips counted, Mixtral's 16,384-token prompt
 into its 4096-slot ring (the flash kernel's windowed launch at GQA,
 timed beside SDPA with a mask), each one's 2-layer fp32 copy against
 the CPU (logits and the load-balance loss), Mixtral's reduced config
-through the serve CLI.
+through the serve CLI. Then the audio family (``[audio]``):
+Whisper-medium at full width and depth in bf16 on the stub frames,
+served through ``ServingEngine`` (bursts of 32 and 448 tokens, each
+flush 24 encoder launches of the flash kernel without a mask over 1500
+frames, 24 causal decoder ones and 24 cross-attention ones without a
+mask), 8 prompts of 64 tokens prefilled with their frames and 288 steps
+decoded, each step 24 flash launches (cross-attention at one query over
+the cached 1500 frames) and held against the forward and an fp32
+forward, its 2 + 2-layer fp32 copy against the CPU, its reduced config
+through the serve CLI, the flash kernel timed at each of those shapes
+and masks beside SDPA with the same mask.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -102,8 +113,8 @@ exits non-zero. The last two lines are a JSON object per kernel and
 ``--evl-ablation`` it runs only that probe (``flash_host``,
 ``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
 ``evl_ablation``) and prints no result; with ``--decode``,
-``--dense`` or ``--moe``, the build and the ``[decode]``, ``[dense]``
-or ``[moe]`` phase alone, and no result.
+``--dense``, ``--moe`` or ``--audio``, the build and the ``[decode]``,
+``[dense]``, ``[moe]`` or ``[audio]`` phase alone, and no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -200,6 +211,13 @@ FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 200, 4, 2, 64), (1, 300, 8, 1, 32),
                 (2, 64, 6, 2, 128), (2, 77, 4, 4, 80)]
 FLASH_MASKS = [dict(causal=True), dict(causal=False),
                dict(causal=True, window=37), dict(causal=True, q_offset=29)]
+# Whisper-medium's launches without a mask (B, Sq, Skv, Hq, Hkv, D):
+# cross-attention with fewer queries than keys (1, 32, 77 and 448 over
+# 300 and 1500: every query tile visits every key tile, the last one
+# ragged at 1500 = 11 x 128 + 92, and the query tile is larger than Sq
+# below 128) and the encoder's 1500 x 1500
+FLASH_CROSS = ([(2, sq, skv, 16, 16, 64) for sq in (1, 32, 77, 448)
+                for skv in (300, 1500)] + [(2, 1500, 1500, 16, 16, 64)])
 FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 1e-4
 LIBRARY_BF16_TOL = 0.08
@@ -375,8 +393,25 @@ MOE_NODROP_BATCH = 2
 # steps, at the no-drop factor, held against the forward
 MOE_LONG = 16384
 MOE_CLI_ARCH = "mixtral-8x7b"
+# the audio family ([audio]): Whisper-medium (24 encoder layers over 1500
+# frames + 24 decoder layers, d_model 1024, 16 MHA heads of 64, GELU,
+# LayerNorm, QKV bias; 0.81 B parameters, 1.51 GiB in bf16) at full width
+# and depth, random weights from seed 0, on the stub frames. Burst A as
+# the others'; burst B at 448 tokens, Whisper's published decoder
+# context, in place of 2048. Every flush runs the encoder over its
+# batch's 1500 frames: 3 x 24 flash launches. The decode: AUDIO_DECODE
+# (batch, prompt, steps): 8 prompts of 64 tokens prefilled with 8 x
+# 1500 frames, then 288 teacher-forced steps, 352 tokens in all (the
+# recent buffer of 256 flushes once, at 320), each step 24 flash
+# launches (cross-attention at one query over 1500 frames)
+AUDIO_ARCH = "whisper-medium"
+AUDIO_BURSTS = [(64, 32, 8), (8, 448, 4)]
+AUDIO_DECODE = (8, 64, 288)
+# burst A's cross-attention launch, whose rows are held bitwise against
+# their B = 1 launches
+AUDIO_CROSS = (8, 32, 1500, 16, 16, 64)
 # each arch's fp32 copy: 2 layers, but Zamba2's one stage of 6
-DECODE_FP32_LAYERS = dict({ZOO_ARCH: 2, MAMBA_ARCH: 2,
+DECODE_FP32_LAYERS = dict({ZOO_ARCH: 2, MAMBA_ARCH: 2, AUDIO_ARCH: 2,
                            ZAMBA_ARCH: ZAMBA_CPU_LAYERS},
                           **{arch: 2 for arch in DENSE_ARCHS + MOE_ARCHS})
 # the SSD scan from a given state: ssd_chunk at (K, P, N), the JAX
@@ -457,8 +492,9 @@ def read_counters() -> dict:
 
 @contextlib.contextmanager
 def flash_windows():
-    """Record the window of every flash launch, by (B, Sq, Skv, Hq, Hkv,
-    D) as the launch counter keys it; the caller reads the list."""
+    """Record the window and the mask of every flash launch: (shape,
+    window, causal), the shape (B, Sq, Skv, Hq, Hkv, D); the caller
+    reads the list."""
     from repro_torch.kernels.attention import kernel as attn_kernel
 
     launch = attn_kernel.flash_attention_cuda
@@ -468,7 +504,7 @@ def flash_windows():
         out = launch(q, k, v, causal, window, q_offset, kv_valid)
         seen.append((tuple(q.shape[:2]) + (k.shape[1],)
                      + tuple(q.shape[2:3]) + (k.shape[2], q.shape[3]),
-                     window))
+                     window, bool(causal)))
         return out
 
     attn_kernel.flash_attention_cuda = record
@@ -2111,10 +2147,15 @@ def attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed=0):
                  for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
 
 
-def flash_ops(B, Sq, Skv, Hq, Hkv, D, window=None):
-    """Causal flash attention's operations (q_offset 0): 4 B Hq D per
-    (query, key) pair it attends, two for q . k and two for p v. With a
-    window, query i attends only the keys in (i - window, i]."""
+def flash_ops(B, Sq, Skv, Hq, Hkv, D, window=None, causal=True):
+    """Flash attention's operations (q_offset 0): 4 B Hq D per (query,
+    key) pair it attends, two for q . k and two for p v. Causal, query i
+    attends keys [0, i]; with a window only those in (i - window, i];
+    without the causal mask (and no window) every one of the Sq x Skv
+    pairs."""
+    if not causal and window is None:
+        return 4 * B * Hq * D * Sq * Skv
+    check(causal, "flash_ops counts no window without the causal mask")
     pos = np.arange(Sq, dtype=np.int64)
     hi = np.minimum(pos + 1, Skv)
     lo = np.zeros_like(pos) if window is None else np.maximum(
@@ -2122,66 +2163,76 @@ def flash_ops(B, Sq, Skv, Hq, Hkv, D, window=None):
     return 4 * B * Hq * D * int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(B, Sq, Skv, Hq, Hkv, D, window=None, itemsize=2):
-    """Causal (windowed) flash attention at the bf16 tensor-core peak;
-    q, k, v read once and o written once at the memory rate."""
-    ops = flash_ops(B, Sq, Skv, Hq, Hkv, D, window)
+def flash_bound(B, Sq, Skv, Hq, Hkv, D, window=None, causal=True,
+                itemsize=2):
+    """Flash attention (causal, windowed or without a mask) at the bf16
+    tensor-core peak; q, k, v read once and o written once at the
+    memory rate."""
+    ops = flash_ops(B, Sq, Skv, Hq, Hkv, D, window, causal)
     nbytes = itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_rows_alone(shape) -> None:
-    """The rows of a bf16 flash launch at (B, S, S, Hq, Hkv, D), causal,
-    bit for bit the launches of each row alone (B = 1)."""
+def flash_rows_alone(shape, causal: bool = True) -> None:
+    """The rows of a bf16 flash launch at (B, Sq, Skv, Hq, Hkv, D), causal
+    or not, bit for bit the launches of each row alone (B = 1)."""
     from repro_torch.kernels.attention.ops import flash_attention
 
     B = shape[0]
     q, k, v = attn_inputs(*shape, torch.bfloat16, seed=99)
-    full = flash_attention(q, k, v, causal=True)
+    full = flash_attention(q, k, v, causal=causal)
     for b in range(B):
         one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
-                              causal=True)
+                              causal=causal)
         check(torch.equal(one[0], full[b]),
-              f"flash attention at {shape}: row {b} of the B={B} launch != "
-              f"its B=1 launch")
+              f"flash attention at {shape} causal={causal}: row {b} of "
+              f"the B={B} launch != its B=1 launch")
 
 
 def check_flash() -> float:
     """Phase 9: flash attention against its plain version on the card,
     over the JAX kernel tests' sweep with the causal, non-causal,
-    window=37, q_offset and kv_valid masks, in fp32 and bf16; and rows
-    of B = 1 launches bit for bit the rows of a B = 8 launch at the short
-    prompt's shape. Returns the largest |kernel - plain| (fp32)."""
+    window=37, q_offset and kv_valid masks, and over Whisper's
+    cross-attention and encoder shapes without a mask (FLASH_CROSS), in
+    fp32 and bf16; and rows of B = 1 launches bit for bit the rows of a
+    B = 8 launch at the short prompt's shape and at Whisper's burst-A
+    cross-attention. Returns the largest |kernel - plain| (fp32)."""
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.attention.ref import attention_ref
 
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [((B, S, S, Hq, Hkv, D), mask)
+             for B, S, Hq, Hkv, D in FLASH_SHAPES
+             for mask in FLASH_MASKS + [dict(causal=False, kv_valid=S - 13)]]
+    cases += [(shape, dict(causal=False)) for shape in FLASH_CROSS]
     n = 0
-    for B, S, Hq, Hkv, D in FLASH_SHAPES:
-        for mask in FLASH_MASKS + [dict(causal=False, kv_valid=S - 13)]:
-            for dt in worst:
-                n += 1
-                q, k, v = attn_inputs(B, S, S, Hq, Hkv, D, dt, seed=n)
-                got = flash_attention(q, k, v, **mask).float()
-                want = attention_ref(q, k, v, **mask).float()
-                err = float((got - want).abs().max())
-                worst[dt] = max(worst[dt], err)
-                rtol, atol = ((FLASH_RTOL, FLASH_ATOL) if dt == torch.float32
-                              else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
-                check(torch.allclose(got, want, rtol=rtol, atol=atol),
-                      f"flash attention disagrees with its plain version "
-                      f"at {(B, S, Hq, Hkv, D)} {mask} {dt}: max err {err}")
+    for shape, mask in cases:
+        for dt in worst:
+            n += 1
+            q, k, v = attn_inputs(*shape, dt, seed=n)
+            got = flash_attention(q, k, v, **mask).float()
+            want = attention_ref(q, k, v, **mask).float()
+            err = float((got - want).abs().max())
+            worst[dt] = max(worst[dt], err)
+            rtol, atol = ((FLASH_RTOL, FLASH_ATOL) if dt == torch.float32
+                          else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+            check(torch.allclose(got, want, rtol=rtol, atol=atol),
+                  f"flash attention disagrees with its plain version at "
+                  f"{shape} {mask} {dt}: max err {err}")
     flash_rows_alone((8, 32, 32, 20, 20, 128))
+    flash_rows_alone(AUDIO_CROSS, causal=False)
     print(f"[check] flash attention vs plain over {n} cases (the JAX sweep "
-          f"and D 80 x causal, full, window 37, q_offset 29, kv_valid x "
-          f"fp32 on the CUDA-core kernel, bf16 on the wgmma one): "
+          f"and D 80 x causal, full, window 37, q_offset 29, kv_valid; "
+          f"Whisper's non-causal (B, Sq, Skv, Hq, Hkv, D) {FLASH_CROSS}; "
+          f"x fp32 on the CUDA-core kernel, bf16 on the wgmma one): "
           f"max |kernel - plain| fp32 {worst[torch.float32]:.3e} (rtol "
           f"{FLASH_RTOL}, atol {FLASH_ATOL}), bf16 "
           f"{worst[torch.bfloat16]:.3e} (rtol {FLASH_BF16_RTOL}, atol "
           f"{FLASH_BF16_ATOL}); rows of B=1 "
-          f"launches == rows of a B=8 launch bitwise (8x32x20x128 bf16)")
+          f"launches == rows of a B=8 launch bitwise (8x32x20x128 causal "
+          f"and {AUDIO_CROSS} non-causal, bf16)")
     return worst[torch.float32]
 
 
@@ -2443,6 +2494,14 @@ def describe(cfg) -> str:
         ffn = (f"{cfg.n_experts} experts of {ffn}, top-{cfg.top_k}, groups "
                f"of {cfg.moe_group_size} at capacity factor "
                f"{cfg.moe_capacity_factor}")
+    if cfg.family == "audio":
+        return (f"audio, {cfg.encoder_layers} encoder layers over "
+                f"{cfg.n_frames} frames (learned positions, no mask) + "
+                f"{cfg.n_layers} decoder layers (causal self-attention "
+                f"with RoPE, then cross-attention), d_model {cfg.d_model}, "
+                f"{heads} of {cfg.head_dim}, {cfg.norm}, {ffn}"
+                f"{''.join(', ' + x for x in extras)}, {vocab}; "
+                f"cfg.param_count() estimates {cfg.param_count()}")
     return (f"{cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
             f"{heads} of {cfg.head_dim}, {cfg.norm}, {ffn}"
             f"{''.join(', ' + x for x in extras)}, {vocab}; "
@@ -2450,18 +2509,43 @@ def describe(cfg) -> str:
 
 
 def path_kernels(cfg) -> dict:
-    """Launches of each kernel per predict flush of a zoo arch: flash
-    attention once per attention (each dense or VLM layer; the hybrid's
-    shared block once per stage), the SSD scan once per Mamba2
-    layer."""
+    """Launches of each kernel per predict flush (and per prefill) of a
+    zoo arch: flash attention once per attention (each dense or VLM
+    layer; the hybrid's shared block once per stage; Whisper's encoder
+    layers, and each decoder layer's self- and cross-attention), the SSD
+    scan once per Mamba2 layer."""
     L = cfg.n_layers
     if cfg.family in ("dense", "vlm", "moe"):   # the VLM and MoE run the
         return {"flash_attention": L}           # dense path
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.encoder_layers + 2 * L}
     if cfg.family == "ssm":
         return {"ssd_scan": L}
     check(cfg.family == "hybrid" and L % cfg.attn_every == 0,
           f"no kernel path for {cfg.name}")
     return {"ssd_scan": L, "flash_attention": L // cfg.attn_every}
+
+
+def non_causal_launches(cfg) -> int:
+    """Of ``path_kernels``' flash launches, those without the causal mask:
+    Whisper's encoder and cross-attention."""
+    return cfg.encoder_layers + cfg.n_layers if cfg.family == "audio" else 0
+
+
+def step_kernels(cfg) -> dict:
+    """Launches of each kernel per decode step: Whisper's cross-attention
+    at one query, a flash launch a decoder layer; no other family's step
+    launches a kernel of the port."""
+    return {"flash_attention": cfg.n_layers} if cfg.family == "audio" \
+        else {}
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` cut to ``n_layers`` layers, an encoder's too."""
+    import dataclasses
+
+    over = {"encoder_layers": n_layers} if cfg.encoder_layers else {}
+    return dataclasses.replace(cfg, n_layers=n_layers, **over)
 
 
 def expected_window(cfg, seq_len: int):
@@ -2473,10 +2557,33 @@ def expected_window(cfg, seq_len: int):
     return cfg.long_context_window if seq_len > LONG_CONTEXT_FROM else None
 
 
-def flash_key(shape, window):
+def flash_key(shape, window, causal: bool = True):
     """A flash row's key: the launch's (B, Sq, Skv, Hq, Hkv, D), with the
-    window appended when there is one."""
-    return tuple(shape) + ((window,) if window is not None else ())
+    window appended when there is one and ``NON_CAUSAL`` when the launch
+    has no causal mask (the launch counter's key, ``launch_key``, with
+    the window)."""
+    from repro_torch.kernels.attention.kernel import NON_CAUSAL
+
+    return tuple(shape) + ((window,) if window is not None else ()) \
+        + (() if causal else (NON_CAUSAL,))
+
+
+def flash_row(key):
+    """(shape, window, causal) of a flash row's key."""
+    from repro_torch.kernels.attention.kernel import NON_CAUSAL
+
+    rest = key[6:]
+    window = next((x for x in rest if x != NON_CAUSAL), None)
+    return tuple(key[:6]), window, NON_CAUSAL not in rest
+
+
+def flash_keys(windows) -> dict:
+    """``flash_windows``' record counted by ``flash_key``."""
+    out: dict = {}
+    for shape, window, causal in windows:
+        key = flash_key(shape, window, causal)
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS, cfg=None):
@@ -2487,12 +2594,14 @@ def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS, cfg=None):
     here as ``build_zoo_forecaster`` does, which takes no config), behind
     ``ServingEngine``, one burst of (requests, prompt length,
     max_batch) after another: 64 requests of 32 tokens (max_batch 8),
-    then 8 of 2048 (max_batch 4), then for Zamba2 one of 133,120.
+    then 8 of 2048 (max_batch 4), then for Zamba2 one of 133,120
+    (Whisper-medium: ``bursts`` AUDIO_BURSTS, on the stub frames).
     Launch counts are zeroed just before each burst and read just after;
     each kernel of the arch's path (``path_kernels``) must run its
     number of launches per predict flush, with the window the sequence
-    length asks for (``expected_window``), no other kernel at all, and
-    no plain version on a card tensor. Returns the forecaster, each
+    length asks for (``expected_window``) and ``non_causal_launches``
+    of them without the causal mask, no other kernel at all, and no
+    plain version on a card tensor. Returns the forecaster, each
     kernel's launches by row key (``flash_key`` for flash), and the
     init's seconds."""
     from repro_torch.configs import get_config
@@ -2568,15 +2677,14 @@ def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS, cfg=None):
                   f"predict flushes, {n} a flush expected")
         check(all(n == 0 for k, v in got.items() if k not in per_flush
                   for n in v.values()), f"other kernels launched: {got}")
-        by_window: dict = {}
-        for shape, window in windows:
-            by_window[flash_key(shape, window)] = by_window.get(
-                flash_key(shape, window), 0) + 1
+        by_window = flash_keys(windows)
         check(all(w == expected_window(cfg, shape[1])
-                  for shape, w in windows)
-              and len(windows) == n_kern.get("flash_attention", 0),
+                  for shape, w, _ in windows)
+              and len(windows) == n_kern.get("flash_attention", 0)
+              and sum(not c for *_, c in windows)
+              == non_causal_launches(cfg) * flushes,
               f"burst {i}: flash launches {by_window}, not with the "
-              f"window that {plen} tokens ask for")
+              f"window and the masks that {plen} tokens ask for")
         if "flash_attention" in per_flush:
             got["flash_attention"] = by_window
         check(np.all(np.isfinite(res)) and np.all(res[:, 0] == np.round(
@@ -2617,15 +2725,31 @@ def zoo_serve_main_path(arch: str, tag: str, bursts=ZOO_BURSTS, cfg=None):
     return fc, launches, init_s
 
 
+@contextlib.contextmanager
+def stub_frames_as(frames):
+    """Serve an audio arch on ``frames`` (moved to the forecaster's
+    device) in place of its stub draw; nothing with ``frames`` None."""
+    from repro_torch.serving import forecaster as fmod
+
+    draw = fmod.stub_frames
+    if frames is not None:
+        fmod.stub_frames = lambda cfg, batch, device: frames.to(device)
+    try:
+        yield
+    finally:
+        fmod.stub_frames = draw
+
+
 def zoo_card_vs_cpu(arch: str, tag: str, noise=None, n_layers=2) -> float:
     """Phase 11: ``arch`` at full width, ``n_layers`` layers (Zamba2: one
-    stage), fp32: the same weights served on the card and by the port on
-    the CPU give the same greedy tokens and logits within the stated
+    stage; Whisper: as many encoder layers too, over its 1500 frames),
+    fp32: the same weights served on the card and by the port on the
+    CPU give the same greedy tokens and logits within the stated
     tolerance, over 8 windows of 32 tokens, and the card's forward
     launches each of the path's kernels (their fp32 versions). ``noise``
     (leaf name -> scale) adds seeded noise on the card to the leaves the
-    init sets to constants first. Returns the largest |logit
-    difference|."""
+    init sets to constants first. An audio arch reads the card's stub
+    frames on both sides. Returns the largest |logit difference|."""
     import dataclasses
 
     from repro_torch.checkpoint.convert import params_to
@@ -2633,8 +2757,9 @@ def zoo_card_vs_cpu(arch: str, tag: str, noise=None, n_layers=2) -> float:
     from repro_torch.data.tokens import synthetic_token_batch
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serving import ZooForecaster
+    from repro_torch.serving.forecaster import stub_frames
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+    cfg = dataclasses.replace(cut_depth(get_config(arch), n_layers),
                               dtype="float32")
     model = build_model(cfg)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -2645,17 +2770,20 @@ def zoo_card_vs_cpu(arch: str, tag: str, noise=None, n_layers=2) -> float:
                                              device="cuda"))
     cpu_params = params_to(params, "cpu")
     toks = synthetic_token_batch(8, 32, cfg.vocab, seed=3)
+    frames = stub_frames(cfg, len(toks), "cuda") \
+        if cfg.family == "audio" else None
     tok_g, _ = ZooForecaster(cfg=cfg, params=params, device="cuda").predict(
         toks)
-    tok_c, _ = ZooForecaster(cfg=cfg, params=cpu_params,
-                             device="cpu").predict(toks)
+    with stub_frames_as(frames):
+        tok_c, _ = ZooForecaster(cfg=cfg, params=cpu_params,
+                                 device="cpu").predict(toks)
     reset_counters()
     logits_g, aux_g = model.forward(params, torch.as_tensor(
-        toks, dtype=torch.long, device="cuda"))
+        toks, dtype=torch.long, device="cuda"), frames)
     logits_g, aux_g = logits_g.cpu(), aux_g.cpu()
     got = read_counters()
     logits_c, aux_c = model.forward(cpu_params, torch.as_tensor(
-        toks, dtype=torch.long))
+        toks, dtype=torch.long), None if frames is None else frames.cpu())
     err = float((logits_g - logits_c).abs().max())
     check(np.array_equal(tok_g, tok_c),
           f"greedy tokens on the card {tok_g} != on the CPU {tok_c}")
@@ -2845,13 +2973,15 @@ def sdpa_windowed(q, k, v, window: int, starts):
 
 def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
                                                 (4, 2048, 2048, 20, 20, 128))):
-    """Phase 13: flash attention at every shape of a zoo path (causal;
-    a row key with a window goes to ``time_flash_windowed``), held
-    against its plain version there through the wrapper the path runs,
-    in bf16 and on fp32 copies of the same inputs; then its device time
-    (bf16) beside the plain version's, one
-    ``scaled_dot_product_attention`` call's (never called by the port;
-    ``enable_gqa`` where Hkv < Hq) and its bound. Returns rows by key and the largest |kernel -
+    """Phase 13: flash attention at every row key of a zoo path, under
+    the mask the key names (causal, or none for a ``NON_CAUSAL`` key; a
+    key with a window shorter than its keys goes to
+    ``time_flash_windowed``), held against its plain version there
+    through the wrapper the path runs, in bf16 and on fp32 copies of the
+    same inputs; then its device time (bf16) beside the plain
+    version's, one ``scaled_dot_product_attention`` call's under the
+    same mask (never called by the port; ``enable_gqa`` where Hkv < Hq)
+    and its bound. Returns rows by key and the largest |kernel -
     plain|."""
     import torch.nn.functional as F
 
@@ -2860,16 +2990,16 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
     from repro_torch.kernels.attention.ref import attention_ref
 
     rows, worst = {}, 0.0
-    for shape in sorted(set(launches) | set(shapes)):
-        if len(shape) > 6 and shape[6] < shape[2]:
-            rows[shape], err = time_flash_windowed(
-                shape, launches.get(shape, 0), tag)
+    for key in sorted(set(launches) | set(shapes), key=str):
+        shape, w, causal = flash_row(key)
+        if w is not None and w < shape[2]:
+            rows[key], err = time_flash_windowed(
+                key, launches.get(key, 0), tag)
             worst = max(worst, err)
             continue
         # a window that reaches every key (Mixtral's 4096 at a shorter
         # prompt) is causal attention: timed so, launched with it
-        B, Sq, Skv, Hq, Hkv, D = shape[:6]
-        w = shape[6] if len(shape) > 6 else None
+        B, Sq, Skv, Hq, Hkv, D = shape
         q, k, v = attn_inputs(B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
                               seed=B * 7 + Sq)
         errs = {}
@@ -2877,12 +3007,13 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
                                 FLASH_BF16_ATOL),
                                (torch.float32, FLASH_RTOL, FLASH_ATOL)):
             a, b, c = (t.to(dt) for t in (q, k, v))
-            got = flash_attention(a, b, c, causal=True, window=w).float()
-            want = attention_ref(a, b, c, causal=True, window=w).float()
+            got = flash_attention(a, b, c, causal=causal, window=w).float()
+            want = attention_ref(a, b, c, causal=causal,
+                                 window=w).float()
             errs[dt] = float((got - want).abs().max())
             check(torch.allclose(got, want, rtol=rtol, atol=atol),
                   f"flash attention disagrees with its plain version at the "
-                  f"path's shape {shape} in {dt}: max err {errs[dt]} (rtol "
+                  f"path's {key} in {dt}: max err {errs[dt]} (rtol "
                   f"{rtol}, atol {atol})")
             if dt == torch.bfloat16:
                 want_bf16 = want
@@ -2891,28 +3022,29 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
         worst = max(worst, err)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         gqa = Hq != Hkv
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              enable_gqa=gqa)
         lib_err = float((lib.transpose(1, 2).float() - want_bf16).abs().max())
         check(lib_err <= LIBRARY_BF16_TOL,
               f"scaled_dot_product_attention is not the same function at "
-              f"{shape}: max err {lib_err}")
+              f"{key}: max err {lib_err}")
         del lib, want_bf16
         big = Sq >= 1024
         inner, reps = (3, 5) if big else (50, 21)
-        bnd, by = flash_bound(*shape)
-        rows[shape] = {
+        bnd, by = flash_bound(*shape, w, causal)
+        rows[key] = {
             "ms": graph_ms(lambda: attn_kernel.flash_attention_cuda(
-                q, k, v, True, w, 0, Skv), inner, reps),
-            "plain_ms": graph_ms(lambda: attention_ref(q, k, v, causal=True,
-                                                       window=w),
-                                 inner, reps),
+                q, k, v, causal, w, 0, Skv), inner, reps),
+            "plain_ms": graph_ms(lambda: attention_ref(
+                q, k, v, causal=causal, window=w), inner, reps),
             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=gqa), inner, reps),
+                qt, kt, vt, is_causal=causal, enable_gqa=gqa), inner,
+                reps),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
-        r = rows[shape]
-        tflops = flash_ops(*shape) / (r["ms"] * 1e-3) / 1e12
-        print(f"[time] {tag}: flash_attention {shape[:6]} bf16 causal"
+        r = rows[key]
+        tflops = flash_ops(*shape, w, causal) / (r["ms"] * 1e-3) / 1e12
+        print(f"[time] {tag}: flash_attention {shape} bf16 "
+              f"{'causal' if causal else 'non-causal'}"
               f"{f' (window {w}, every key)' if w else ''}: kernel "
               f"{r['ms'] * 1e3:.2f} us = {tflops:.1f} TFLOP/s (the bound's "
               f"operations over its time), plain "
@@ -2924,7 +3056,7 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
               f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}), fp32 "
               f"{errs[torch.float32]:.3e} (rtol {FLASH_RTOL}, atol "
               f"{FLASH_ATOL}); |sdpa - plain| bf16 {lib_err:.3e}; "
-              f"{launches.get(shape, 0)} "
+              f"{launches.get(key, 0)} "
               f"launches on the main path")
     return rows, worst
 
@@ -3475,17 +3607,20 @@ def decode_steps(cfg, model, params, toks, prompt: int, cache, on_step=None):
 def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                bound: float, keep: bool = False,
                fp32_reference: bool = False, fp32_forward=None,
-               against_forward: bool = True, routes=None) -> dict:
+               against_forward: bool = True, routes=None,
+               frames=None) -> dict:
     """One run of the decode path on the card, under ``torch.no_grad``:
-    ``prefill`` of toks[:, :prompt] (launch counts zeroed just before
-    and read just after: the path's kernels, ``path_kernels`` each,
-    with the window the prompt's length asks for, nothing else and no
-    plain version on a card tensor), the cache moved into
-    ``init_cache`` at the whole length (``grow_main``), then one
+    ``prefill`` of toks[:, :prompt] (and ``frames``, an audio arch's;
+    launch counts zeroed just before and read just after: the path's
+    kernels, ``path_kernels`` each, with the window the prompt's length
+    asks for and ``non_causal_launches`` without the causal mask,
+    nothing else and no plain version on a card tensor), the cache moved
+    into ``init_cache`` at the whole length (``grow_main``), then one
     ``decode_step`` a token with ``flush_recent`` every
-    ``decode_buffer`` tokens (counts zeroed again: a step launches no
-    kernel of the port; the card's sync-debug mode counts the host
-    syncs). Then ``lm_forward`` over all the tokens: the prefill's
+    ``decode_buffer`` tokens (counts zeroed again: a step launches
+    ``step_kernels``, no kernel of the port but Whisper's
+    cross-attention, a flash launch a layer; the card's sync-debug mode
+    counts the host syncs). Then ``lm_forward`` over all the tokens: the prefill's
     logits and each step's within ``bound`` of its rows (max |got -
     want| / max |want|). Times: the prefill on the host's clock after a
     sync, each step between CUDA events (median after DECODE_WARMUP
@@ -3523,7 +3658,7 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                 flash_windows() as windows:
             route_phase(routes, "prefill")
             t0 = time.perf_counter()
-            first, cache = model.prefill(params, toks[:, :prompt])
+            first, cache = model.prefill(params, toks[:, :prompt], frames)
             torch.cuda.synchronize()
             out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         pre = read_counters()
@@ -3533,15 +3668,14 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
             check(sum(v.values()) == per_prefill.get(k, 0),
                   f"{label}: the prefill made {v} {k} launches, "
                   f"{per_prefill.get(k, 0)} expected")
-        check(all(w == expected_window(cfg, prompt) for _, w in windows),
-              f"{label}: flash windows {windows} at {prompt} tokens")
+        check(all(w == expected_window(cfg, prompt) for _, w, _ in windows)
+              and sum(not c for *_, c in windows)
+              == non_causal_launches(cfg),
+              f"{label}: flash windows and masks {windows} at {prompt} "
+              f"tokens")
         out["prefill_launches"] = pre
         if "flash_attention" in per_prefill:
-            out["prefill_launches"]["flash_attention"] = {}
-            for shape, w in windows:
-                key = flash_key(shape, w)
-                d = out["prefill_launches"]["flash_attention"]
-                d[key] = d.get(key, 0) + 1
+            out["prefill_launches"]["flash_attention"] = flash_keys(windows)
         cache = grow_main(cache, model.init_cache(B, total))
         torch.cuda.synchronize()
         # the first switch of the sync-debug mode in a process reports a
@@ -3584,8 +3718,12 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                                f"in decode: {plain_calls}")
         check(syncs <= steps, f"{label}: {syncs} host syncs in {steps} "
                               f"decode steps, more than one a step: {where}")
-        check(all(not v for v in dec.values()),
-              f"{label}: decode launched kernels of the port: {dec}")
+        per_step = step_kernels(cfg)
+        check(all(sum(v.values()) == per_step.get(k, 0) * steps
+                  for k, v in dec.items()),
+              f"{label}: decode launched {dec}, {per_step} a step "
+              f"expected")
+        out["decode_launches"] = {k: dec[k] for k in per_step}
         check(int(cache["len"]) == total,
               f"{label}: the cache's len {int(cache['len'])} != {total}")
         if "flushed" in cache:
@@ -3623,7 +3761,7 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
                   f"the forward's groups do)")
             return out
         route_phase(routes, "forward")
-        want = model.forward(params, toks)[0]
+        want = model.forward(params, toks, frames)[0]
         route_phase(routes, None)
         want = want[:, prompt - 1:].transpose(0, 1)
         # rows [steps + 1, B]: the prefill's last logits, then each step
@@ -3639,7 +3777,7 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
             if fp32_forward is None:
                 cfg32 = dataclasses.replace(cfg, dtype="float32")
                 want32 = build_model(cfg32).forward(
-                    tree_map(lambda t: t.float(), params), toks)[0]
+                    tree_map(lambda t: t.float(), params), toks, frames)[0]
                 want32 = want32[:, prompt:]
             else:
                 want32 = fp32_forward(params, toks, prompt)
@@ -3702,6 +3840,9 @@ def decode_run(cfg, params, toks, prompt: int, label: str, tag: str,
 
 def decode_line(out, B, prompt, steps, warm, where, switch) -> str:
     """A decode run's times, launches, syncs and memory, as printed."""
+    launched = ", ".join(f"{k} {v}" for k, v in
+                         out["decode_launches"].items() if v) or \
+        "0 kernel launches"
     return (f"prefill {B} x {prompt} tokens {out['prefill_ms']:.1f} ms ("
             + ", ".join(f"{k} {v}" for k, v in
                         out["prefill_launches"].items() if v) + "); "
@@ -3709,7 +3850,7 @@ def decode_line(out, B, prompt, steps, warm, where, switch) -> str:
             f"{out['decode_wall_s']:.2f} s: {out['step_ms']:.3f} ms a step "
             f"(median after {warm}; {out['step_ms_range'][0]:.3f}-"
             f"{out['step_ms_range'][1]:.3f}), {out['tokens_per_s']:.1f} "
-            f"tokens/s; 0 kernel launches in decode; {out['syncs']} host "
+            f"tokens/s; {launched} in decode; {out['syncs']} host "
             f"syncs in {steps} steps{' ' + str(where) if where else ''}"
             f"{'; the mode switch before them ' + str(switch) if switch else ''}"
             f"; peak device memory {out['peak_gib']:.2f} GiB")
@@ -3756,7 +3897,8 @@ def decode_fp32_copy(arch: str, tag: str, overrides=None,
     DECODE_FP32_BOUND (unless not ``against_forward``: an MoE model at a
     capacity factor that drops), and with ``cpu`` against the port on
     the CPU with the same weights (each step's logits, and every leaf
-    of the final cache). ``overrides``: config fields to set (an MoE
+    of the final cache). An audio arch keeps as many encoder layers and
+    reads the same seeded frames on both sides. ``overrides``: config fields to set (an MoE
     model's capacity factor); ``n_layers`` in place of
     DECODE_FP32_LAYERS[arch]. Returns the largest relative difference
     card vs CPU, or the card's against the forward without ``cpu``."""
@@ -3764,14 +3906,14 @@ def decode_fp32_copy(arch: str, tag: str, overrides=None,
 
     from repro_torch.checkpoint.convert import params_to
     from repro_torch.configs import get_config
-    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.data.tokens import (synthetic_embedding_batch,
+                                         synthetic_token_batch)
     from repro_torch.models.model_zoo import build_model
 
     B, prompt, steps, R = DECODE_FP32
     cfg = dataclasses.replace(
-        get_config(arch), dtype="float32",
-        n_layers=n_layers or DECODE_FP32_LAYERS[arch], decode_buffer=R,
-        **(overrides or {}))
+        cut_depth(get_config(arch), n_layers or DECODE_FP32_LAYERS[arch]),
+        dtype="float32", decode_buffer=R, **(overrides or {}))
     model = build_model(cfg)
     g = torch.Generator(device="cuda").manual_seed(2)
     params = model.init(g)
@@ -3782,13 +3924,17 @@ def decode_fp32_copy(arch: str, tag: str, overrides=None,
     toks = torch.as_tensor(synthetic_token_batch(B, prompt + steps,
                                                  cfg.vocab, seed=11),
                            dtype=torch.long)
+    frames = torch.from_numpy(synthetic_embedding_batch(
+        B, cfg.n_frames, cfg.d_model, seed=12)) \
+        if cfg.family == "audio" else None
     label = (f"{arch} fp32 {cfg.n_layers} layers {B} x {prompt} + {steps} "
              f"(decode_buffer {R}"
              + (f", capacity factor {cfg.moe_capacity_factor}"
                 if cfg.n_experts else "") + ")")
     card = decode_run(cfg, params, toks.cuda(), prompt, label, tag,
                       DECODE_FP32_BOUND, keep=True,
-                      against_forward=against_forward)
+                      against_forward=against_forward,
+                      frames=None if frames is None else frames.cuda())
     if not cpu:
         rel = max(card["rel_max"], card["rel_prefill"])
         del card, params
@@ -3796,7 +3942,8 @@ def decode_fp32_copy(arch: str, tag: str, overrides=None,
     logits_g, cache_g = card["kept"]
     cpu_params = params_to(params, "cpu")
     with torch.no_grad():
-        first_c, cache_c = model.prefill(cpu_params, toks[:, :prompt])
+        first_c, cache_c = model.prefill(cpu_params, toks[:, :prompt],
+                                         frames)
         cache_c = grow_main(cache_c, model.init_cache(B, prompt + steps,
                                                       device="cpu"))
         logits_c, cache_c, _ = decode_steps(cfg, model, cpu_params, toks,
@@ -4346,6 +4493,88 @@ def moe_main_path(tag: str) -> dict:
     return {"launches": launches, "rows": rows, "err": worst}
 
 
+# ------------------------------------------------------------ [audio] --
+
+def audio_main_path(tag: str) -> dict:
+    """The [audio] phase: Whisper-medium at full width and depth in bf16
+    (random weights from seed 0), alone on the card (at most 1 GiB
+    allocated when it starts): (a) served through ``ServingEngine`` on
+    the stub frames (``zoo_serve_main_path``: AUDIO_BURSTS, exactly 3 x
+    24 flash launches a flush, 48 of them without a mask, no plain
+    version on the card), each burst's flush profiled (``profile_zoo``);
+    (b) AUDIO_DECODE: 8 prompts of 64 tokens prefilled with 8 x 1500
+    stub frames (72 flash launches) and 288 teacher-forced steps with a
+    flush at 320 tokens, exactly 24 flash launches and 0 host syncs a
+    step, each step held against the forward and against an fp32
+    forward of the same weights; the model freed; (c) the serve CLI
+    with the reduced config; (d) the 2 + 2-layer fp32 copy against the
+    CPU (``zoo_card_vs_cpu``: predict and the forward on the same
+    frames) and its decode (``decode_fp32_copy``); (e) the flash kernel
+    at every (shape, mask) the phase launched (``time_flash``). The
+    memory allocated on the card is back to the baseline after each
+    part that held a model. Returns the flash launches by row key (the
+    decode steps' included), the flash rows and their largest |kernel -
+    plain|."""
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.serving.forecaster import stub_frames
+
+    t0 = time.perf_counter()
+    baseline = settled_memory()
+    check(baseline < 2**30, f"[audio] starts with {baseline / 2**30:.2f} "
+                            f"GiB allocated on the card")
+    fc, launches, init_s = timed(f"{AUDIO_ARCH}: serve", zoo_serve_main_path,
+                                 AUDIO_ARCH, tag, AUDIO_BURSTS)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    timed(f"{AUDIO_ARCH}: profile serving", profile_zoo, fc,
+          {"flash_attention": FLASH_SYMBOL}, tag, (FLASH_FP32_SYMBOL,),
+          AUDIO_BURSTS)
+    cfg, params = fc.cfg, fc.params
+    B, prompt, steps = AUDIO_DECODE
+    toks = torch.as_tensor(synthetic_token_batch(
+        B, prompt + steps, cfg.vocab, seed=prompt), dtype=torch.long,
+        device="cuda")
+    frames = stub_frames(cfg, B, "cuda")
+    label = f"{AUDIO_ARCH} {B} x {prompt} + {steps}"
+    run = timed(f"{AUDIO_ARCH}: decode", decode_run, cfg, params, toks,
+                prompt, label, tag, DECODE_BOUND, False, True, None, True,
+                None, frames)
+    check(run["syncs"] == 0, f"{label}: {run['syncs']} host syncs in "
+                             f"{steps} decode steps")
+    del fc, params, toks, frames
+    release(baseline, f"{AUDIO_ARCH} at full width")
+    timed(f"{AUDIO_ARCH}: serve CLI (reduced)", zoo_cli, AUDIO_ARCH,
+          ("flash_attention",), False)
+    release(baseline, f"the serve CLI with {AUDIO_ARCH}")
+    cpu_err = timed(f"{AUDIO_ARCH}: card vs CPU", zoo_card_vs_cpu,
+                    AUDIO_ARCH, tag, DECODE_NOISE)
+    fp32_err = timed(f"{AUDIO_ARCH}: fp32 decode copy", decode_fp32_copy,
+                     AUDIO_ARCH, tag)
+    release(baseline, f"{AUDIO_ARCH}'s fp32 copies")
+    launches = merge_launches(launches, run["prefill_launches"],
+                              run["decode_launches"])
+    flash = launches["flash_attention"]
+    rows, err = timed(f"{AUDIO_ARCH}: time flash_attention", time_flash,
+                      flash, tag, ())
+    release(baseline, f"{AUDIO_ARCH}'s flash timing")
+    seconds = time.perf_counter() - t0
+    print(f"[audio] {tag}: {AUDIO_ARCH}: {describe(cfg)}; served bursts "
+          f"{AUDIO_BURSTS} with {path_kernels(cfg)['flash_attention']} "
+          f"flash launches a flush ({non_causal_launches(cfg)} without a "
+          f"mask; peak {serve_peak:.2f} GiB), decode batch {B} x {prompt} "
+          f"+ {steps}: prefill {run['prefill_ms']:.1f} ms, "
+          f"{run['step_ms']:.3f} ms a step, {run['tokens_per_s']:.1f} "
+          f"tokens/s, {step_kernels(cfg)['flash_attention']} flash launches "
+          f"and 0 host syncs a step, peak {run['peak_gib']:.2f} GiB, decode "
+          f"vs forward max {run['rel_max']:.3e}, vs fp32 forward: bf16 "
+          f"forward {run['fp32_reference'][0]:.3e}, decode "
+          f"{run['fp32_reference'][1]:.3e}; 2 + 2-layer fp32 copy vs CPU "
+          f"{cpu_err:.3e}, its decode {fp32_err:.3e}; flash at "
+          f"{sorted(flash, key=str)}: max |kernel - plain| {err:.3e}; "
+          f"memory back to {baseline / 2**30:.3f} GiB after each part; "
+          f"init {init_s:.2f} s; {seconds:.2f} s")
+    return {"launches": launches, "rows": rows, "err": err}
+
+
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
     each shape on the main paths. ``library_ms`` is weighted over the
@@ -4377,7 +4606,8 @@ def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
         if all(key in rows[s] for s in launches):
             entry[key] = weighted(key)
     entry["shapes"] = {"x".join(map(str, s[:6])) + "".join(
-        f" window {w}" for w in s[6:]): k for s, k in launches.items()}
+        f" window {w}" if isinstance(w, int) else f" {w}" for w in s[6:]): k
+        for s, k in launches.items()}
     return entry
 
 
@@ -4413,7 +4643,8 @@ def main() -> None:
               "--evl-ablation": lambda: evl_ablation(card),
               "--decode": lambda: (build_kernels(), decode_main_path(tag)),
               "--dense": lambda: (build_kernels(), dense_main_path(tag)),
-              "--moe": lambda: (build_kernels(), moe_main_path(tag))}
+              "--moe": lambda: (build_kernels(), moe_main_path(tag)),
+              "--audio": lambda: (build_kernels(), audio_main_path(tag))}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -4531,6 +4762,10 @@ def main() -> None:
     rows["flash_attention"].update(moe["rows"])
     errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
     every = merge_launches(every, moe["launches"])
+    audio = timed("audio family (serve, decode)", audio_main_path, tag)
+    rows["flash_attention"].update(audio["rows"])
+    errs["flash_attention"] = max(errs["flash_attention"], audio["err"])
+    every = merge_launches(every, audio["launches"])
     rows["ssd_chunk"], every["ssd_chunk"], errs["ssd_chunk"] = \
         decode["ssd_chunk"]
     csrc = "src/repro_torch/kernels/{}/csrc/{}"

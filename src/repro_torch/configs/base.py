@@ -4,12 +4,13 @@ model construction and the roofline math.
 A copy of ``repro.configs.base`` (plain Python, no jax): ``--model
 <id>`` resolves through the registry (``get_config``); each
 architecture lives in its own module citing its source. The port
-registers an architecture once its family runs here (so far the dense
-``qwen1.5-4b``, ``nemotron-4-15b``, ``granite-20b`` and ``qwen2.5-32b``,
-the VLM ``chameleon-34b``, the MoE ``mixtral-8x7b`` and
-``qwen3-moe-235b-a22b``, the SSM ``mamba2-370m`` and the hybrid
-``zamba2-2.7b``); the mesh-sharding and dry-run fields are kept so that
-a config means the same on both sides.
+registers an architecture once its family runs here (all of the JAX
+package's: the dense ``qwen1.5-4b``, ``nemotron-4-15b``, ``granite-20b``
+and ``qwen2.5-32b``, the VLM ``chameleon-34b``, the MoE
+``mixtral-8x7b`` and ``qwen3-moe-235b-a22b``, the SSM ``mamba2-370m``,
+the hybrid ``zamba2-2.7b`` and the audio ``whisper-medium``); the
+mesh-sharding and dry-run fields are kept so that a config means the
+same on both sides.
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ LSTM and EVL kernels are: pointers, the (batch, seq, head) strides of
 q, k, v and the output, and the current stream go in; the C function
 returns ``cudaGetLastError()``, raised here if it is not 0, or one of
 ``TMA_REFUSED``'s codes, raised as a ``ValueError``.
-``FLASH_LAUNCHES`` counts the launches by (B, Sq, Skv, Hq, Hkv, D).
+``FLASH_LAUNCHES`` counts the launches by ``launch_key``: (B, Sq, Skv,
+Hq, Hkv, D) for a causal launch, with ``NON_CAUSAL`` appended for one
+without the causal mask (the encoder's and cross-attention's).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ HEAD_DIMS = (32, 64, 80, 128)
 TMA_REFUSED = {-1: "q", -2: "k", -3: "v"}
 
 FLASH_LAUNCHES = LaunchCounter()
+# the mask's mark in a launch key
+NON_CAUSAL = "non-causal"
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -47,6 +51,12 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_float, _P])
         fn.restype = _I
     return lib
+
+
+def launch_key(B, Sq, Skv, Hq, Hkv, D, causal: bool = True) -> tuple:
+    """A launch's key in ``FLASH_LAUNCHES``: its shape, and the mark
+    ``NON_CAUSAL`` when it runs without the causal mask."""
+    return (B, Sq, Skv, Hq, Hkv, D) + (() if causal else (NON_CAUSAL,))
 
 
 def raise_for(rc: int, q, k, v) -> None:
@@ -89,5 +99,5 @@ def flash_attention_cuda(q, k, v, causal: bool, window, q_offset: int,
         0 if window is None else int(window), int(q_offset), int(kv_valid),
         D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     raise_for(rc, q, k, v)
-    FLASH_LAUNCHES.add((B, Sq, Skv, Hq, Hkv, D))
+    FLASH_LAUNCHES.add(launch_key(B, Sq, Skv, Hq, Hkv, D, causal))
     return out

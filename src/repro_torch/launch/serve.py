@@ -54,6 +54,15 @@ traffic trace against it.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --model qwen3-moe-235b-a22b --device cpu --requests 32 --max-batch 8
 
+    # Whisper-medium, the audio encoder-decoder, at full width on the card
+    # (bf16, 24 + 24 layers over 1500 stub frames: the encoder, the
+    # decoder's self-attention and its cross-attention each through the
+    # flash kernel); on the CPU, reduced (2 + 2 layers, 16 frames):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --model whisper-medium --no-reduced --requests 16 --max-batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --model whisper-medium --device cpu --requests 32 --max-batch 8
+
 Single process only; the sharded mesh, process workers, ensembles and
 the durable state directory of ``repro.launch.serve`` wait for later
 slices of the port.
@@ -99,7 +108,7 @@ def main(argv: list[str] | None = None) -> dict:
                     "the port runs (dense qwen1.5-4b, nemotron-4-15b, "
                     "granite-20b, qwen2.5-32b; VLM chameleon-34b; MoE "
                     "mixtral-8x7b, qwen3-moe-235b-a22b; SSM mamba2-370m; "
-                    "hybrid zamba2-2.7b)")
+                    "hybrid zamba2-2.7b; audio whisper-medium)")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="host a trained serving checkpoint (the output "
                     "of `-m repro_torch.launch.train --save`) under the "

@@ -2,10 +2,12 @@
 architectures (``repro.models.model_zoo``).
 
 ``init``, ``forward``, ``prefill``, ``decode_step`` and ``init_cache``
-run for the dense, vlm, moe, ssm and hybrid families (Qwen1.5-4B,
-Nemotron-4-15B, Granite-20B, Qwen2.5-32B; Chameleon-34B; Mixtral-8x7B,
-Qwen3-MoE-235B-A22B; Mamba2-370M; Zamba2-2.7B); ``forward`` returns the
-MoE load-balance loss beside the logits (0 for the other families);
+run for every family: dense, vlm, moe, ssm, hybrid and audio
+(Qwen1.5-4B, Nemotron-4-15B, Granite-20B, Qwen2.5-32B; Chameleon-34B;
+Mixtral-8x7B, Qwen3-MoE-235B-A22B; Mamba2-370M; Zamba2-2.7B;
+Whisper-medium, whose ``forward`` and ``prefill`` take ``frames``);
+``forward`` returns the MoE load-balance loss beside the logits (0 for
+the other families);
 ``loss`` waits for zoo training and raises until its
 slice (ROADMAP "Next"). ``transformer.flush_recent`` folds a full-mode
 cache's recent slots into main.

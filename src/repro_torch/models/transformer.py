@@ -3,10 +3,11 @@
 decoder, whose image tokens are ids of the one vocabulary: it runs the
 dense path throughout, as in the JAX package; and of the ``moe``
 family, the same decoder with a Mixture-of-Experts layer, ``moe_apply``,
-in place of each MLP), the Mamba2 stack of the ``ssm`` family and the
+in place of each MLP), the Mamba2 stack of the ``ssm`` family, the
 Zamba2 stack of the ``hybrid`` family (Mamba2 layers with one shared
-attention + MLP block after every ``attn_every`` of them), their init,
-their forward and their decode path.
+attention + MLP block after every ``attn_every`` of them) and the
+Whisper encoder-decoder of the ``audio`` family, their init, their
+forward and their decode path.
 
     params = init_lm(cfg, generator)                 # leaves on its device
     logits, aux = lm_forward(cfg, params, tokens)    # serve (predict)
@@ -14,6 +15,21 @@ their forward and their decode path.
     logits, cache = lm_prefill(cfg, params, tokens)  # prefill
     logits, cache = lm_decode_step(cfg, params, token, cache)  # decode
     cache = flush_recent(cfg, cache)                 # every decode_buffer
+
+The audio family takes ``frames`` [B, n_frames, d_model] beside the
+tokens in ``lm_forward`` and ``lm_prefill`` (the stubbed frontend's
+output, as in the JAX package). Its encoder attends over the frames
+with no mask and with the learned ``enc_pos`` table, no RoPE; its
+decoder layers run causal self-attention with RoPE (the JAX package's
+deviation from Whisper's learned decoder positions, kept), then
+cross-attention over the encoder output's per-layer k and v, then the
+MLP. So a forward or a prefill makes 3 flash launches a decoder layer
+pair: the encoder's, the decoder's causal one and the cross one. The
+decode cache keeps each layer's cross k and v (``xk``, ``xv``) beside
+the self-attention buffers, and a decode step attends over them with
+``blocked_attention`` at one query, as the JAX package does: on the
+card that is one flash launch a layer a step, where the other
+families' steps launch no kernel.
 
 Layers are stacked on a leading [L, ...] dim, as in the JAX package, so
 its params map onto these one to one (``checkpoint.convert``); the
@@ -36,8 +52,8 @@ forward drops a pair a decode step may keep it, and the other way
 round. At a capacity factor of ``n_experts / top_k`` (the reduced
 configs') no pair is ever dropped and they agree.
 
-Every other family raises ``NotImplementedError`` naming the ROADMAP
-item that ports it, as does the loss.
+The loss raises ``NotImplementedError`` naming the ROADMAP item that
+ports it (``model_zoo``).
 """
 
 from __future__ import annotations
@@ -59,11 +75,9 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-# the ROADMAP "Next" item that ports each family the port lacks
-_LATER = {"audio": "audio"}
-# the families the port runs (``vlm`` and ``moe`` through the dense
-# decoder)
-_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid")
+# the families the port runs: every family of the JAX package (``vlm``
+# and ``moe`` through the dense decoder)
+_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -72,10 +86,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    family = "moe" if cfg.n_experts else cfg.family
-    if family not in _PORTED:
-        raise not_ported(f"the {family!r} family ({cfg.name})",
-                         _LATER.get(family, family))
+    if cfg.family not in _PORTED:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"zoo has {_PORTED}")
 
 
 def _dtype(cfg: ArchConfig):
@@ -143,7 +156,10 @@ def _init_ssm_block(g, cfg: ArchConfig, dt):
     }
 
 
-def _init_decoder_layer(g, cfg: ArchConfig, dt):
+def _init_decoder_layer(g, cfg: ArchConfig, dt, cross: bool = False):
+    """A decoder layer; with ``cross`` (the audio decoder) also the
+    cross-attention's norm and projections, drawn after the MLP, as in
+    the JAX package."""
     dev = init_device(g)
     p = {"norm1": norm_param(cfg.norm, cfg.d_model, dt, dev),
          "attn": _init_attn(g, cfg, dt),
@@ -152,6 +168,9 @@ def _init_decoder_layer(g, cfg: ArchConfig, dt):
         p["moe"] = _init_moe(g, cfg, dt)
     else:
         p["mlp"] = _init_mlp(g, cfg, dt)
+    if cross:
+        p["norm_x"] = norm_param(cfg.norm, cfg.d_model, dt, dev)
+        p["xattn"] = _init_attn(g, cfg, dt)
     return p
 
 
@@ -170,9 +189,11 @@ def _stack(fn, n: int):
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator | None) -> PyTree:
-    """Random params of a dense or MoE decoder LM, a Mamba2 stack or a
+    """Random params of a dense or MoE decoder LM, a Mamba2 stack, a
     Zamba2 stack (the Mamba2 layers, and one ``shared`` attention + MLP
-    block), in the config's dtype (``dt_bias``, ``A_log`` and the MoE
+    block) or the Whisper encoder-decoder (``enc_pos`` [n_frames, d],
+    the ``enc_layers`` stack, and decoder ``layers`` with cross blocks),
+    in the config's dtype (``dt_bias``, ``A_log`` and the MoE
     ``router`` in float32, as in the JAX package), drawn from
     ``generator`` on its own device (a CUDA generator draws on the card,
     each leaf in fp32 and cast, one layer at a time). With no generator
@@ -187,7 +208,8 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator | None) -> PyTree:
         if cfg.family in ("ssm", "hybrid"):
             return {"norm1": norm_param(cfg.norm, d, dt, dev),
                     "ssm": _init_ssm_block(generator, cfg, dt)}
-        return _init_decoder_layer(generator, cfg, dt)
+        return _init_decoder_layer(generator, cfg, dt,
+                                   cross=cfg.family == "audio")
 
     params = {
         "embed": embed_init(generator, (V, d), dt, dev),
@@ -195,6 +217,11 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator | None) -> PyTree:
         "lm_head": dense_init(generator, (d, V), dt, dev),
         "layers": _stack(layer, cfg.n_layers),
     }
+    if cfg.family == "audio":
+        params["enc_pos"] = embed_init(generator, (cfg.n_frames, d), dt, dev)
+        params["enc_layers"] = _stack(
+            lambda: _init_decoder_layer(generator, cfg, dt),
+            cfg.encoder_layers)
     if cfg.family == "hybrid":
         # one SHARED attention + MLP block (tied weights, run per stage)
         params["shared"] = _init_decoder_layer(generator, cfg, dt)
@@ -219,19 +246,50 @@ def _project_qkv(cfg: ArchConfig, p, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if positions is not None:   # None: learned positions, added upstream
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _attn_block(cfg: ArchConfig, p, x, positions, *, window=None,
-                return_kv=False):
+def _attn_block(cfg: ArchConfig, p, x, positions, *, causal=True,
+                window=None, return_kv=False):
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = blocked_attention(q, k, v, causal=True, window=window)
+    out = blocked_attention(q, k, v, causal=causal, window=window)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
     if return_kv:
         return out, (k, v)      # k after RoPE, as the cache keeps it
     return out
+
+
+def _cross_attn_block(cfg: ArchConfig, p, x, kv):
+    """Cross-attention: q from x [B, S, d], (k, v) [B, F, Hkv, hd] the
+    encoder output's, every query over every frame (no mask)."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    k, v = kv
+    out = blocked_attention(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def _encode_cross_kv(cfg: ArchConfig, p, enc_out):
+    """A decoder layer's cross k, v [B, F, Hkv, hd] of the encoder
+    output [B, F, d]."""
+    B, F, _ = enc_out.shape
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(B, F, -1, cfg.head_dim)
+    v = v.reshape(B, F, -1, cfg.head_dim)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    return k, v
 
 
 def _ffn(cfg: ArchConfig, lp, h):
@@ -245,9 +303,13 @@ def _ffn(cfg: ArchConfig, lp, h):
     return mlp_apply(lp["mlp"], h, cfg.activation, cfg.gated_mlp), 0.0
 
 
-def _decoder_block(cfg: ArchConfig, lp, x, positions, window):
+def _decoder_block(cfg: ArchConfig, lp, x, positions, window,
+                   cross_kv=None):
     h = apply_norm(x, lp["norm1"], cfg.norm)
     x = x + _attn_block(cfg, lp["attn"], h, positions, window=window)
+    if cross_kv is not None:
+        h = apply_norm(x, lp["norm_x"], cfg.norm)
+        x = x + _cross_attn_block(cfg, lp["xattn"], h, cross_kv)
     h = apply_norm(x, lp["norm2"], cfg.norm)
     out, aux = _ffn(cfg, lp, h)
     return x + out, aux
@@ -273,6 +335,25 @@ def _embed(cfg: ArchConfig, params, tokens):
     return params["embed"][tokens]
 
 
+def _run_encoder(cfg: ArchConfig, params, frames):
+    """frames [B, F, d] (the stubbed frontend's output, F <= n_frames),
+    cast to the config's dtype, plus the learned positions, through the
+    encoder stack: bidirectional attention (no mask, no RoPE), then the
+    MLP. Returns [B, F, d]."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: an audio arch needs frame "
+                         f"embeddings [B, {cfg.n_frames}, {cfg.d_model}]")
+    x = frames.to(_dtype(cfg)) + params["enc_pos"][None, :frames.shape[1]]
+    layers = params["enc_layers"]
+    for i in range(tree_leaves(layers)[0].shape[0]):
+        lp = tree_map(lambda t: t[i], layers)
+        h = apply_norm(x, lp["norm1"], cfg.norm)
+        x = x + _attn_block(cfg, lp["attn"], h, None, causal=False)
+        h = apply_norm(x, lp["norm2"], cfg.norm)
+        x = x + _ffn(cfg, lp, h)[0]
+    return x
+
+
 def _check_stages(cfg: ArchConfig, n_layers: int) -> None:
     """The hybrid runs stages of ``attn_every`` Mamba2 layers, each
     followed by the shared block. The JAX package reshapes the layer
@@ -284,10 +365,13 @@ def _check_stages(cfg: ArchConfig, n_layers: int) -> None:
 
 
 def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
-    """Forward of a dense or MoE decoder LM, a Mamba2 stack or a Zamba2
-    stack over every position. The hybrid runs ``n_layers //
-    attn_every`` stages, each ``attn_every`` Mamba2 layers and then the
-    one shared attention + MLP block, whose tensors every stage reads.
+    """Forward of a dense or MoE decoder LM, a Mamba2 stack, a Zamba2
+    stack or the Whisper encoder-decoder over every position. The hybrid
+    runs ``n_layers // attn_every`` stages, each ``attn_every`` Mamba2
+    layers and then the one shared attention + MLP block, whose tensors
+    every stage reads. The audio family runs the encoder over
+    ``frames`` [B, F, d] (required: a ``ValueError`` without them), then
+    each decoder layer with cross-attention over the encoder output.
 
     tokens: integer [B, S] on the params' device. Returns (logits
     [B, S, padded_vocab] in the config's dtype, aux_loss: a float32
@@ -305,9 +389,14 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     window = _effective_window(cfg, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out = _run_encoder(cfg, params, frames) \
+        if cfg.family == "audio" else None
     for i in range(n_layers):
         lp = tree_map(lambda t: t[i], layers)
-        if cfg.family in ("ssm", "hybrid"):
+        if enc_out is not None:
+            kv = _encode_cross_kv(cfg, lp["xattn"], enc_out)
+            x, _ = _decoder_block(cfg, lp, x, positions, window, kv)
+        elif cfg.family in ("ssm", "hybrid"):
             x = _ssm_block(cfg, lp, x)
             if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
                 x, _ = _decoder_block(cfg, params["shared"], x, positions,
@@ -366,7 +455,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
     main cache of max_len slots, read-only inside a decode step, beside
     ``decode_buffer`` recent slots that the step writes and
     ``flush_recent`` folds into main. SSM: each layer's last K - 1 conv
-    inputs and its float32 state."""
+    inputs and its float32 state. Audio: each decoder layer's cross k
+    and v of the encoder output, ``xk``, ``xv`` [L, batch, n_frames,
+    Hkv, hd], beside its attention buffers."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
@@ -392,6 +483,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
             cache["kr"] = zeros(n, batch, R, Hkv, hd)
             cache["vr"] = zeros(n, batch, R, Hkv, hd)
             cache["flushed"] = _counter(0, dev)
+    if cfg.family == "audio":
+        cache["xk"] = zeros(cfg.n_layers, batch, cfg.n_frames, Hkv, hd)
+        cache["xv"] = zeros(cfg.n_layers, batch, cfg.n_frames, Hkv, hd)
     return cache
 
 
@@ -436,9 +530,15 @@ def _decode_ssm_block(cfg: ArchConfig, lp, x, conv_state, ssm_state):
     return x + y[:, None], conv_state, ssm_state
 
 
-def _decode_decoder_block(cfg: ArchConfig, lp, x, bufs, pos, flushed):
+def _decode_decoder_block(cfg: ArchConfig, lp, x, bufs, pos, flushed,
+                          cross_kv=None):
+    """One decoder layer at one token; ``cross_kv`` (audio): the layer's
+    cached cross k, v, attended by ``blocked_attention`` at one query."""
     h = apply_norm(x, lp["norm1"], cfg.norm)
     x = x + _decode_attn(cfg, lp["attn"], h, bufs, pos, flushed)
+    if cross_kv is not None:
+        h = apply_norm(x, lp["norm_x"], cfg.norm)
+        x = x + _cross_attn_block(cfg, lp["xattn"], h, cross_kv)
     h = apply_norm(x, lp["norm2"], cfg.norm)
     out, _ = _ffn(cfg, lp, h)
     return x + out
@@ -452,7 +552,9 @@ def lm_decode_step(cfg: ArchConfig, params: PyTree, token, cache: PyTree):
     only the recent buffer, main is read (and written by
     ``flush_recent``). The SSM layers write their conv and state. All
     in place; the counters ``len`` and ``flushed`` stay on the device,
-    so a step makes no host sync."""
+    so a step makes no host sync. The audio decoder also attends each
+    layer's cached ``xk``, ``xv`` (read only): one flash launch a layer
+    on the card."""
     _require_ported(cfg)
     pos = cache["len"]
     full = "kr" in cache
@@ -480,7 +582,10 @@ def lm_decode_step(cfg: ArchConfig, params: PyTree, token, cache: PyTree):
                                           bufs(stage), pos, flushed)
                 stage += 1
         else:
-            x = _decode_decoder_block(cfg, lp, x, bufs(i), pos, flushed)
+            cross = (cache["xk"][i], cache["xv"][i]) \
+                if cfg.family == "audio" else None
+            x = _decode_decoder_block(cfg, lp, x, bufs(i), pos, flushed,
+                                      cross)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     logits = (x @ params["lm_head"])[:, 0]
     new_cache = dict(cache)
@@ -577,8 +682,9 @@ def lm_prefill(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     """Prefill: the forward over the prompt, building the decode cache
     (sized to the prompt: the ring of the window the prompt's length
     takes, or a main cache of S slots; to decode past it in full mode,
-    copy main into a longer ``init_cache``'s first). Returns
-    (last-token logits [B, V], cache)."""
+    copy main into a longer ``init_cache``'s first). The audio family
+    runs the encoder over ``frames`` and keeps each layer's cross k, v
+    in the cache. Returns (last-token logits [B, V], cache)."""
     _require_ported(cfg)
     B, S = tokens.shape
     layers = params["layers"]
@@ -591,7 +697,9 @@ def lm_prefill(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     cache: dict = {"len": _counter(S, x.device)}
     kv = _PrefillKV(cfg, n_layers // cfg.attn_every
                     if cfg.family == "hybrid" else n_layers, S)
-    convs, states = [], []
+    convs, states, cross = [], [], []
+    enc_out = _run_encoder(cfg, params, frames) \
+        if cfg.family == "audio" else None
 
     def attn_layer(lp, x):
         h = apply_norm(x, lp["norm1"], cfg.norm)
@@ -599,6 +707,10 @@ def lm_prefill(cfg: ArchConfig, params: PyTree, tokens, frames=None):
                                 window=window, return_kv=True)
         kv.add(k, v)
         x = x + a
+        if enc_out is not None:
+            cross.append(_encode_cross_kv(cfg, lp["xattn"], enc_out))
+            h = apply_norm(x, lp["norm_x"], cfg.norm)
+            x = x + _cross_attn_block(cfg, lp["xattn"], h, cross[-1])
         h = apply_norm(x, lp["norm2"], cfg.norm)
         out, _ = _ffn(cfg, lp, h)
         return x + out
@@ -620,6 +732,9 @@ def lm_prefill(cfg: ArchConfig, params: PyTree, tokens, frames=None):
         cache["ssm"] = torch.stack(states)
     if cfg.family != "ssm":
         cache.update(kv.cache())
+    if cross:
+        cache["xk"] = torch.stack([k for k, _ in cross])
+        cache["xv"] = torch.stack([v for _, v in cross])
     x = apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
     logits = (x @ params["lm_head"])[:, 0]
     return logits, cache

@@ -3,16 +3,19 @@ lengths) -> (forecast, extreme_probability)``.
 
 ``LSTMForecaster`` serves the paper LSTM, with O(1) streaming by
 explicit carries and device-resident decode slots besides.
-``ZooForecaster`` serves a zoo arch (so far the dense, vlm, moe, ssm
-and hybrid families: Qwen1.5-4B, Nemotron-4-15B, Granite-20B,
-Qwen2.5-32B, Chameleon-34B, Mixtral-8x7B, Qwen3-MoE-235B-A22B,
-Mamba2-370M, Zamba2-2.7B) as next-token
-prediction over right-padded token windows: the forecast is the greedy
-next token and the extreme probability the EVT-calibrated surprisal of
-it. On the card every attention (a dense layer's, or Zamba2's shared
-block after each stage) runs through the hand-written CUDA
-flash-attention kernel, and every Mamba2 layer's scan through the
-hand-written CUDA SSD kernel.
+``ZooForecaster`` serves a zoo arch (every family: the dense, vlm,
+moe, ssm, hybrid and audio ones: Qwen1.5-4B, Nemotron-4-15B,
+Granite-20B, Qwen2.5-32B, Chameleon-34B, Mixtral-8x7B,
+Qwen3-MoE-235B-A22B, Mamba2-370M, Zamba2-2.7B, Whisper-medium) as
+next-token prediction over right-padded token windows: the forecast is
+the greedy next token and the extreme probability the EVT-calibrated
+surprisal of it. Whisper's audio frontend is a stub: its encoder reads
+``stub_frames``, random frame embeddings drawn on the device from a
+generator seeded 0. On the card every attention (a dense layer's,
+Zamba2's shared block after each stage, Whisper's encoder, decoder and
+cross-attention) runs through the hand-written CUDA flash-attention
+kernel, and every Mamba2 layer's scan through the hand-written CUDA SSD
+kernel.
 
 For the LSTM, the forecast is the next-step normalized close; the
 extreme probability fuses the EVL sigmoid head with the EVT tail
@@ -426,6 +429,19 @@ def build_lstm_forecaster(seed: int = 0, cfg: RNNConfig | None = None,
     return fc
 
 
+def stub_frames(cfg, batch: int, device) -> torch.Tensor:
+    """The stubbed audio frontend's output a served audio forward reads:
+    float32 [batch, n_frames, d_model] standard normals from a
+    ``torch.Generator`` seeded 0 on ``device``, drawn there (no host
+    copy). The JAX package draws ``jax.random.normal(PRNGKey(0), ...)``,
+    whose bits torch cannot give, so the two packages serve Whisper on
+    different frames; a parity test hands this function the JAX
+    package's frames."""
+    g = torch.Generator(device=device).manual_seed(0)
+    return torch.randn((batch, cfg.n_frames, cfg.d_model), generator=g,
+                       device=device)
+
+
 @dataclasses.dataclass
 class ZooForecaster:
     """A zoo arch behind the serving interface
@@ -470,7 +486,9 @@ class ZooForecaster:
         lens = np.full((B,), T, np.int64) if lengths is None \
             else np.asarray(lengths, np.int64)
         last_pos = torch.as_tensor(lens - 1, device=self.device)
-        logits, _ = self._model.forward(self.params, tokens)
+        frames = stub_frames(self.cfg, B, self.device) \
+            if self.cfg.family == "audio" else None
+        logits, _ = self._model.forward(self.params, tokens, frames)
         last = logits[torch.arange(B, device=self.device), last_pos]
         last = last[:, :self.cfg.vocab]
         logp = torch.log_softmax(last, dim=-1)
@@ -511,7 +529,7 @@ def build_zoo_forecaster(arch: str, seed: int = 0, reduced: bool = True,
     ``nemotron-4-15b``, ``granite-20b`` and ``qwen2.5-32b``, the VLM
     ``chameleon-34b``, the MoE ``mixtral-8x7b`` and
     ``qwen3-moe-235b-a22b``, the SSM ``mamba2-370m``, the hybrid
-    ``zamba2-2.7b``) served on
+    ``zamba2-2.7b``, the audio ``whisper-medium``) served on
     ``device``: the full config, or its reduced CPU-smoke variant;
     random weights drawn from a ``torch.Generator``
     on ``device`` seeded with ``seed`` (on the card the model is drawn

@@ -2,8 +2,10 @@
 PyTorch version (what a CPU tensor runs) vs ``attention_ref`` and vs the
 Pallas kernel in interpret mode, over the JAX kernel tests' sweep (MHA,
 GQA with a ragged S, MQA, S below a block) with the causal, non-causal,
-``window=37`` and ``q_offset`` masks; bf16; the zoo's
-``blocked_attention`` vs JAX's; the wrapper's checks (TMA's layout
+``window=37`` and ``q_offset`` masks; Whisper's cross-attention shapes
+(queries fewer than keys, no mask: 1, 32, 77 and 448 queries over 300
+and 1500 frames, 16 heads of 64) vs ``blocked_attention`` and the
+Pallas kernel; bf16; the zoo's ``blocked_attention`` vs JAX's; the wrapper's checks (TMA's layout
 rules among them) and device route; and, on a card, the hand-written
 CUDA kernels vs the plain version: fp32 on the CUDA-core kernel, bf16 on
 the tensor-core one at its tile edges, every head dim, the serving
@@ -42,6 +44,10 @@ SHAPES = [(1, 128, 4, 4, 64),     # MHA, aligned
 MASKS = [dict(causal=True), dict(causal=False),
          dict(causal=True, window=37)]
 _IDS = ["causal", "full", "window37"]
+# Whisper-medium's cross-attention, non-causal: (B, Sq, Skv), 16 MHA
+# heads of 64. A decode step's one query, the serving bursts' 32 and
+# 448, and a ragged 77, over the 1500 frames and over 300
+CROSS_SHAPES = [(2, 1, 1500), (2, 32, 1500), (2, 77, 300), (2, 448, 1500)]
 
 
 def _qkv(B, S, Hq, Hkv, D, seed=0, sq=None):
@@ -101,6 +107,34 @@ def test_q_offset_matches_jax(shape, window):
     got = flash_attention(*_t(q, k, v), **kw).numpy()
     for want in (jref(jq, jk, jv, **kw), jflash(jq, jk, jv, **kw)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def _cross_qkv(B, Sq, Skv, seed):
+    rng = np.random.default_rng(seed + Sq * 10 + Skv)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, Sq, 16, 64), (B, Skv, 16, 64),
+                           (B, Skv, 16, 64)))
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES, ids=str)
+def test_cross_attention_shapes_match_jax(shape):
+    """Fewer queries than keys without a mask, as Whisper's
+    cross-attention runs it (every query sees every frame), on the CPU
+    route vs the JAX package's ``blocked_attention`` at its default
+    blocks (queries padded to 512, keys to 1024) and vs the Pallas kernel
+    in interpret mode (both padded to 128 and masked by kv_valid)."""
+    import jax.numpy as jnp
+    from repro.kernels.attention.ops import flash_attention as jflash
+    from repro.models import attention as jattn
+
+    q, k, v = _cross_qkv(*shape, seed=17)
+    got = tattn.blocked_attention(*_t(q, k, v), causal=False)
+    assert got.shape == q.shape
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    for want in (jattn.blocked_attention(jq, jk, jv, causal=False),
+                 jflash(jq, jk, jv, causal=False)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                    atol=ATOL)
 
 
@@ -307,6 +341,58 @@ def test_cuda_kernel_rows_do_not_depend_on_batch(shape):
         one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
                               causal=True)
         assert torch.equal(one[0], full[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq", [1, 32, 77, 448])
+@pytest.mark.parametrize("Skv", [300, 1500])
+def test_cuda_kernel_at_the_cross_attention_shapes(Skv, Sq, dtype):
+    """Whisper's cross-attention on the card: fewer queries than keys,
+    no mask (every query tile visits every key tile, the last one
+    ragged), the query tile larger than Sq at 1, 32 and 77; one launch,
+    keyed as non-causal, against the plain version."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt)
+               for a in _cross_qkv(2, Sq, Skv, seed=18))
+    before = dict(flash_kernel.FLASH_LAUNCHES.by_shape)
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    key = flash_kernel.launch_key(2, Sq, Skv, 16, 16, 64, causal=False)
+    assert flash_kernel.FLASH_LAUNCHES.by_shape[key] == before.get(key,
+                                                                   0) + 1
+    want = attention_ref(q, k, v, causal=False)
+    tol = dict(rtol=RTOL, atol=ATOL) if dtype == "float32" \
+        else dict(rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_cross_attention_rows_do_not_depend_on_batch():
+    """At Whisper's burst-A cross-attention shape (8 x 32 queries over
+    1500 frames, 16 heads of 64, non-causal): each row of the B = 8
+    launch equals that row's B = 1 launch, bit for bit."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q = torch.randn(8, 32, 16, 64, generator=g, device="cuda")
+    k, v = (torch.randn(8, 1500, 16, 64, generator=g, device="cuda")
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    full = flash_attention(q, k, v, causal=False)
+    for b in range(8):
+        one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                              causal=False)
+        assert torch.equal(one[0], full[b])
+
+
+def test_launch_keys_carry_the_mask():
+    """A causal launch keys by its shape, as the counter always did; a
+    non-causal one appends ``NON_CAUSAL``."""
+    assert flash_kernel.launch_key(8, 32, 32, 16, 16, 64) == \
+        (8, 32, 32, 16, 16, 64)
+    assert flash_kernel.launch_key(8, 1, 1500, 16, 16, 64, causal=False) \
+        == (8, 1, 1500, 16, 16, 64, flash_kernel.NON_CAUSAL)
 
 
 @pytest.mark.cuda

@@ -22,8 +22,13 @@ a full-mode cache) and Mixtral-8x7B with ``window`` 8 (a ring), both at
 the reduced configs' capacity factor, ``n_experts / top_k``, where no
 pair is dropped; and, in the decode from the JAX package's cache only,
 Mixtral at 0.5 (``moe-drop``), where a step's group is its batch and
-both packages drop the same pairs. A ring prompt of 16 tokens fills
-the ring exactly (S % W == 0), one of 13 leaves it rolled by 5.
+both packages drop the same pairs. The audio family: the reduced
+Whisper-medium (``audio``: 2 encoder and 2 decoder layers over 16
+frames from ``synthetic_embedding_batch``, MHA 4/4, LayerNorm, QKV
+bias), whose cache adds each decoder layer's cross k and v, ``xk`` and
+``xv``, beside a full-mode attention cache, and whose steps attend them
+with ``blocked_attention`` at one query. A ring prompt of 16 tokens
+fills the ring exactly (S % W == 0), one of 13 leaves it rolled by 5.
 
 A JAX prefill cache's main holds the prompt only: decoding past it, the
 JAX test grows main first (``place``, ``tests/test_arch_smoke.py``), as
@@ -55,6 +60,7 @@ from repro_torch.checkpoint.convert import (zoo_cache_from_numpy,
                                             zoo_params_from_numpy)
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
+from repro_torch.data.tokens import synthetic_embedding_batch
 from repro_torch.kernels.attention import kernel as attn_kernel
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.models import transformer as tfm
@@ -84,13 +90,15 @@ LAYOUTS = {"dense-full": ("qwen1.5-4b", {}),
            "vlm": ("chameleon-34b", {}),
            "moe": ("qwen3-moe-235b-a22b", {}),
            "moe-ring": ("mixtral-8x7b", {"window": 8}),
-           "moe-drop": ("mixtral-8x7b", {"moe_capacity_factor": 0.5})}
+           "moe-drop": ("mixtral-8x7b", {"moe_capacity_factor": 0.5}),
+           "audio": ("whisper-medium", {})}
 FOUR = ["dense-full", "dense-ring", "ssm", "hybrid"]
 # the dense-branch archs whose KV heads are fewer than their query heads
 GROUPED = ["dense-mqa", "dense-gqa", "dense-layernorm-relu2", "vlm"]
 # the MoE family at the reduced configs' no-drop capacity factor
 MOE = ["moe", "moe-ring"]
 RING = ("dense-ring", "moe-ring")
+AUDIO = ["audio"]
 
 
 def _cfgs(layout, dtype=None):
@@ -131,6 +139,23 @@ def _tokens(cfg, B, S, seed=0):
 
 def _t(toks):
     return torch.as_tensor(toks, dtype=torch.long)
+
+
+def _frames(cfg, B, seed=0):
+    """An audio arch's frame embeddings [B, n_frames, d] as numpy (None
+    for the other families): the same on both sides."""
+    if cfg.family != "audio":
+        return None
+    return synthetic_embedding_batch(B, cfg.n_frames, cfg.d_model,
+                                     seed=200 + seed)
+
+
+def _jf(frames):
+    return None if frames is None else jnp.asarray(frames)
+
+
+def _tf(frames):
+    return None if frames is None else torch.from_numpy(frames)
 
 
 def _tree(tree):
@@ -191,7 +216,7 @@ def _needs_flush(cache, cfg):
 # ---------------------------------------------------------- init_cache --
 
 @pytest.mark.parametrize("layout",
-                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE)
+                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE + AUDIO)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_cache_tree_matches_jax(layout, dtype):
     """Keys, shapes and dtypes leaf by leaf against ``jax.eval_shape``
@@ -210,6 +235,9 @@ def test_init_cache_tree_matches_jax(layout, dtype):
         Hkv = 1 if layout == "dense-mqa" else 2
         assert cfg.n_heads == 4 and ours["k"].shape[3] == Hkv
         assert ours["kr"].shape == (2, 2, cfg.decode_buffer, Hkv, 64)
+    assert ("xk" in ours) == ("xv" in ours) == (layout in AUDIO)
+    if layout in AUDIO:
+        assert ours["xk"].shape == (2, 2, cfg.n_frames, 4, 64)
 
 
 def test_init_cache_on_the_model_handle_and_the_meta_device():
@@ -225,14 +253,16 @@ def test_init_cache_on_the_model_handle_and_the_meta_device():
 
 @pytest.mark.parametrize("S", [16, 13])
 @pytest.mark.parametrize("layout",
-                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE)
+                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE + AUDIO)
 def test_prefill_matches_jax(layout, S):
     """Last-token logits and every cache leaf (the ring rolled at
-    S % W != 0 and not at S % W == 0)."""
+    S % W != 0 and not at S % W == 0; the audio cross k, v)."""
     cfg, jcfg, params, jparams = _models(layout)
     toks = _tokens(cfg, 2, S)
-    want_logits, want = jtfm.lm_prefill(jcfg, jparams, jnp.asarray(toks))
-    logits, cache = build_model(cfg).prefill(params, _t(toks))
+    frames = _frames(cfg, 2)
+    want_logits, want = jtfm.lm_prefill(jcfg, jparams, jnp.asarray(toks),
+                                        _jf(frames))
+    logits, cache = build_model(cfg).prefill(params, _t(toks), _tf(frames))
     assert logits.shape == (2, cfg.padded_vocab)
     _close_logits(logits, want_logits, f"{layout} S {S}")
     _close_cache(cache, want, f"{layout} S {S}")
@@ -285,7 +315,7 @@ def _decode_both(cfg, jcfg, params, jparams, cache, jcache, steps=STEPS,
 
 DECODE_CASES = [(layout, "grown")
                 for layout in FOUR + ["hybrid-6-every-3"] + GROUPED + MOE
-                + ["moe-drop"]] \
+                + ["moe-drop"] + AUDIO] \
     + [("dense-full", "as-prefilled"), ("hybrid", "as-prefilled")]
 
 
@@ -298,7 +328,8 @@ def test_decode_from_the_jax_prefill_cache_matches_jax(layout, main):
     cfg, jcfg, params, jparams = _models(layout)
     S = 13
     _, jcache = jtfm.lm_prefill(jcfg, jparams, jnp.asarray(_tokens(cfg, 2,
-                                                                   S)))
+                                                                   S)),
+                                _jf(_frames(cfg, 2)))
     if main == "grown":
         jcache = _jplace(jcache, jtfm.init_cache(jcfg, 2, S + STEPS))
     cache = zoo_cache_from_numpy(cfg, jax.tree.map(np.asarray, jcache),
@@ -322,7 +353,7 @@ def test_decode_from_an_empty_cache_matches_jax(layout):
 
 
 @pytest.mark.parametrize("layout",
-                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE)
+                         FOUR + ["hybrid-6-every-3"] + GROUPED + MOE + AUDIO)
 def test_decode_equals_forward(layout):
     """The port alone, as ``test_prefill_decode_matches_forward``: a
     prefill of 16 of 28 tokens, then 12 teacher-forced steps (full mode:
@@ -332,8 +363,9 @@ def test_decode_equals_forward(layout):
     model = build_model(cfg)
     S, prompt = 28, 16
     toks = _t(_tokens(cfg, 2, S, seed=3))
-    want_all, _ = model.forward(params, toks)
-    lp, cache = model.prefill(params, toks[:, :prompt])
+    frames = _tf(_frames(cfg, 2, seed=3))
+    want_all, _ = model.forward(params, toks, frames)
+    lp, cache = model.prefill(params, toks[:, :prompt], frames)
     torch.testing.assert_close(lp, want_all[:, prompt - 1], rtol=RTOL,
                                atol=ATOL)
     cache = _place(cache, model.init_cache(2, S, device="cpu"))

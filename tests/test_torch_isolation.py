@@ -79,6 +79,9 @@ def test_port_package_is_complete():
     # the MoE family's: its configs and moe_apply
     assert {"configs/mixtral_8x7b.py", "configs/qwen3_moe_235b_a22b.py",
             "models/mlp.py"} <= names
+    # the audio family's: its config (the encoder, cross-attention and the
+    # stub frames live in transformer.py, tokens.py and forecaster.py)
+    assert "configs/whisper_medium.py" in names
     for src in ("kernels/lstm/csrc/lstm_layer.cu",
                 "kernels/lstm/csrc/lstm_layer_bwd.cu",
                 "kernels/evl/csrc/evl.cu",

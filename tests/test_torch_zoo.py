@@ -73,9 +73,9 @@ def test_registry_lists_the_ported_archs_and_rejects_others():
     assert list_archs() == ["chameleon-34b", "granite-20b", "mamba2-370m",
                             "mixtral-8x7b", "nemotron-4-15b", ARCH,
                             "qwen2.5-32b", "qwen3-moe-235b-a22b",
-                            "zamba2-2.7b"]
+                            "whisper-medium", "zamba2-2.7b"]
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-medium")
+        get_config("whisper-large")
     assert [pad_vocab(v) for v in (1, 256, 257, 151936)] == \
         [jlayers.pad_vocab(v) for v in (1, 256, 257, 151936)]
     assert layers.pad_vocab(151936) == 152064
@@ -181,20 +181,27 @@ def test_init_lm_tree_matches_jax(dtype):
 
 
 def test_other_families_are_not_ported_yet():
+    """Zoo training still raises, naming its ROADMAP item; the audio
+    family, the last one the port lacked, runs (an audio forward or
+    prefill without frames raises, as in the JAX package); a family no
+    package has is refused."""
     cfg = reduced(get_config(ARCH))
-    audio_item = r"ROADMAP, Next: audio\)"
-    other = dataclasses.replace(cfg, family="audio")
-    with pytest.raises(NotImplementedError, match=audio_item):
-        init_lm(other, torch.Generator().manual_seed(0))
     model = build_model(cfg)
-    for fn, item in ((model.loss, "zoo training"),):
+    for fn, item in ((model.loss, r"ROADMAP, Next: zoo training\)"),):
         with pytest.raises(NotImplementedError, match=item):
             fn(None, None)
-    audio = build_model(dataclasses.replace(cfg, family="audio"))
-    with pytest.raises(NotImplementedError, match=audio_item):
-        audio.init_cache(1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match=audio_item):
-        audio.prefill({}, torch.zeros(1, 4, dtype=torch.long))
+    audio = build_model(reduced(get_config("whisper-medium")))
+    params = audio.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    frames = torch.zeros(1, audio.cfg.n_frames, audio.cfg.d_model)
+    logits, cache = audio.prefill(params, toks, frames)
+    assert torch.all(torch.isfinite(logits)) and {"xk", "xv"} <= set(cache)
+    assert set(audio.init_cache(1, 4, device="cpu")) == set(cache)
+    for fn in (audio.forward, audio.prefill):
+        with pytest.raises(ValueError, match="frame embeddings"):
+            fn(params, toks)
+    with pytest.raises(ValueError, match="unknown family"):
+        init_lm(dataclasses.replace(cfg, family="speech"), None)
 
 
 # ------------------------------------------------------------- forward --
