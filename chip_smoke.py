@@ -4,6 +4,7 @@ NVIDIA H100.
 
     python3 chip_smoke.py            # from the repo root, on the card
     python3 chip_smoke.py --flash-host       # flash's host cost per call
+    python3 chip_smoke.py --flash-serve      # flash at the serve shapes
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
     python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
@@ -11,6 +12,7 @@ NVIDIA H100.
     python3 chip_smoke.py --dense            # the [dense] phase alone
     python3 chip_smoke.py --moe              # the [moe] phase alone
     python3 chip_smoke.py --audio            # the [audio] phase alone
+    python3 chip_smoke.py --train-zoo        # the [train-zoo] phase alone
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -59,9 +61,9 @@ attention takes the long-context window of 4096 keys, and its card-vs-
 CPU copy cut to one stage (6 layers); both kernels are held against
 their plain versions at Zamba2's shapes, the windowed launch on query
 slices. Then the zoo's decode path (``[decode]``): each of the three
-at full width and depth in bf16, 8 prompts of 2048 tokens prefilled
-into the KV and SSM caches through ``build_model(cfg).prefill`` (40
-flash launches for Qwen, 48 SSD for Mamba2, 54 SSD + 9 flash for
+at full width and half depth in bf16, 8 prompts of 2048 tokens
+prefilled into the KV and SSM caches through ``build_model(cfg).prefill``
+(20 flash launches for Qwen, 24 SSD for Mamba2, 30 SSD + 5 flash for
 Zamba2) and 320 teacher-forced one-token ``decode_step``s with
 ``flush_recent`` every 256 tokens, each step's logits held against
 ``lm_forward``'s at the JAX test's bound and launching no kernel; for
@@ -72,17 +74,17 @@ kernel's single-chunk entry from a given state, against its plain
 version, and ``ssd_chunked(initial_state=...)`` through the kernel at
 the prefills' shapes. Then the rest of the dense zoo and the VLM
 (``[dense]``): Nemotron-4-15B, Granite-20B, Qwen2.5-32B and
-Chameleon-34B, one at a time on the card, each at full width and depth
-in bf16 served through ``ServingEngine`` (bursts A and B, one flash
+Chameleon-34B, one at a time on the card, each at full width in bf16
+cut to 8 layers, served through ``ServingEngine`` (bursts A and B, one flash
 launch per layer a flush, at GQA 48/8, MQA 48/1, GQA 40/8 and 64/8),
 8 prompts of 2048 tokens prefilled and 32 steps decoded, each step
 held against the forward and against an fp32 forward made one layer at
-a time; each one's 2-layer fp32 copy against the CPU, forward and
+a time; each one's 1-layer fp32 copy against the CPU, forward and
 decode; the flash kernel at each one's shapes; Granite also through
 the serve CLI; the memory allocated on the card back to where it was
 after each model. Then the MoE family (``[moe]``): Mixtral-8x7B and
 Qwen3-MoE-235B-A22B, one at a time, at full width in bf16 but cut in
-depth to what the card holds (24 of 32 and 13 of 94 layers), served
+depth (12 of 32 and 7 of 94 layers), served
 through ``ServingEngine`` (one flash launch per layer a flush, at GQA
 32/8 with Mixtral's window and 64/4), 8 prompts of 2048 tokens
 prefilled and 32 steps decoded at the published capacity factor, the
@@ -90,7 +92,7 @@ decode held against the forward and an fp32 forward at the no-drop
 factor with its router flips counted, Mixtral's 16,384-token prompt
 into its 4096-slot ring (the flash kernel's windowed launch at GQA,
 timed beside SDPA with a mask), each one's 2-layer fp32 copy against
-the CPU (logits and the load-balance loss), Mixtral's reduced config
+the CPU (1 layer: logits and the load-balance loss), Mixtral's reduced config
 through the serve CLI. Then the audio family (``[audio]``):
 Whisper-medium at full width and depth in bf16 on the stub frames,
 served through ``ServingEngine`` (bursts of 32 and 448 tokens, each
@@ -101,7 +103,18 @@ decoded, each step 24 flash launches (cross-attention at one query over
 the cached 1500 frames) and held against the forward and an fp32
 forward, its 2 + 2-layer fp32 copy against the CPU, its reduced config
 through the serve CLI, the flash kernel timed at each of those shapes
-and masks beside SDPA with the same mask.
+and masks beside SDPA with the same mask. Then zoo training
+(``[train-zoo]``): Qwen1.5-4B at full width in bf16 cut to 16 layers,
+remat on, step 0's loss and gradient (``launch.specs.loss_and_grad``)
+bitwise the same in two runs, then Adam steps of ``make_train_step``
+on 8 x 512 tokens, every flash launch through the kernels (2 forward
+launches a layer, the forward and its recomputation, and 1 launch of
+the hand-written backward), each loss finite, ms a step, tokens/s,
+peak memory and a profiled step's busy share; its 2-layer fp32 copy
+against the CPU (loss, every gradient leaf, one Adam step); the flash
+backward against its plain version over GQA, MQA, windowed and
+unmasked cases, every head dim, fp32 and bf16, and timed beside SDPA's
+backward.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -109,12 +122,14 @@ exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
-``--flash-ablation``, ``--ssd-ablation``, ``--lstm-ablation`` or
-``--evl-ablation`` it runs only that probe (``flash_host``,
-``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
-``evl_ablation``) and prints no result; with ``--decode``,
-``--dense``, ``--moe`` or ``--audio``, the build and the ``[decode]``,
-``[dense]``, ``[moe]`` or ``[audio]`` phase alone, and no result.
+``--flash-serve``, ``--flash-ablation``, ``--ssd-ablation``,
+``--lstm-ablation`` or ``--evl-ablation`` it runs only that probe
+(``flash_host``, ``flash_serve``, ``flash_ablation``,
+``ssd_ablation``, ``lstm_ablation``, ``evl_ablation``) and prints no
+result; with ``--decode``,
+``--dense``, ``--moe``, ``--audio`` or ``--train-zoo``, the build and
+the ``[decode]``, ``[dense]``, ``[moe]``, ``[audio]`` or
+``[train-zoo]`` phase alone, and no result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -302,9 +317,13 @@ FLASH_SLICE = 512
 # library call (Mixtral's 16,384 tokens: 268 MB; Zamba2's 133,120 would
 # be 17.7 GB)
 SDPA_MASK_MAX = 1 << 28
-# the zoo's decode path ([decode]): each zoo arch at full width and depth
-# (bf16, random weights from seed 0), DECODE_BATCH prompts of
-# DECODE_PROMPT tokens (burst B's length) prefilled into the KV and SSM
+# the zoo's decode path ([decode]): each zoo arch at full width (bf16,
+# random weights from seed 0) and half its depth, DECODE_LAYERS (Qwen 20
+# of 40, Mamba2 24 of 48, Zamba2 30 of 54: 5 stages; at full depth the
+# phase ran 148 s of the smoke (PERF.md), a decode step host bound at
+# ~130 eager ops an attention layer, so its time goes with the depth),
+# DECODE_BATCH prompts of DECODE_PROMPT tokens (burst B's length)
+# prefilled into the KV and SSM
 # caches, then DECODE_STEPS teacher-forced one-token decode steps
 # (Qwen's full-mode cache flushes its 256 recent slots once mid-run and
 # ends with 64 in them); Zamba2 also one prompt of ZAMBA_LONG tokens into
@@ -314,6 +333,7 @@ SDPA_MASK_MAX = 1 << 28
 # max |want| < 0.05 a step); step times are medians after
 # DECODE_WARMUP steps.
 DECODE_ARCHS = (ZOO_ARCH, MAMBA_ARCH, ZAMBA_ARCH)
+DECODE_LAYERS = {ZOO_ARCH: 20, MAMBA_ARCH: 24, ZAMBA_ARCH: 30}
 DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 8, 2048, 320
 DECODE_LONG_STEPS = 32
 DECODE_WARMUP = 16
@@ -336,20 +356,26 @@ DECODE_FP32_BOUND = 1e-4
 # weights are "w" leaves, in MAMBA_NOISE)
 DECODE_NOISE = dict(MAMBA_NOISE, bq=0.2, bk=0.2, bv=0.2, b=0.2, q_norm=0.2,
                     k_norm=0.2)
-# the rest of the dense zoo and the VLM ([dense]): each at full width and
-# depth in bf16 (random weights from seed 0), the smallest first, one
-# model on the card at a time: Nemotron-4-15B (GQA 48/8, LayerNorm,
-# squared ReLU; 29.1 GiB of weights), Granite-20B (MQA 48/1, LayerNorm,
-# tanh-GELU; 37.8 GiB), Qwen2.5-32B (GQA 40/8, QKV bias; 61.0 GiB) and
-# the VLM Chameleon-34B (GQA 64/8, QK norm; 63.9 GiB). Each serves bursts
-# A and B, prefills DECODE_BATCH x DECODE_PROMPT tokens and decodes
-# DENSE_DECODE_STEPS steps (the 320-step run and its flush at full depth
-# stay Qwen1.5-4B's, in [decode]). The batch fits beside the largest
-# weights: Chameleon's grown cache is 3.4 GiB, its prefill's main 3.0
-# GiB and the prefill's activations some 3 GiB, 70 GiB in all on the
-# 80 GB card. The serve CLI runs Granite alone, to keep the phase short.
+# the rest of the dense zoo and the VLM ([dense]): each at full width in
+# bf16 (random weights from seed 0), cut in depth to DENSE_LAYERS, the
+# smallest first, one model on the card at a time: Nemotron-4-15B (GQA
+# 48/8, LayerNorm, squared ReLU), Granite-20B (MQA 48/1, LayerNorm,
+# tanh-GELU), Qwen2.5-32B (GQA 40/8, QKV bias) and the VLM Chameleon-34B
+# (GQA 64/8, QK norm). At full depth (32, 52, 64, 48 layers: 29.1, 37.8,
+# 61.0 and 63.9 GiB of weights) they served and decoded on the card one
+# at a time, Chameleon's peak 70.74 GiB (PERF.md), and the phase
+# took ~260 s of the smoke's time limit; 8 layers each keep every layer
+# kind, head layout and the LM head at full width for a third of that.
+# Each serves bursts A and B, prefills DECODE_BATCH x DECODE_PROMPT
+# tokens and decodes DENSE_DECODE_STEPS steps (the 320-step run and its
+# flush at full depth stay Qwen1.5-4B's, in [decode]). The serve CLI runs
+# Granite alone, at full depth, to keep the phase short. Each one's fp32
+# copy against the CPU: DENSE_FP32_LAYERS layer, the LM head (up to
+# 256k x 6144 for Nemotron) the CPU half's largest part.
 DENSE_ARCHS = ("nemotron-4-15b", "granite-20b", "qwen2.5-32b",
                "chameleon-34b")
+DENSE_LAYERS = 8
+DENSE_FP32_LAYERS = 1
 DENSE_DECODE_STEPS = 32
 DENSE_CLI_ARCH = "granite-20b"
 # the fp32 reference of a dense decode casts one layer at a time to fp32
@@ -370,10 +396,13 @@ DENSE_FP32_ROWS = 4
 # 63.9 (its peak 70.74 GiB at 8 x 2048); each run's activations (burst
 # B's logits, 2.5 GiB at Qwen3-MoE's vocab, or one layer's fp32 copy in
 # the fp32 reference forward, 5.4 and 9.3 GiB) must fit beside them,
-# under about 75 GiB in all. Burst B's batch and the 2048-token prompt
-# are not cut.
+# under about 75 GiB in all: PERF.md records those depths served and
+# decoded. The smoke runs half of each, 12 and 7 layers, to keep
+# within its time limit beside [train-zoo]; the fp32 copies against the
+# CPU 1 layer each (DECODE_FP32_LAYERS). Burst B's batch and the
+# 2048-token prompt are not cut.
 MOE_ARCHS = ("mixtral-8x7b", "qwen3-moe-235b-a22b")
-MOE_LAYERS = {"mixtral-8x7b": 24, "qwen3-moe-235b-a22b": 13}
+MOE_LAYERS = {"mixtral-8x7b": 12, "qwen3-moe-235b-a22b": 7}
 MOE_DECODE_STEPS = 32
 # The decode at the published factor is held against nothing: a step's
 # group is its B tokens (capacity 2 for Mixtral and 1 for Qwen3-MoE at B
@@ -410,10 +439,65 @@ AUDIO_DECODE = (8, 64, 288)
 # burst A's cross-attention launch, whose rows are held bitwise against
 # their B = 1 launches
 AUDIO_CROSS = (8, 32, 1500, 16, 16, 64)
-# each arch's fp32 copy: 2 layers, but Zamba2's one stage of 6
+# zoo training ([train-zoo]): Qwen1.5-4B at full width (20 MHA heads of
+# 128, d_ff 6912, vocab 151,936) in bf16, remat on, random weights from
+# seed 0, cut in depth to TRAIN_ZOO_LAYERS: the port's Adam is eager
+# tree_maps, and a step holds the bf16 params, gradients and clipped
+# gradients, the fp32 copy of the gradients, old and new mu and nu and
+# the fp32 updates, about 32 bytes a parameter at its peak (3.95 B at
+# full depth: 120 GiB), and the update's fp32 temporaries of the largest
+# leaf (the embedding and the LM head, 389 M each: 1.56 GB a
+# temporary) beside them. A layer is 79.3 M parameters beside 778 M of
+# embedding and LM head: 20 layers (2.36 B) ran out of the card's 79.18
+# GiB in the first step's update, 68.78 GiB allocated and 9.05 reserved
+# beside it (PERF.md); 16 layers, 2.05 B, about 66 GiB at the
+# peak, under TRAIN_ZOO_PEAK_GIB. TRAIN_ZOO_STEPS Adam steps (lr
+# TRAIN_ZOO_LR) of TRAIN_ZOO_BATCH (batch, seq) synthetic tokens, step
+# i on synthetic_token_batch(seed=i), then one more under the profiler.
+# Per step: 2 flash forward launches a layer (the forward, then its
+# recomputation under remat) and 1 backward launch a layer.
+TRAIN_ZOO_ARCH = "qwen1.5-4b"
+TRAIN_ZOO_LAYERS = 16
+TRAIN_ZOO_BATCH = (8, 512)
+TRAIN_ZOO_STEPS = 4
+TRAIN_ZOO_LR = 1e-4
+TRAIN_ZOO_PEAK_GIB = 75.0
+# its fp32 copy, 2 layers at full width (TF32 off), noised as the
+# card-vs-CPU copies: (batch, seq) and the bound of the card against the
+# CPU for the loss, each gradient leaf and Adam's moments after one step
+# (of each leaf's max |value|: cuBLAS against oneDNN, the flash kernels
+# against the plain version, summed in other orders); the parameters
+# after the step as tests/test_torch_zoo_train.py holds them (at most 1 in
+# 1,000 elements beyond rtol 1e-4 / atol 1e-6, none beyond 2 lr: where a
+# gradient element is rounding noise, Adam's m / (sqrt(v) + eps) turns
+# it into a step of up to lr either way)
+TRAIN_FP32_BATCH = (2, 64)
+TRAIN_FP32_TOL = 1e-4
+# the flash backward against its plain version on the card: (B, Sq, Skv,
+# Hq, Hkv, D, mask), each in fp32 (rtol 2e-4 / atol 2e-5, the forward's)
+# and bf16 (within FLASH_BWD_BF16_REL of max |grad|: the gradients stored
+# in bf16, 2^-9 of an element, after fp32 sums in another order): GQA
+# 4 over 4 key tiles with a ragged edge (200 = 3 x 64 + 8) and GQA 16/4
+# over 5, where a dk or dv that lost a head of its group would miss by a
+# quarter; MQA windowed; no mask at Sq < Skv and Sq = Skv; every head
+# dim; the train path's shape
+FLASH_BWD_CASES = [
+    (2, 200, 200, 8, 2, 128, dict(causal=True)),
+    (1, 300, 300, 16, 4, 128, dict(causal=True)),
+    (2, 333, 333, 4, 1, 64, dict(causal=True, window=100)),
+    (2, 77, 300, 4, 4, 80, dict(causal=False)),
+    (2, 150, 150, 4, 2, 32, dict(causal=False)),
+    (1, 64, 64, 4, 4, 128, dict(causal=True)),
+    (2, 96, 96, 32, 32, 80, dict(causal=True, window=40)),
+    (8, 512, 512, 20, 20, 128, dict(causal=True))]
+FLASH_BWD_BF16_REL = 1e-2
+# each arch's fp32 copy: 2 layers, but Zamba2's one stage of 6, and 1
+# for the [dense] and [moe] models, whose CPU halves (the LM head at full
+# width, up to 256k x 6144) took 110.5 s of the smoke at 2 (PERF.md)
 DECODE_FP32_LAYERS = dict({ZOO_ARCH: 2, MAMBA_ARCH: 2, AUDIO_ARCH: 2,
                            ZAMBA_ARCH: ZAMBA_CPU_LAYERS},
-                          **{arch: 2 for arch in DENSE_ARCHS + MOE_ARCHS})
+                          **{arch: DENSE_FP32_LAYERS
+                             for arch in DENSE_ARCHS + MOE_ARCHS})
 # the SSD scan from a given state: ssd_chunk at (K, P, N), the JAX
 # entry's test shape and a full chunk of Mamba2-370M's; and
 # ssd_chunked(initial_state=...) at the decode prefills' SSD shapes
@@ -472,6 +556,7 @@ def counters():
             "lstm_layer_bwd": lstm_kernel.LAYER_BWD_LAUNCHES,
             "evl": evl_kernel.EVL_LAUNCHES,
             "flash_attention": attn_kernel.FLASH_LAUNCHES,
+            "flash_attention_bwd": attn_kernel.FLASH_BWD_LAUNCHES,
             "ssd_scan": ssd_kernel.SSD_LAUNCHES,
             "ssd_chunk": ssd_kernel.SSD_CHUNK_LAUNCHES}
 
@@ -500,8 +585,8 @@ def flash_windows():
     launch = attn_kernel.flash_attention_cuda
     seen: list = []
 
-    def record(q, k, v, causal, window, q_offset, kv_valid):
-        out = launch(q, k, v, causal, window, q_offset, kv_valid)
+    def record(q, k, v, causal, window, q_offset, kv_valid, **kw):
+        out = launch(q, k, v, causal, window, q_offset, kv_valid, **kw)
         seen.append((tuple(q.shape[:2]) + (k.shape[1],)
                      + tuple(q.shape[2:3]) + (k.shape[2], q.shape[3]),
                      window, bool(causal)))
@@ -676,6 +761,7 @@ def build_kernels() -> None:
     lstm_kernel._bwd_library()
     evl_kernel._library()
     attn_kernel._library()
+    attn_kernel._bwd_library()
     ssd_kernel._library()
     for name, path in paths.items():
         print(f"[build] {name}: {'cached' if cached[name] else 'built'} -> "
@@ -1694,7 +1780,8 @@ def online_main_path(alone_ms: float, tag: str) -> dict:
         totals = {k: sum(v.values()) for k, v in launches.items()}
         want = {"lstm_layer": n_layers * (steps + published + flushes + 1),
                 "lstm_layer_bwd": n_layers * steps, "evl": steps,
-                "flash_attention": 0, "ssd_scan": 0, "ssd_chunk": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "ssd_scan": 0, "ssd_chunk": 0}
         check(totals == want,
               f"online launches {totals}, not {want}: {steps} local steps, "
               f"{published} publishes (a calibration predict each), "
@@ -3061,6 +3148,38 @@ def time_flash(launches: dict, tag: str, shapes=((8, 32, 32, 20, 20, 128),
     return rows, worst
 
 
+# the serving paths' flash shapes that ``--flash-serve`` re-times: the
+# short and long prompts at D 128 (Qwen1.5-4B) and D 80 (Zamba2)
+FLASH_SERVE_SHAPES = [(8, 32, 32, 20, 20, 128), (4, 2048, 2048, 20, 20, 128),
+                      (8, 32, 32, 32, 32, 80), (4, 2048, 2048, 32, 32, 80)]
+
+
+def flash_serve(tag: str) -> None:
+    """``--flash-serve``: the bf16 flash forward as serving launches it
+    (causal, no logsumexp) at FLASH_SERVE_SHAPES: device us a launch
+    (``graph_ms``) and a digest of the output's bytes on seeded inputs.
+    Uses only the binding every version of the package has, so that a
+    copy of this script in an earlier ``git archive`` checkout times
+    that one's kernel in the same call (turns: earlier, this, this,
+    earlier), and equal digests show the same output bits. Prints one
+    JSON line."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    out = {}
+    for shape in FLASH_SERVE_SHAPES:
+        B, Sq, Skv, Hq, Hkv, D = shape
+        q, k, v = attn_inputs(*shape, torch.bfloat16, seed=B * 7 + Sq)
+        o = attn_kernel.flash_attention_cuda(q, k, v, True, None, 0, Skv)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(o.view(torch.int16).cpu().numpy()
+                                .tobytes()).hexdigest()[:16]
+        inner, reps = (10, 11) if Sq >= 1024 else (50, 21)
+        us = 1e3 * graph_ms(lambda: attn_kernel.flash_attention_cuda(
+            q, k, v, True, None, 0, Skv), inner, reps)
+        out["x".join(map(str, shape))] = {"us": us, "digest": digest}
+    print(json.dumps({"flash_serve": tag, "root": str(ROOT), "shapes": out}))
+
+
 def flash_host(tag: str, shape=(8, 32, 32, 20, 20, 128), n=500, reps=15):
     """Host microseconds per eager flash call at the short prompt's
     shape (bf16, causal): through the wrapper the path calls (checks,
@@ -3180,13 +3299,13 @@ def flash_ablation(card: str) -> None:
     fns = ablation_entries(
         "flash_attention", attn_kernel.SOURCES, FLASH_ABLATIONS,
         "flash_attention_forward",
-        [P] * 4 + [L] * 12 + [I] * 11 + [ctypes.c_float, P])
+        [P] * 5 + [L] * 12 + [I] * 11 + [ctypes.c_float, P])
 
     def launch(fn, q, k, v, out):
         B, S, H, D = q.shape
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *strides, B, S, S, H, H, D, 1, 1, 0, 0, S, D ** -0.5,
+                None, *strides, B, S, S, H, H, D, 1, 1, 0, 0, S, D ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"flash ablation launch failed: {rc}")
 
@@ -3857,8 +3976,9 @@ def decode_line(out, B, prompt, steps, warm, where, switch) -> str:
 
 
 def decode_full(arch: str, tag: str) -> dict:
-    """The [decode] phase at full width and depth, bf16, random weights
-    from seed 0 drawn on the card: DECODE_BATCH prompts of DECODE_PROMPT
+    """The [decode] phase at full width and DECODE_LAYERS[arch] layers,
+    bf16, random weights from seed 0 drawn on the card: DECODE_BATCH
+    prompts of DECODE_PROMPT
     tokens, DECODE_STEPS teacher-forced steps; for Zamba2 also one
     prompt of ZAMBA_LONG tokens (the ring of its 4096-key window) and
     DECODE_LONG_STEPS steps. Returns the runs by label."""
@@ -3866,7 +3986,7 @@ def decode_full(arch: str, tag: str) -> dict:
     from repro_torch.data.tokens import synthetic_token_batch
     from repro_torch.models.transformer import init_lm
 
-    cfg = get_config(arch)
+    cfg = cut_depth(get_config(arch), DECODE_LAYERS[arch])
     check(cfg.dtype == "bfloat16", f"{arch} is not bf16")
     params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
     runs = {}
@@ -3877,7 +3997,7 @@ def decode_full(arch: str, tag: str) -> dict:
         toks = torch.as_tensor(synthetic_token_batch(
             B, prompt + steps, cfg.vocab, seed=prompt), dtype=torch.long,
             device="cuda")
-        label = f"{arch} {B} x {prompt} + {steps}"
+        label = f"{arch} ({cfg.n_layers} layers) {B} x {prompt} + {steps}"
         runs[label] = decode_run(cfg, params, toks, prompt, label, tag,
                                  DECODE_BOUND,
                                  fp32_reference=prompt == DECODE_PROMPT)
@@ -4097,7 +4217,7 @@ def decode_main_path(tag: str) -> dict:
     ``prefill``, ``init_cache`` and ``decode_step``, and
     ``flush_recent``) for Qwen1.5-4B (full-mode cache: a flush lands
     mid-run), Mamba2-370M and Zamba2-2.7B (also the 133,120-token ring)
-    at full width and depth in bf16 (``decode_full``), each one's fp32
+    at full width and half depth in bf16 (``decode_full``), each one's fp32
     copy held against the forward and the CPU (``decode_fp32_copy``),
     and the SSD scan from a given state (``ssd_from_state``). Returns
     the runs, the prefills' kernel launches by kernel and row key, and
@@ -4168,27 +4288,30 @@ def release(baseline: int, what: str) -> None:
 
 def dense_model(arch: str, tag: str, baseline: int):
     """One model of the [dense] phase, alone on the card: (a) served at
-    full width and depth in bf16 through ``ServingEngine``
+    full width in bf16, DENSE_LAYERS layers, through ``ServingEngine``
     (``zoo_serve_main_path``: bursts A and B, exactly ``n_layers`` flash
     launches a flush, no plain version on the card), burst B's flush's
     busy share (``profile_zoo``); (c) DECODE_BATCH prompts of DECODE_PROMPT
     tokens prefilled with the same weights (exactly ``n_layers`` flash
     launches) and DENSE_DECODE_STEPS teacher-forced steps, each held
     against the forward and an fp32 forward (``dense_forward_fp32``);
-    the model freed, and for Granite the serve CLI at full width; (b)
-    the 2-layer fp32 copy against the CPU (``zoo_card_vs_cpu``) and (d)
-    its decode (``decode_fp32_copy``); (e) the flash kernel at the
+    the model freed, and for Granite the serve CLI at full width and
+    depth; (b) the DENSE_FP32_LAYERS-layer fp32 copy against the CPU
+    (``zoo_card_vs_cpu``) and (d) its decode (``decode_fp32_copy``);
+    (e) the flash kernel at the
     model's shapes (``time_flash``; the rows of its 8 x 32 launch bit
     for bit each row's launch alone). Only the long flush is profiled
     and the serve CLI runs Granite alone, to keep the phase short. The
     memory allocated on the card is back to ``baseline`` after each part
     that held a model. Returns the flash launches by row key, the flash
     rows and their largest |kernel - plain|."""
+    from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_token_batch
 
     t0 = time.perf_counter()
-    fc, launches, init_s = timed(f"{arch}: serve", zoo_serve_main_path, arch,
-                                 tag)
+    fc, launches, init_s = timed(
+        f"{arch}: serve", zoo_serve_main_path, arch, tag, ZOO_BURSTS,
+        cut_depth(get_config(arch), DENSE_LAYERS))
     serve_peak = torch.cuda.max_memory_allocated() / 2**30
     timed(f"{arch}: profile serving", profile_zoo, fc,
           {"flash_attention": FLASH_SYMBOL}, tag, (FLASH_FP32_SYMBOL,),
@@ -4211,7 +4334,7 @@ def dense_model(arch: str, tag: str, baseline: int):
         timed(f"{arch}: serve CLI", zoo_cli, arch, ("flash_attention",))
         release(baseline, f"the serve CLI with {arch}")
     cpu_err = timed(f"{arch}: card vs CPU", zoo_card_vs_cpu, arch, tag,
-                    DECODE_NOISE)
+                    DECODE_NOISE, DECODE_FP32_LAYERS[arch])
     fp32_err = timed(f"{arch}: fp32 decode copy", decode_fp32_copy, arch,
                      tag)
     release(baseline, f"{arch}'s fp32 copies")
@@ -4223,7 +4346,8 @@ def dense_model(arch: str, tag: str, baseline: int):
     flash_rows_alone(short)
     release(baseline, f"{arch}'s flash timing")
     seconds = time.perf_counter() - t0
-    print(f"[dense] {tag}: {arch}: {describe(cfg)}; served bursts A and B "
+    print(f"[dense] {tag}: {arch} cut to {cfg.n_layers} layers: "
+          f"{describe(cfg)}; served bursts A and B "
           f"with {cfg.n_layers} flash launches a flush (peak "
           f"{serve_peak:.2f} GiB), decode batch {B} (not cut) x {prompt} + "
           f"{steps}: prefill {run['prefill_ms']:.1f} ms, "
@@ -4231,8 +4355,9 @@ def dense_model(arch: str, tag: str, baseline: int):
           f"tokens/s, peak {run['peak_gib']:.2f} GiB, decode vs forward "
           f"max {run['rel_max']:.3e}, vs fp32 forward: bf16 forward "
           f"{run['fp32_reference'][0]:.3e}, decode "
-          f"{run['fp32_reference'][1]:.3e}; 2-layer fp32 copy vs CPU "
-          f"{cpu_err:.3e}, its decode {fp32_err:.3e}; flash at "
+          f"{run['fp32_reference'][1]:.3e}; {DECODE_FP32_LAYERS[arch]}-"
+          f"layer fp32 copy vs CPU {cpu_err:.3e}, its decode "
+          f"{fp32_err:.3e}; flash at "
           f"{sorted(flash)}: max |kernel - plain| {err:.3e}, rows of "
           f"{short} == B=1 launches bitwise; memory back to "
           f"{baseline / 2**30:.3f} GiB after each part; init "
@@ -4575,6 +4700,465 @@ def audio_main_path(tag: str) -> dict:
     return {"launches": launches, "rows": rows, "err": err}
 
 
+# --------------------------------------------------------- [train-zoo] --
+
+FLASH_BWD_SYMBOLS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+
+
+def flash_bwd_inputs(B, Sq, Skv, Hq, Hkv, D, mask, dtype, seed):
+    """q, k, v, the forward's output and logsumexp (from the forward
+    kernel, as the training forward launches it) and a cotangent, on
+    the card."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    q, k, v = attn_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device="cuda")
+    out = attn_kernel.flash_attention_cuda(
+        q, k, v, mask["causal"], mask.get("window"), 0, Skv, lse=lse)
+    return q, k, v, out, dout, lse
+
+
+def flash_bwd_err(got, want, dtype, what) -> float:
+    """The backward's (dq, dk, dv) against the plain version's: fp32 at
+    the forward's rtol / atol, bf16 within FLASH_BWD_BF16_REL of each
+    one's max |grad|. Returns the largest |kernel - plain| over max
+    |grad| (bf16) or the largest |kernel - plain| (fp32)."""
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == dtype and g.shape == w.shape,
+              f"flash backward {what}: {name} {g.dtype} {tuple(g.shape)}")
+        err = float((g.float() - w.float()).abs().max())
+        if dtype == torch.float32:
+            check(torch.allclose(g, w.float(), rtol=FLASH_RTOL,
+                                 atol=FLASH_ATOL),
+                  f"flash backward disagrees with its plain version at "
+                  f"{what} fp32: {name} max err {err}")
+            worst = max(worst, err)
+        else:
+            top = float(w.float().abs().max())
+            check(err <= FLASH_BWD_BF16_REL * top,
+                  f"flash backward disagrees with its plain version at "
+                  f"{what} bf16: {name} max err {err}, max |grad| {top}")
+            worst = max(worst, err / top)
+    return worst
+
+
+def check_flash_bwd() -> dict:
+    """The flash backward kernel against ``attention_bwd_ref`` on the
+    card, on the same inputs and cotangent, over FLASH_BWD_CASES in fp32
+    and bf16, through the autograd Function the path runs (its forward
+    launch with the logsumexp, then the backward launch); the forward's
+    logsumexp against ``logsumexp_ref`` and its output bitwise the
+    serving launch's; a second backward launch bitwise the first.
+    Returns the largest |kernel - plain| (fp32) and relative (bf16)."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.attention.ref import (attention_bwd_ref,
+                                                   logsumexp_ref)
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    lse_err = 0.0
+    n = 0
+    for B, Sq, Skv, Hq, Hkv, D, mask in FLASH_BWD_CASES:
+        for dt in worst:
+            n += 1
+            what = f"({B}, {Sq}, {Skv}, {Hq}, {Hkv}, {D}) {mask}"
+            q, k, v, out, dout, lse = flash_bwd_inputs(
+                B, Sq, Skv, Hq, Hkv, D, mask, dt, seed=100 + n)
+            serve = attn_kernel.flash_attention_cuda(
+                q, k, v, mask["causal"], mask.get("window"), 0, Skv)
+            check(torch.equal(out, serve),
+                  f"flash forward at {what} {dt}: the output with the "
+                  f"logsumexp differs from the serving launch's")
+            f32 = [t.float() for t in (q, k, v, out, dout)]
+            want_lse = logsumexp_ref(f32[0], f32[1], causal=mask["causal"],
+                                     window=mask.get("window"))
+            lse_err = max(lse_err, float((lse - want_lse).abs().max()))
+            check(torch.allclose(lse, want_lse, rtol=1e-4, atol=1e-4),
+                  f"flash forward's logsumexp at {what} {dt}: max err "
+                  f"{float((lse - want_lse).abs().max())}")
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = attn_kernel.FLASH_BWD_LAUNCHES.total
+            flash_attention(*leaves, **mask).backward(dout)
+            check(attn_kernel.FLASH_BWD_LAUNCHES.total == before + 1,
+                  f"flash backward at {what}: not one launch")
+            got = [t.grad for t in leaves]
+            again = attn_kernel.flash_attention_bwd_cuda(
+                q, k, v, out, dout, lse, mask["causal"], mask.get("window"))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash backward at {what} {dt}: two launches differ")
+            want = attention_bwd_ref(*f32, want_lse, causal=mask["causal"],
+                                     window=mask.get("window"))
+            worst[dt] = max(worst[dt], flash_bwd_err(got, want, dt, what))
+            del q, k, v, out, dout, lse, leaves, got, again, want, f32
+    print(f"[check] flash backward vs attention_bwd_ref over {n} cases "
+          f"(B, Sq, Skv, Hq, Hkv, D, mask) "
+          f"{[c[:6] + (c[6],) for c in FLASH_BWD_CASES]} x fp32, bf16, "
+          f"through the autograd Function: max |kernel - plain| fp32 "
+          f"{worst[torch.float32]:.3e} (rtol {FLASH_RTOL}, atol "
+          f"{FLASH_ATOL}), bf16 {worst[torch.bfloat16]:.3e} of max |grad| "
+          f"(bound {FLASH_BWD_BF16_REL}); the forward's logsumexp vs "
+          f"logsumexp_ref max {lse_err:.3e} (1e-4), its output bitwise "
+          f"the serving launch's; a second backward launch bitwise the "
+          f"first")
+    return worst
+
+
+def flash_bwd_bound(B, Sq, Skv, Hq, Hkv, D, window=None, causal=True,
+                    itemsize=2):
+    """The flash backward at the bf16 tensor-core peak: 10 D operations
+    per attended (query, key) pair and head (s again, dP, dV, dQ, dK:
+    two each), 2.5 x the forward's; q, k, v, o, dout read once, the
+    logsumexp (fp32) read once, dq, dk, dv written once."""
+    ops = flash_ops(B, Sq, Skv, Hq, Hkv, D, window, causal) * 10 // 4
+    nbytes = (itemsize * (4 * B * Sq * Hq * D + 4 * B * Skv * Hkv * D)
+              + 4 * B * Hq * Sq)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_flash_bwd(launches: dict, tag: str):
+    """The backward kernel at each row key of the train path (bf16): its
+    device time (``graph_ms``) beside its plain version's
+    (``attention_bwd_ref``), the library's (one
+    ``scaled_dot_product_attention`` forward + backward, less its
+    forward; never called by the port) and its bound; held against the
+    plain version there first. Returns rows by key and the largest
+    relative |kernel - plain|."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ref import attention_bwd_ref
+
+    rows, worst = {}, 0.0
+    for key in sorted(launches, key=str):
+        shape, w, causal = flash_row(key)
+        B, Sq, Skv, Hq, Hkv, D = shape
+        mask = dict(causal=causal, window=w)
+        q, k, v, out, dout, lse = flash_bwd_inputs(
+            *shape, mask, torch.bfloat16, seed=B * 7 + Sq)
+        got = attn_kernel.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                   causal, w)
+        want = attention_bwd_ref(*(t.float() for t in (q, k, v, out, dout)),
+                                 lse, causal=causal, window=w)
+        err = flash_bwd_err(got, want, torch.bfloat16, str(key))
+        worst = max(worst, err)
+        del got, want
+        gqa = Hq != Hkv
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = dout.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        inner, reps = (10, 11)
+        lib_fwd = graph_ms(lambda: sdpa().detach(), inner, reps)
+        bnd, by = flash_bwd_bound(*shape, w, causal)
+        rows[key] = {
+            "ms": graph_ms(lambda: attn_kernel.flash_attention_bwd_cuda(
+                q, k, v, out, dout, lse, causal, w), inner, reps),
+            "plain_ms": graph_ms(lambda: attention_bwd_ref(
+                q, k, v, out, dout, lse, causal=causal, window=w), inner,
+                reps),
+            "library_ms": graph_ms(sdpa_fwd_bwd, inner, reps) - lib_fwd,
+            "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+        r = rows[key]
+        tflops = (flash_ops(*shape, w, causal) * 10 // 4
+                  / (r["ms"] * 1e-3) / 1e12)
+        print(f"[time] {tag}: flash_attention_bwd {shape} bf16 "
+              f"{'causal' if causal else 'non-causal'}"
+              f"{f' window {w}' if w else ''}: kernel "
+              f"{r['ms'] * 1e3:.2f} us = {tflops:.1f} TFLOP/s (the "
+              f"bound's operations over its time), plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, scaled_dot_product_attention "
+              f"forward + backward less its forward "
+              f"{r['library_ms'] * 1e3:.2f} us (its forward "
+              f"{lib_fwd * 1e3:.2f} us), bound {r['bound_ms'] * 1e3:.3f} us "
+              f"({by}) = {100 * r['bound_ms'] / r['ms']:.2f} % of the "
+              f"kernel's time; |kernel - plain| {err:.3e} of max |grad|; "
+              f"{launches[key]} launches on the main path")
+        del q, k, v, out, dout, lse, qt, kt, vt, dot
+    return rows, worst
+
+
+def train_fp32_copy(tag: str) -> float:
+    """Qwen1.5-4B at full width, 2 layers, fp32 (TF32 off), noised as
+    the card-vs-CPU copies: ``lm_loss`` and every gradient leaf
+    (``launch.specs.loss_and_grad``), and one Adam step of
+    ``make_optimizer`` on that gradient (``make_train_step``'s step at
+    one microbatch, its gradient kept to be compared: the CPU half
+    computes it once), on the card (through the fp32 flash kernels,
+    forward and backward) and on the CPU (the plain versions) from the
+    same weights on the same TRAIN_FP32_BATCH tokens: the loss, each
+    gradient leaf and Adam's moments within TRAIN_FP32_TOL of the
+    leaf's max |value|, the parameters as TRAIN_FP32_TOL's comment says.
+    Returns the largest relative difference of the loss and the
+    gradients."""
+    import dataclasses
+
+    from repro_torch.checkpoint.convert import params_to
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.specs import loss_and_grad, make_optimizer
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import apply_updates
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ZOO_ARCH), 2),
+                              dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = init_lm(cfg, g)
+    for name, t in named_leaves(params):
+        if name in DECODE_NOISE:
+            t.add_(DECODE_NOISE[name] * torch.randn(t.shape, generator=g,
+                                                    device="cuda"))
+    toks = torch.as_tensor(synthetic_token_batch(
+        *TRAIN_FP32_BATCH, cfg.vocab, seed=21), dtype=torch.long)
+    opt = make_optimizer(cfg)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else params_to(params, "cpu")
+        reset_counters()
+        with no_plain_version_on_the_card() as plain_calls:
+            loss, grads = loss_and_grad(cfg, p, toks.to(dev))
+            updates, state = opt.update(grads, opt.init(p), p, TRAIN_ZOO_LR)
+            new = apply_updates(p, updates)
+            del updates
+        got = {k: sum(v.values()) for k, v in read_counters().items()}
+        if dev == "cuda":
+            check(not plain_calls and got["flash_attention"] == 4
+                  and got["flash_attention_bwd"] == 2
+                  and sum(got.values()) == 6,
+                  f"the fp32 copy's gradient on the card launched {got}, "
+                  f"not 4 forward + 2 backward flash launches (plain "
+                  f"versions: {plain_calls})")
+        out[dev] = [float(loss)] + [dict(tree_flatten_with_path(t)) for t in
+                                    (grads, state.mu, state.nu, new)]
+        del p, loss, grads, new, state
+    del params
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    check(rel <= TRAIN_FP32_TOL, f"fp32 copy's loss: card "
+                                 f"{out['cuda'][0]} vs CPU {out['cpu'][0]}")
+    worst = {"loss": rel}
+    for i, name in enumerate(("gradient", "mu", "nu"), start=1):
+        for path, c in out["cpu"][i].items():
+            d = out["cuda"][i][path].cpu()
+            top = float(c.abs().max())
+            err = float((d - c).abs().max()) / max(top, 1e-30)
+            worst[name] = max(worst.get(name, 0.0), err)
+            check(err <= TRAIN_FP32_TOL,
+                  f"fp32 copy's {name} {path}: card vs CPU {err:.3e} of "
+                  f"max |value| {top:.3e}")
+    off = n = 0
+    step_max = 0.0
+    for path, c in out["cpu"][4].items():
+        diff = (out["cuda"][4][path].cpu() - c).abs()
+        off += int((diff > 1e-6 + 1e-4 * c.abs()).sum())
+        n += diff.numel()
+        step_max = max(step_max, float(diff.max()))
+    check(off <= n * 1e-3 and step_max <= 2 * TRAIN_ZOO_LR,
+          f"fp32 copy's parameters after one Adam step: {off} of {n} "
+          f"elements beyond rtol 1e-4 / atol 1e-6, max |diff| {step_max}")
+    print(f"[train-zoo] {tag}: {TRAIN_ZOO_ARCH} fp32 copy, full width, 2 "
+          f"layers, batch {TRAIN_FP32_BATCH}: card vs CPU, same weights: "
+          f"loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f} (rel "
+          f"{rel:.3e}); max |card - cpu| / max |cpu| over the leaves: "
+          f"gradients {worst['gradient']:.3e}, Adam's mu {worst['mu']:.3e}, "
+          f"nu {worst['nu']:.3e} (bound {TRAIN_FP32_TOL}); parameters "
+          f"after the step: {off} of {n} elements beyond rtol 1e-4 / atol "
+          f"1e-6, max |diff| {step_max:.3e} (lr {TRAIN_ZOO_LR}); the "
+          f"card's gradient launched 4 flash forward (fp32) and 2 "
+          f"backward, no plain version")
+    return max(worst["loss"], worst["gradient"])
+
+
+def train_zoo_cli() -> None:
+    """The training CLI's zoo mode on the card: ``train --arch
+    qwen1.5-4b --reduced --steps 3`` (2 layers, fp32), each step 2 x 2
+    flash forward and 2 backward launches, nothing else."""
+    from repro_torch.launch import train as train_cli
+
+    reset_counters()
+    args = ["--arch", TRAIN_ZOO_ARCH, "--reduced", "--steps", "3",
+            "--batch", "8", "--seq", "64", "--device", "cuda"]
+    losses = train_cli.main(args)
+    got = {k: c.total for k, c in counters().items()}
+    check(len(losses) == 3 and np.isfinite(losses[-1])
+          and got["flash_attention"] == 12
+          and got["flash_attention_bwd"] == 6 and sum(got.values()) == 18,
+          f"train {' '.join(args)}: losses {losses}, launches {got}")
+    print(f"[train-zoo] train {' '.join(args)}: losses "
+          f"{[round(x, 4) for x in losses]}, 12 flash forward and 6 "
+          f"backward launches (2 layers, remat, 3 steps), nothing else")
+
+
+def train_zoo_main_path(tag: str) -> dict:
+    """The [train-zoo] phase: Qwen1.5-4B at full width, TRAIN_ZOO_LAYERS
+    layers, bf16, remat on, random weights from seed 0, alone on the
+    card (at most 1 GiB allocated when it starts). (a) Step 0's loss and
+    gradient (``launch.specs.loss_and_grad``) twice: bitwise the same,
+    with exactly 2 flash forward and 1 backward launches a layer and no
+    other kernel; (b) TRAIN_ZOO_STEPS steps of ``make_train_step``
+    (Adam, clip 1.0), the launch counts zeroed before each and read
+    after it (the same counts a step; no plain version on the card),
+    each loss finite, ms a step and tokens/s (the median after step 0),
+    the peak memory under TRAIN_ZOO_PEAK_GIB; (c) one more step under
+    the profiler: the device's busy share and the flash kernels' and
+    the matrix products' shares; (d) the model freed, then
+    ``train_fp32_copy``, ``check_flash_bwd`` and ``time_flash_bwd`` at
+    the path's shape, and the forward there (``time_flash``). Returns
+    the flash forward and backward launches by row key, both kernels'
+    rows at the path's shape, the forward's largest |kernel - plain|
+    there and the backward's in fp32 over ``check_flash_bwd``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.specs import loss_and_grad, make_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    baseline = settled_memory()
+    check(baseline < 2**30, f"[train-zoo] starts with "
+                            f"{baseline / 2**30:.2f} GiB allocated")
+    cfg = cut_depth(get_config(TRAIN_ZOO_ARCH), TRAIN_ZOO_LAYERS)
+    check(cfg.dtype == "bfloat16" and cfg.remat,
+          f"{cfg.name} is not trained in bf16 with remat")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    B, S = TRAIN_ZOO_BATCH
+    batches = [torch.as_tensor(synthetic_token_batch(B, S, cfg.vocab,
+                                                     seed=i),
+                               dtype=torch.long, device="cuda")
+               for i in range(TRAIN_ZOO_STEPS + 1)]
+    key = flash_key((B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+                    None)
+    L = cfg.n_layers
+    want = {"flash_attention": {key: 2 * L},
+            "flash_attention_bwd": {key: L}}
+
+    def counts_ok(got, what):
+        check(all(got[k] == want.get(k, {}) for k in got),
+              f"{what}: launches {got}, {want} expected (2 forward and 1 "
+              f"backward flash launches a layer, nothing else)")
+
+    # (a) step 0's gradient twice
+    reset_counters()
+    with no_plain_version_on_the_card() as plain_calls:
+        loss_a, grads_a = loss_and_grad(cfg, params, batches[0])
+        torch.cuda.synchronize()
+        counts_ok(read_counters(), "step 0's gradient")
+        loss_b, grads_b = loss_and_grad(cfg, params, batches[0])
+        torch.cuda.synchronize()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    leaves_a, leaves_b = tree_leaves(grads_a), tree_leaves(grads_b)
+    check(torch.equal(loss_a, loss_b) and len(leaves_a) == len(leaves_b)
+          and all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b)),
+          "step 0's loss and gradients differ between two runs")
+    check(all(float(g.abs().max()) > 0 for g in leaves_a),
+          "a gradient leaf of step 0 is all zeros")
+    grad_peak = torch.cuda.max_memory_allocated() / 2**30
+    loss0 = float(loss_a)
+    del loss_a, loss_b, grads_a, grads_b, leaves_a, leaves_b
+    # (b) the steps, from an empty cache: the gradient runs' freed
+    # activations would otherwise split the blocks Adam's updates need
+    settled_memory()
+    step, opt = make_train_step(cfg, lr=TRAIN_ZOO_LR)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = [], [], {}
+    for i in range(TRAIN_ZOO_STEPS):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_version_on_the_card() as plain_calls:
+            params, state, loss = step(params, state, batches[i])
+            losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        got = read_counters()
+        check(not plain_calls, f"step {i}: plain versions ran on the card: "
+                               f"{plain_calls}")
+        counts_ok(got, f"step {i}")
+        launches = merge_launches(launches, {
+            k: got[k] for k in ("flash_attention", "flash_attention_bwd")})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(losses[0] == loss0,
+          f"step 0's loss {losses[0]} != its gradient run's {loss0}")
+    check(peak < TRAIN_ZOO_PEAK_GIB, f"a step's peak {peak:.2f} GiB")
+    step_ms = 1e3 * statistics.median(times[1:])
+    # (c) one more step, profiled
+    box = [params, state]
+
+    def drive():
+        box[0], box[1], _ = step(box[0], box[1], batches[TRAIN_ZOO_STEPS])
+
+    reset_counters()
+    wall, busy, kernels = profile(
+        f"{cfg.name} ({L} layers) train step {B} x {S}", drive, tag)
+    counts_ok(read_counters(), "the profiled step")
+    launches = merge_launches(launches, {
+        k: read_counters()[k] for k in ("flash_attention",
+                                        "flash_attention_bwd")})
+    fwd_us = sum(us for us, _, name in kernels if FLASH_SYMBOL in name)
+    bwd_us = sum(us for us, _, name in kernels
+                 if any(s in name for s in FLASH_BWD_SYMBOLS))
+    gemm = sum(us for us, _, name in kernels
+               if any(w in name.lower() for w in ("nvjet", "gemm",
+                                                  "cutlass", "xmma")))
+    check(fwd_us > 0 and bwd_us > 0,
+          f"the profiled step ran no flash kernel: "
+          f"{[name for _, _, name in kernels][:20]}")
+    del params, state, box, batches, loss
+    release(baseline, f"{cfg.name} training")
+    print(f"[train-zoo] {tag}: {TRAIN_ZOO_ARCH} cut to {L} layers: "
+          f"{describe(cfg)}; {n_params} parameters, bf16, remat, drawn on "
+          f"the card in {init_s:.2f} s; batch {B} x {S}; step 0's loss "
+          f"{loss0:.6f} and every gradient leaf bitwise equal in "
+          f"two runs (peak {grad_peak:.2f} GiB); {TRAIN_ZOO_STEPS} Adam "
+          f"steps (lr {TRAIN_ZOO_LR}, clip 1.0): losses "
+          f"{[round(x, 6) for x in losses]}, each step exactly {2 * L} "
+          f"flash forward launches (the forward and its recomputation) "
+          f"and {L} backward launches at {key}, nothing else, no plain "
+          f"version on the card; {step_ms:.1f} ms a step (median of steps "
+          f"1..{TRAIN_ZOO_STEPS - 1}; {[round(1e3 * t, 1) for t in times]}),"
+          f" {B * S / (step_ms / 1e3):.0f} tokens/s; peak {peak:.2f} GiB "
+          f"allocated (bound {TRAIN_ZOO_PEAK_GIB}), {reserved:.2f} GiB "
+          f"reserved; profiled step: busy "
+          f"{100 * busy / wall:.2f} %, flash forward {fwd_us:.1f} us = "
+          f"{100 * fwd_us / busy:.2f} %, backward {bwd_us:.1f} us = "
+          f"{100 * bwd_us / busy:.2f} %, matrix products {gemm:.1f} us = "
+          f"{100 * gemm / busy:.2f} % of the busy time; memory back to "
+          f"{baseline / 2**30:.3f} GiB")
+    cpu_err = timed("train-zoo: fp32 copy vs CPU", train_fp32_copy, tag)
+    release(baseline, "the fp32 copy")
+    timed("train-zoo: the train CLI", train_zoo_cli)
+    release(baseline, "the train CLI")
+    errs = timed("check flash_attention_bwd", check_flash_bwd)
+    rows, time_err = timed("time flash_attention_bwd", time_flash_bwd,
+                           launches["flash_attention_bwd"], tag)
+    fwd_rows, fwd_err = timed("time flash_attention at the train shape",
+                              time_flash, launches["flash_attention"], tag,
+                              ())
+    release(baseline, "the flash backward's checks")
+    print(f"[train-zoo] {tag}: phase {time.perf_counter() - t_phase:.2f} s; "
+          f"fp32 copy vs CPU {cpu_err:.3e}")
+    return {"launches": launches, "rows": rows, "fwd_rows": fwd_rows,
+            "fwd_err": fwd_err, "bwd_err": errs[torch.float32]}
+
+
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
     """One kernel's line of the report: times weighted by its launches at
     each shape on the main paths. ``library_ms`` is weighted over the
@@ -4644,7 +5228,10 @@ def main() -> None:
               "--decode": lambda: (build_kernels(), decode_main_path(tag)),
               "--dense": lambda: (build_kernels(), dense_main_path(tag)),
               "--moe": lambda: (build_kernels(), moe_main_path(tag)),
-              "--audio": lambda: (build_kernels(), audio_main_path(tag))}
+              "--audio": lambda: (build_kernels(), audio_main_path(tag)),
+              "--train-zoo": lambda: (build_kernels(),
+                                      train_zoo_main_path(tag)),
+              "--flash-serve": lambda: flash_serve(tag)}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -4766,6 +5353,12 @@ def main() -> None:
     rows["flash_attention"].update(audio["rows"])
     errs["flash_attention"] = max(errs["flash_attention"], audio["err"])
     every = merge_launches(every, audio["launches"])
+    train = timed("zoo training (train-zoo)", train_zoo_main_path, tag)
+    rows["flash_attention"].update(train["fwd_rows"])
+    errs["flash_attention"] = max(errs["flash_attention"], train["fwd_err"])
+    every = merge_launches(every, train["launches"])
+    rows["flash_attention_bwd"] = train["rows"]
+    errs["flash_attention_bwd"] = train["bwd_err"]
     rows["ssd_chunk"], every["ssd_chunk"], errs["ssd_chunk"] = \
         decode["ssd_chunk"]
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
@@ -4779,6 +5372,9 @@ def main() -> None:
         "flash_attention": (csrc.format("attention",
                                         "flash_attention_wgmma.cu"),
                             "src/repro/kernels/attention/kernel.py:34"),
+        "flash_attention_bwd": (csrc.format("attention",
+                                            "flash_attention_bwd.cu"),
+                                "src/repro/kernels/attention/kernel.py:34"),
         "ssd_scan": (csrc.format("ssd", "ssd_scan_wgmma.cu"),
                      "src/repro/kernels/ssd/kernel.py:27"),
         "ssd_chunk": (csrc.format("ssd", "ssd_scan.cu"),

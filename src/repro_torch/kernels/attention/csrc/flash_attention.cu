@@ -18,7 +18,13 @@
 //   out = softmax(s) v, by the running max m, denominator l and
 //         accumulator acc (all fp32), the products with v on fp32
 //         probabilities (the bf16 kernel: on their two bf16 halves, good
-//         to about 2^-17), acc / max(l, 1e-30) stored in q's dtype.
+//         to about 2^-17), acc / max(l, 1e-30) stored in q's dtype;
+//   lse = m + log(l), each row's logsumexp of its scaled scores, in
+//         fp32 [B, Hq, Sq], written only when its pointer is not null:
+//         training's forward asks for it (the backward of
+//         flash_attention_bwd.cu recomputes P = exp(s - lse) from it);
+//         serving and decode pass null, and their launches store
+//         exactly what they stored before it existed.
 //
 // Query head h reads kv head h / (Hq / Hkv), so GQA never copies k or v.
 // The tensors are read and written through their strides (the last dim
@@ -59,6 +65,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, Hq, Sq], or null
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int Sq, Skv, Hq, group, causal, window, q_offset, kv_valid;
@@ -212,6 +219,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Params p) {
     float* orow = ob + qi * p.o_ss;
 #pragma unroll
     for (int c = 0; c < DC; ++c) orow[tx + 8 * c] = acc[i][c] / denom;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[static_cast<long long>(blockIdx.x) * p.Sq + qi] =
+          m[i] + logf(denom);
   }
 }
 
@@ -240,7 +250,7 @@ cudaError_t launch_fp32(const Params& p, int B, int D, cudaStream_t stream) {
 
 namespace flash_wgmma {
 int forward(const void* q, const void* k, const void* v, void* o,
-            long long q_sb, long long q_ss, long long q_sh,
+            float* lse, long long q_sb, long long q_ss, long long q_sh,
             long long k_sb, long long k_ss, long long k_sh,
             long long v_sb, long long v_ss, long long v_sh,
             long long o_sb, long long o_ss, long long o_sh, int B,
@@ -254,11 +264,12 @@ extern "C" {
 // q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], o [B, Sq, Hq, D], each
 // with its (batch, seq, head) strides in elements and the last dim
 // contiguous; all fp32 (bf16 = 0) or all bf16 (bf16 = 1). window <= 0
-// means no window. Returns cudaGetLastError() after the launch (0 when
-// there is nothing to launch), or, for bf16, -1, -2 or -3 when the
+// means no window. lse: null, or a contiguous fp32 [B, Hq, Sq] that
+// takes each row's logsumexp. Returns cudaGetLastError() after the
+// launch (0 when there is nothing to launch), or, for bf16, -1, -2 or -3 when the
 // CUDA driver refuses q's, k's or v's tensor map (TMA's 16-byte rules).
 int flash_attention_forward(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -269,11 +280,12 @@ int flash_attention_forward(
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return flash_wgmma::forward(q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, B,
-                                Sq, Skv, Hq, Hkv, D, causal, window, q_offset,
-                                kv_valid, scale, s);
-  const Params p{q, k, v, o,
+    return flash_wgmma::forward(q, k, v, o, static_cast<float*>(lse), q_sb,
+                                q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                v_sh, o_sb, o_ss, o_sh, B, Sq, Skv, Hq, Hkv,
+                                D, causal, window, q_offset, kv_valid, scale,
+                                s);
+  const Params p{q, k, v, o, static_cast<float*>(lse),
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                  v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                  Sq, Skv, Hq, Hq / Hkv, causal, window, q_offset, kv_valid,

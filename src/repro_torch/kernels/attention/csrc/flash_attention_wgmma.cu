@@ -14,7 +14,12 @@
 //         window), query position q_offset + row; query head h reads kv
 //         head h / (Hq / Hkv);
 //   out = softmax(s) v by the running max m, denominator l and
-//         accumulator acc, all fp32; acc / max(l, 1e-30) stored in bf16.
+//         accumulator acc, all fp32; acc / max(l, 1e-30) stored in bf16;
+//   lse = each row's logsumexp of its scaled scores, (m + log2(l)) ln 2
+//         with m kept in log2 units, fp32 [B, Hq, Sq], stored by the
+//         quad's first thread only when the pointer is not null (the
+//         training forward's; serving passes null). It adds no live
+//         register to the loop: m and l are there already.
 //
 // Design. One block of three warpgroups per (batch x query head, tile of
 // 128 query rows); the tiles are walked last first (blockIdx.y counts from
@@ -108,9 +113,11 @@ constexpr int ROW_BYTES = 128;  // one slab row in shared memory
 constexpr float NEG_INF = -1e30f;
 constexpr float MASKED = -1e20f;  // a scaled max below it: no key seen yet
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   void* o;
+  float* lse;  // [B, Hq, Sq], or null
   long long o_sb, o_ss, o_sh;
   int Sq, Hq, group, causal, window, q_offset, kv_valid;
   float scale_log2;  // D^-0.5 * log2(e): the softmax runs on exp2
@@ -561,6 +568,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const int qi = q0 + row0 + 8 * half;
       if (qi >= p.Sq) continue;
       const float d = half ? d1 : d0;
+      if (p.lse != nullptr && r.t == 0)
+        p.lse[static_cast<long long>(blockIdx.x) * p.Sq + qi] =
+            ((half ? r.m1 : r.m0) + log2f(d)) * LN2;
       __nv_bfloat16* orow = ob + qi * p.o_ss;
 #pragma unroll
       for (int jb = 0; jb < T::DP / 8; ++jb) {
@@ -646,11 +656,12 @@ namespace flash_wgmma {
 constexpr int kTmaRefusedQ = -1, kTmaRefusedK = -2, kTmaRefusedV = -3;
 
 // bf16 q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], o [B, Sq, Hq, D],
-// strides in elements, last dim contiguous; D one of 32, 64, 80, 128.
+// strides in elements, last dim contiguous; D one of 32, 64, 80, 128;
+// lse null or a contiguous fp32 [B, Hq, Sq].
 // Returns the launch's cudaError_t, or a kTmaRefused code before any
 // launch.
 int forward(const void* q, const void* k, const void* v, void* o,
-            long long q_sb, long long q_ss, long long q_sh,
+            float* lse, long long q_sb, long long q_ss, long long q_sh,
             long long k_sb, long long k_ss, long long k_sh,
             long long v_sb, long long v_ss, long long v_sh,
             long long o_sb, long long o_ss, long long o_sh, int B,
@@ -665,7 +676,7 @@ int forward(const void* q, const void* k, const void* v, void* o,
     return kTmaRefusedK;
   if (!make_map(&tv, v, D, Hkv, Skv, B, v_sh, v_ss, v_sb, BK))
     return kTmaRefusedV;
-  const Params p{o, o_sb, o_ss, o_sh, Sq, Hq, Hq / Hkv, causal, window,
+  const Params p{o, lse, o_sb, o_ss, o_sh, Sq, Hq, Hq / Hkv, causal, window,
                  q_offset, kv_valid, scale * LOG2E};
   switch (D) {
     case 32: return launch<32>(tq, tk, tv, p, B, stream);

@@ -2,7 +2,9 @@
 ``csrc/flash_attention.cu`` (the entry point, and the fp32 kernel on the
 CUDA cores) and ``csrc/flash_attention_wgmma.cu`` (the bf16 kernel:
 wgmma on the tensor cores, fed by TMA), the entry point choosing by
-dtype.
+dtype; and one of ``csrc/flash_attention_bwd.cu``, the backward (dq, dk
+and dv from the forward's output and logsumexp, on the CUDA cores, fp32
+or bf16), built apart so that the two build at once.
 
 Built with ``nvcc`` for ``sm_90a`` at first use
 (``repro_torch.kernels.build``) and called through ``ctypes``, as the
@@ -13,6 +15,8 @@ returns ``cudaGetLastError()``, raised here if it is not 0, or one of
 ``FLASH_LAUNCHES`` counts the launches by ``launch_key``: (B, Sq, Skv,
 Hq, Hkv, D) for a causal launch, with ``NON_CAUSAL`` appended for one
 without the causal mask (the encoder's and cross-attention's).
+``FLASH_BWD_LAUNCHES`` counts the backward's by the same keys, one a
+call of its entry point (which runs its three kernels).
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from repro_torch.kernels.build import LaunchCounter
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = [_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu"]
-LIBRARIES = {"flash_attention": SOURCES}
+BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu"]
+LIBRARIES = {"flash_attention": SOURCES, "flash_attention_bwd": BWD_SOURCES}
 # the head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 80, 128)
 # the entry point's returns when the CUDA driver refuses to encode a
@@ -37,6 +42,7 @@ HEAD_DIMS = (32, 64, 80, 128)
 TMA_REFUSED = {-1: "q", -2: "k", -3: "v"}
 
 FLASH_LAUNCHES = LaunchCounter()
+FLASH_BWD_LAUNCHES = LaunchCounter()
 # the mask's mark in a launch key
 NON_CAUSAL = "non-causal"
 
@@ -47,8 +53,17 @@ def _library() -> ctypes.CDLL:
     lib = build.load("flash_attention", SOURCES)
     fn = lib.flash_attention_forward
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 4 + [_L] * 12 + [_I] * 11
+        fn.argtypes = ([_P] * 5 + [_L] * 12 + [_I] * 11
                        + [ctypes.c_float, _P])
+        fn.restype = _I
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd", BWD_SOURCES)
+    fn = lib.flash_attention_backward
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]
         fn.restype = _I
     return lib
 
@@ -82,10 +97,12 @@ def raise_for(rc: int, q, k, v) -> None:
 
 
 def flash_attention_cuda(q, k, v, causal: bool, window, q_offset: int,
-                         kv_valid: int):
+                         kv_valid: int, lse=None):
     """Launch on validated CUDA tensors (see ``ops``): q [B, Sq, Hq, D];
     k, v [B, Skv, Hkv, D]; one dtype, fp32 or bf16; last dim contiguous.
-    Returns a fresh [B, Sq, Hq, D] output in q's dtype."""
+    ``lse``, when given, a contiguous fp32 [B, Hq, Sq] that takes each
+    query row's logsumexp. Returns a fresh [B, Sq, Hq, D] output in q's
+    dtype."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = q.new_empty((B, Sq, Hq, D))
@@ -94,10 +111,38 @@ def flash_attention_cuda(q, k, v, causal: bool, window, q_offset: int,
     lib = _library()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = lib.flash_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), *strides,
         B, Sq, Skv, Hq, Hkv, D, int(q.dtype == torch.bfloat16), int(causal),
         0 if window is None else int(window), int(q_offset), int(kv_valid),
         D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     raise_for(rc, q, k, v)
     FLASH_LAUNCHES.add(launch_key(B, Sq, Skv, Hq, Hkv, D, causal))
     return out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool, window):
+    """The backward's launch on CUDA tensors the autograd Function
+    checked: q, out, dout [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D],
+    contiguous, one dtype (fp32 or bf16); lse the forward's contiguous
+    fp32 [B, Hq, Sq]; q_offset 0 and every key valid. Returns fresh
+    (dq, dk, dv) in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    rc = _bwd_library().flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
+        int(q.dtype == torch.bfloat16), int(causal),
+        0 if window is None else int(window), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed "
+                           f"at B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} "
+                           f"D={D} {q.dtype}: cudaError {rc}")
+    FLASH_BWD_LAUNCHES.add(launch_key(B, Sq, Skv, Hq, Hkv, D, causal))
+    return dq, dk, dv

@@ -12,9 +12,17 @@ binding raises a ``ValueError`` before anything is launched. fp32 runs
 on the CUDA-core kernel, which takes any stride. The TPU wrapper's
 padding of S to its blocks and folding of heads into the batch have no
 counterpart: the kernels read the [B, S, H, D] tensors through their
-strides and mask their own ragged edges. The kernel has no backward yet,
-so on the card an input that requires grad, while grad is enabled, is
-refused; the CPU route differentiates.
+strides and mask their own ragged edges.
+
+Gradients. On the card an input that requires grad, while grad is
+enabled, goes through ``FlashAttentionFunction``: its forward launches
+the kernel with the logsumexp output and saves q, k, v, the output and
+the logsumexp; its backward launches the backward kernel
+(``csrc/flash_attention_bwd.cu``: dq, dk and dv in the inputs' dtype).
+That backward takes what a training forward launches, causal with an
+optional window or no mask at all, at q_offset 0 with every key valid;
+any other argument raises before anything is launched. On the CPU the
+gradient is autograd's of the plain version, the one CPU route.
 """
 
 from __future__ import annotations
@@ -81,6 +89,41 @@ def _check_cuda(q, k, v) -> None:
                              f"last dim, {name} has stride {t.stride(3)}")
 
 
+def _check_grad(q, k, causal, window, q_offset, kv_valid) -> None:
+    """What the backward kernel takes: training's launches only."""
+    if q_offset != 0 or kv_valid not in (None, k.shape[1]) \
+            or (window is not None and not causal):
+        raise ValueError(f"flash_attention backward kernel takes q_offset "
+                         f"0, every key valid and a window only with the "
+                         f"causal mask, got q_offset {q_offset}, kv_valid "
+                         f"{kv_valid} of {k.shape[1]}, causal {causal}, "
+                         f"window {window}")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention on the card with its gradient: the forward kernel
+    (writing each row's logsumexp), then the backward kernel. Takes
+    checked CUDA tensors (``flash_attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        B, Sq, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        out = kernel.flash_attention_cuda(q, k, v, causal, window, 0,
+                                          k.shape[1], lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = kernel.flash_attention_bwd_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), out,
+            dout.contiguous(), lse, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_offset: int = 0, kv_valid=None):
     """Attention of q over the keys ``[0, kv_valid)`` (all of them by
@@ -93,12 +136,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                              q_offset=q_offset, kv_valid=kv_valid)
     _check_cuda(q, k, v)
     # the kernel writes its output through ctypes, outside autograd: a
-    # gradient through it would be lost without a word, so refuse it
-    # until the kernel has a backward
+    # gradient goes through the Function, whose backward is a kernel too
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention kernel has no backward yet: "
-                           "call it on the card under torch.no_grad(), or "
-                           "differentiate on the CPU")
+        _check_grad(q, k, causal, window, q_offset, kv_valid)
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
     return kernel.flash_attention_cuda(
         q, k, v, causal, window, q_offset,
         k.shape[1] if kv_valid is None else kv_valid)

@@ -15,8 +15,10 @@ its tensor maps, and the binding raises a ``ValueError`` before anything
 is launched. fp32 runs on the CUDA-core kernel. The TPU wrapper's
 padding of L to a multiple of the chunk has no counterpart on the card:
 the kernel masks the ragged last chunk itself. The kernel has no
-backward, so on the card an input that requires grad, while grad is
-enabled, is refused; the CPU route differentiates.
+backward (ROADMAP: ``BACKWARD_ITEM``), so on the card an input that
+requires grad, while grad is enabled, is refused with a
+``NotImplementedError`` naming that item; the CPU route
+differentiates.
 
 ``ssd_chunk(xd, a, B_, C_, state)`` is the counterpart of
 ``repro.kernels.ssd.ops.ssd_chunk_fused``: one chunk of one (batch,
@@ -37,6 +39,15 @@ from repro_torch.kernels.ssd.ref import fold_state, ssd_chunk_ref, \
     ssd_scan_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the ROADMAP item that ports the scan's backward kernel
+BACKWARD_ITEM = "The SSD scan's backward"
+
+
+def _no_backward(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} kernel has no backward yet (ROADMAP, Next: "
+        f"{BACKWARD_ITEM}): call it on the card under torch.no_grad(), or "
+        f"differentiate on the CPU")
 
 
 def _check(xd, a, B_, C_, chunk, name="ssd_scan") -> None:
@@ -94,9 +105,7 @@ def _check_card(xd, a, B_, C_, chunk, name="ssd_scan") -> None:
     # until the kernel has a backward
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (xd, a, B_, C_)):
-        raise RuntimeError(f"{name} kernel has no backward yet: call it on "
-                           f"the card under torch.no_grad(), or "
-                           f"differentiate on the CPU")
+        raise _no_backward(name)
 
 
 def ssd_scan(xd, a, B_, C_, chunk: int = 128):
@@ -134,9 +143,7 @@ def ssd_chunk(xd, a, B_, C_, state):
         return y.to(xd.dtype), new_state
     _check_card(*args, K, "ssd_chunk")
     if torch.is_grad_enabled() and state.requires_grad:
-        raise RuntimeError("ssd_chunk kernel has no backward yet: call it "
-                           "on the card under torch.no_grad(), or "
-                           "differentiate on the CPU")
+        raise _no_backward("ssd_chunk")
     y, new_state = kernel.ssd_scan_cuda(*args, K)
     kernel.SSD_CHUNK_LAUNCHES.add((K, P, B_.shape[1]))
     y, new_state = fold_state(y, new_state, args[1], args[3],

@@ -8,9 +8,10 @@ Mixtral-8x7B, Qwen3-MoE-235B-A22B; Mamba2-370M; Zamba2-2.7B;
 Whisper-medium, whose ``forward`` and ``prefill`` take ``frames``);
 ``forward`` returns the MoE load-balance loss beside the logits (0 for
 the other families);
-``loss`` waits for zoo training and raises until its
-slice (ROADMAP "Next"). ``transformer.flush_recent`` folds a full-mode
-cache's recent slots into main.
+``loss`` is ``transformer.lm_loss`` (on the card the ``ssm`` and
+``hybrid`` families' raises while their SSD backward is not ported).
+``transformer.flush_recent`` folds a full-mode cache's recent slots
+into main.
 """
 
 from __future__ import annotations
@@ -35,18 +36,12 @@ class Model:
     init_cache: Callable      # (batch, max_len, device="cuda") -> cache
 
 
-def _later(what: str, item: str) -> Callable:
-    def fn(*args, **kwargs):
-        raise tfm.not_ported(what, item)
-    return fn
-
-
 def build_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator: tfm.init_lm(cfg, generator),
         forward=lambda p, t, frames=None: tfm.lm_forward(cfg, p, t, frames),
-        loss=_later("lm_loss", "zoo training"),
+        loss=lambda p, t, frames=None: tfm.lm_loss(cfg, p, t, frames),
         prefill=lambda p, t, frames=None: tfm.lm_prefill(cfg, p, t, frames),
         decode_step=lambda p, tok, c: tfm.lm_decode_step(cfg, p, tok, c),
         init_cache=lambda batch, max_len, device="cuda": tfm.init_cache(

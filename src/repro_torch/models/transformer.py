@@ -33,10 +33,14 @@ families' steps launch no kernel.
 
 Layers are stacked on a leading [L, ...] dim, as in the JAX package, so
 its params map onto these one to one (``checkpoint.convert``); the
-forward walks the stack in a Python loop where the JAX package scans.
-The JAX package's ``pshard.constrain`` sharding hints have no
-single-GPU counterpart and are dropped, as is ``jax.checkpoint``
-rematerialization (a forward-only path keeps no activations).
+forward walks the stack in a Python loop where the JAX package scans,
+taking each leaf's layers once by ``torch.unbind`` (``_unstack``). The
+JAX package's ``pshard.constrain`` sharding hints have no single-GPU
+counterpart and are dropped. Its ``jax.checkpoint`` rematerialization
+(``cfg.remat``, ``_maybe_remat``) is ``torch.utils.checkpoint``'s
+non-reentrant form around the same blocks: a layer (the hybrid: a
+stage), recomputed in the backward; a forward under no_grad runs the
+blocks as they are.
 
 The caches are the JAX package's, leaf for leaf: ``len`` (and, in full
 mode, ``flushed``) 0-d int32 tensors on the cache's device, attention
@@ -52,8 +56,13 @@ forward drops a pair a decode step may keep it, and the other way
 round. At a capacity factor of ``n_experts / top_k`` (the reduced
 configs') no pair is ever dropped and they agree.
 
-The loss raises ``NotImplementedError`` naming the ROADMAP item that
-ports it (``model_zoo``).
+``lm_loss`` is the training loss, next-token cross entropy in fp32
+plus ``aux_weight`` times the MoE aux. On the card its gradient runs
+through the flash kernel's backward; the ``ssm`` and ``hybrid``
+families' would need the SSD scan's, which is not ported, so their
+forward raises ``NotImplementedError`` on the card where autograd
+records a parameter (``_check_trainable``); on the CPU they
+differentiate.
 """
 
 from __future__ import annotations
@@ -61,9 +70,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ssd.ops import BACKWARD_ITEM as SSD_BACKWARD_ITEM
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        embed_init, init_device, norm_param,
@@ -71,7 +82,7 @@ from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.mlp import mlp_apply, moe_apply
 from repro_torch.models.ssm import mamba2_apply
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
@@ -331,6 +342,45 @@ def _effective_window(cfg: ArchConfig, seq_len: int):
     return None
 
 
+def _unstack(layers) -> list:
+    """The [L, ...] stack's L layers, each a nest of views, every leaf
+    split once by ``torch.unbind``: under autograd its backward stacks
+    the L gradients once, where ``t[i]`` for each layer would write a
+    zero-filled [L, ...] gradient for every one. The views are those of
+    ``t[i]``, so the forward's values do not change."""
+    leaves = tree_leaves(layers)
+    split = [torch.unbind(t) for t in leaves]
+    return [tree_unflatten(layers, [parts[i] for parts in split])
+            for i in range(leaves[0].shape[0])]
+
+
+def _maybe_remat(cfg: ArchConfig, fn):
+    """``jax.checkpoint`` of the JAX package's ``_maybe_remat``: with
+    ``cfg.remat``, where autograd records, ``fn``'s activations are not
+    kept for the backward but recomputed from its inputs
+    (``torch.utils.checkpoint``, non-reentrant; the forward draws no
+    random numbers, so no RNG state is kept). Under no_grad ``fn`` runs
+    as it is."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+
+    def run(*args):
+        return torch_checkpoint(fn, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+    return run
+
+
+def _check_trainable(cfg: ArchConfig, params) -> None:
+    """The ``ssm`` and ``hybrid`` families train on the CPU only: on the
+    card their gradient would need the SSD scan's backward kernel, which
+    is not ported. Raises where autograd records a parameter on the
+    card; never falls back to the plain scan."""
+    if cfg.family in ("ssm", "hybrid") and torch.is_grad_enabled() and any(
+            t.is_cuda and t.requires_grad for t in tree_leaves(params)):
+        raise not_ported(f"training {cfg.name} ({cfg.family}) on the card",
+                         SSD_BACKWARD_ITEM)
+
+
 def _embed(cfg: ArchConfig, params, tokens):
     return params["embed"][tokens]
 
@@ -344,13 +394,16 @@ def _run_encoder(cfg: ArchConfig, params, frames):
         raise ValueError(f"{cfg.name}: an audio arch needs frame "
                          f"embeddings [B, {cfg.n_frames}, {cfg.d_model}]")
     x = frames.to(_dtype(cfg)) + params["enc_pos"][None, :frames.shape[1]]
-    layers = params["enc_layers"]
-    for i in range(tree_leaves(layers)[0].shape[0]):
-        lp = tree_map(lambda t: t[i], layers)
+
+    def enc_block(x, lp):
         h = apply_norm(x, lp["norm1"], cfg.norm)
         x = x + _attn_block(cfg, lp["attn"], h, None, causal=False)
         h = apply_norm(x, lp["norm2"], cfg.norm)
-        x = x + _ffn(cfg, lp, h)[0]
+        return x + _ffn(cfg, lp, h)[0]
+
+    enc_block = _maybe_remat(cfg, enc_block)
+    for lp in _unstack(params["enc_layers"]):
+        x = enc_block(x, lp)
     return x
 
 
@@ -372,6 +425,10 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     every stage reads. The audio family runs the encoder over
     ``frames`` [B, F, d] (required: a ``ValueError`` without them), then
     each decoder layer with cross-attention over the encoder output.
+    With ``cfg.remat``, where autograd records, each layer (the
+    hybrid's: each stage; the audio family's: each encoder and decoder
+    layer) runs under ``torch.utils.checkpoint``, as the JAX package's
+    scans run under ``jax.checkpoint``.
 
     tokens: integer [B, S] on the params' device. Returns (logits
     [B, S, padded_vocab] in the config's dtype, aux_loss: a float32
@@ -380,33 +437,61 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     families).
     """
     _require_ported(cfg)
+    _check_trainable(cfg, params)
     B, S = tokens.shape
-    layers = params["layers"]
-    n_layers = tree_leaves(layers)[0].shape[0]
+    layers = _unstack(params["layers"])
     if cfg.family == "hybrid":
-        _check_stages(cfg, n_layers)
+        _check_stages(cfg, len(layers))
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     window = _effective_window(cfg, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    enc_out = _run_encoder(cfg, params, frames) \
-        if cfg.family == "audio" else None
-    for i in range(n_layers):
-        lp = tree_map(lambda t: t[i], layers)
-        if enc_out is not None:
+    if cfg.family == "ssm":
+        block = _maybe_remat(cfg, lambda x, lp: _ssm_block(cfg, lp, x))
+        for lp in layers:
+            x = block(x, lp)
+    elif cfg.family == "hybrid":
+        def stage(x, stage_layers):
+            for lp in stage_layers:
+                x = _ssm_block(cfg, lp, x)
+            return _decoder_block(cfg, params["shared"], x, positions,
+                                  window)[0]
+
+        stage = _maybe_remat(cfg, stage)
+        for i in range(0, len(layers), cfg.attn_every):
+            x = stage(x, layers[i:i + cfg.attn_every])
+    elif cfg.family == "audio":
+        enc_out = _run_encoder(cfg, params, frames)
+
+        def block(x, lp):
             kv = _encode_cross_kv(cfg, lp["xattn"], enc_out)
-            x, _ = _decoder_block(cfg, lp, x, positions, window, kv)
-        elif cfg.family in ("ssm", "hybrid"):
-            x = _ssm_block(cfg, lp, x)
-            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-                x, _ = _decoder_block(cfg, params["shared"], x, positions,
-                                      window)
-        else:
-            x, aux = _decoder_block(cfg, lp, x, positions, window)
+            return _decoder_block(cfg, lp, x, positions, window, kv)[0]
+
+        block = _maybe_remat(cfg, block)
+        for lp in layers:
+            x = block(x, lp)
+    else:
+        block = _maybe_remat(cfg, lambda x, lp: _decoder_block(
+            cfg, lp, x, positions, window))
+        for lp in layers:
+            x, aux = block(x, lp)
             aux_total = aux_total + aux
     x = apply_norm(x, params["final_norm"], cfg.norm)
     logits = x @ params["lm_head"]
     return logits, aux_total
+
+
+def lm_loss(cfg: ArchConfig, params: PyTree, tokens, frames=None,
+            aux_weight: float = 0.01):
+    """Next-token cross entropy over ``lm_forward``'s logits, in fp32,
+    plus ``aux_weight`` times the MoE load-balance aux: a float32
+    scalar."""
+    logits, aux = lm_forward(cfg, params, tokens, frames)
+    logits = logits[:, :-1].float()
+    labels = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (logz - gold).mean() + aux_weight * aux
 
 
 # ==========================================================================

@@ -521,9 +521,10 @@ def test_cuda_bf16_kernel_refuses_what_tma_cannot_read():
 
 
 def test_cpu_route_differentiates_like_jax():
-    """The plain route is the one that carries gradients (the kernel has
-    none yet): d(sum of out * w)/d(q, k, v) against jax.grad of the
-    reference's oracle."""
+    """The CPU route's gradient is autograd's of the plain version (the
+    card's is the backward kernel's, ``tests/test_torch_attention_bwd.py``):
+    d(sum of out * w)/d(q, k, v) against jax.grad of the reference's
+    oracle."""
     import jax
     import jax.numpy as jnp
     from repro.kernels.attention.ref import attention_ref as jref
@@ -542,22 +543,34 @@ def test_cpu_route_differentiates_like_jax():
 
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_gradients():
-    """The kernel's output has no grad_fn, so a gradient through it would
-    vanish silently: the wrapper raises instead, launches nothing, runs
-    under no_grad, and the CPU route of the same inputs differentiates."""
+    """Where the backward kernel would not take the launch (q_offset,
+    kv_valid short of the keys, a window without the causal mask) the
+    wrapper refuses a gradient and launches nothing; under no_grad the
+    same call runs; a gradient of a launch it takes goes through the
+    forward (with its logsumexp) and the backward kernel, one launch
+    each, as the CPU route's autograd gives it."""
     _card()
     q, k, v = (t.cuda() for t in _t(*_qkv(1, 16, 4, 2, 32, seed=13)))
     before = flash_kernel.FLASH_LAUNCHES.total
-    for leaf in range(3):
-        args = [q, k, v]
-        args[leaf] = args[leaf].clone().requires_grad_()
-        with pytest.raises(RuntimeError, match="no backward"):
-            flash_attention(*args, causal=True)
+    for kwargs in (dict(causal=True, q_offset=2),
+                   dict(causal=True, kv_valid=9),
+                   dict(causal=False, window=4)):
+        for leaf in range(3):
+            args = [q, k, v]
+            args[leaf] = args[leaf].clone().requires_grad_()
+            with pytest.raises(ValueError, match="backward kernel takes"):
+                flash_attention(*args, **kwargs)
     assert flash_kernel.FLASH_LAUNCHES.total == before
     with torch.no_grad():
-        out = flash_attention(q.clone().requires_grad_(), k, v, causal=True)
+        out = flash_attention(q.clone().requires_grad_(), k, v, causal=True,
+                              q_offset=2)
     assert flash_kernel.FLASH_LAUNCHES.total == before + 1
     assert not out.requires_grad
+    bwd = flash_kernel.FLASH_BWD_LAUNCHES.total
+    gq = q.clone().requires_grad_()
+    flash_attention(gq, k, v, causal=True).sum().backward()
+    assert flash_kernel.FLASH_LAUNCHES.total == before + 2
+    assert flash_kernel.FLASH_BWD_LAUNCHES.total == bwd + 1
     cq = q.cpu().requires_grad_()
     flash_attention(cq, k.cpu(), v.cpu(), causal=True).sum().backward()
-    assert cq.grad is not None and torch.all(torch.isfinite(cq.grad))
+    torch.testing.assert_close(gq.grad.cpu(), cq.grad, rtol=RTOL, atol=ATOL)

@@ -15,7 +15,7 @@ import msgpack
 import numpy as np
 import pytest
 import torch
-from hypothesis import given
+from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from repro.checkpoint import io as jio
@@ -270,6 +270,13 @@ def _same(a, b) -> bool:
     return type(a) is type(b) and a == b
 
 
+# The property holds at any speed: its 100 examples carry no deadline and
+# skip the health checks that only time the strategy (its recursive
+# values take long to draw on a busy host running many test workers).
+@settings(max_examples=100, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow,
+                                 HealthCheck.data_too_large,
+                                 HealthCheck.filter_too_much])
 @given(_values)
 def test_msgpack_codec_matches_msgpack(value):
     want = msgpack.packb(value, use_bin_type=True)

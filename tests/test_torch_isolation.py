@@ -82,10 +82,13 @@ def test_port_package_is_complete():
     # the audio family's: its config (the encoder, cross-attention and the
     # stub frames live in transformer.py, tokens.py and forecaster.py)
     assert "configs/whisper_medium.py" in names
+    # zoo training's: the train step (lm_loss is in transformer.py)
+    assert "launch/specs.py" in names
     for src in ("kernels/lstm/csrc/lstm_layer.cu",
                 "kernels/lstm/csrc/lstm_layer_bwd.cu",
                 "kernels/evl/csrc/evl.cu",
                 "kernels/attention/csrc/flash_attention.cu",
+                "kernels/attention/csrc/flash_attention_bwd.cu",
                 "kernels/ssd/csrc/ssd_scan.cu"):
         assert (ROOT / "src/repro_torch" / src).is_file()
 

@@ -433,6 +433,26 @@ def test_cuda_kernel_rows_do_not_depend_on_batch(L):
 
 
 @pytest.mark.cuda
+def test_cuda_ssm_family_training_raises():
+    """Training the reduced Mamba2-370M on the card raises before any
+    launch, naming the SSD backward's ROADMAP item; it never falls back
+    to the plain scan."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch.specs import loss_and_grad
+    from repro_torch.models.transformer import init_lm
+
+    cfg = reduced(get_config("mamba2-370m"), dtype="bfloat16")
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.zeros(2, 32, dtype=torch.long, device="cuda")
+    before = ssd_kernel.SSD_LAUNCHES.total
+    with pytest.raises(NotImplementedError, match="SSD scan's backward"):
+        loss_and_grad(cfg, params, toks)
+    assert ssd_kernel.SSD_LAUNCHES.total == before
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_refuses_gradients():
     """The kernel's outputs have no grad_fn, so a gradient through them
     would vanish silently: the wrapper raises instead, launches nothing,

@@ -173,5 +173,7 @@ def test_cli_trains_on_cpu_and_prints_the_summary(capsys):
     assert "test MSE" in out and "communications 3" in out
     assert "comm bytes" in out
     assert res.communications == 3 and np.isfinite(res.test_mse)
+    # zoo archs train too (tests/test_torch_zoo_train.py); an arch
+    # neither package has is refused by argparse
     with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "qwen1.5-4b", "--device", "cpu"])
+        train_cli.main(["--arch", "gpt-9", "--device", "cpu"])

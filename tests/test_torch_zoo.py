@@ -29,6 +29,7 @@ from repro_torch.checkpoint.convert import zoo_params_from_numpy
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import pad_vocab, reduced
 from repro_torch.models import layers
+from repro_torch.models import transformer as tfm
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import init_lm, lm_forward
@@ -181,15 +182,24 @@ def test_init_lm_tree_matches_jax(dtype):
 
 
 def test_other_families_are_not_ported_yet():
-    """Zoo training still raises, naming its ROADMAP item; the audio
+    """Zoo training runs (``loss`` is ``lm_loss``); what it still lacks,
+    the ssm and hybrid families' training on the card, raises, naming
+    the SSD backward's ROADMAP item (``_check_trainable``, handed a
+    stand-in for a card parameter that autograd records); the audio
     family, the last one the port lacked, runs (an audio forward or
     prefill without frames raises, as in the JAX package); a family no
     package has is refused."""
     cfg = reduced(get_config(ARCH))
     model = build_model(cfg)
-    for fn, item in ((model.loss, r"ROADMAP, Next: zoo training\)"),):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(None, None)
+    loss = model.loss(model.init(torch.Generator().manual_seed(0)),
+                      torch.zeros(2, 8, dtype=torch.long))
+    assert loss.shape == () and torch.isfinite(loss)
+    card_leaf = type("CardLeaf", (), {"is_cuda": True,
+                                      "requires_grad": True})()
+    for arch in ("mamba2-370m", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP, Next: The SSD scan's backward"):
+            tfm._check_trainable(reduced(get_config(arch)), [card_leaf])
     audio = build_model(reduced(get_config("whisper-medium")))
     params = audio.init(torch.Generator().manual_seed(0))
     toks = torch.zeros(1, 4, dtype=torch.long)
