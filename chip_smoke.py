@@ -5,6 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py            # from the repo root, on the card
     python3 chip_smoke.py --flash-host       # flash's host cost per call
     python3 chip_smoke.py --flash-serve      # flash at the serve shapes
+    python3 chip_smoke.py --flash-bwd        # its backward, train shape
     python3 chip_smoke.py --flash-ablation   # what bounds the flash kernel
     python3 chip_smoke.py --ssd-ablation     # what bounds the SSD kernel
     python3 chip_smoke.py --lstm-ablation    # what bounds the LSTM kernels
@@ -16,8 +17,9 @@ NVIDIA H100.
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
-and SSD libraries' SASS that their bf16 kernels issue wgmma (HGMMA) and
-TMA loads (UTMALDG), and holds each kernel against its plain PyTorch
+(forward and backward) and SSD libraries' SASS that their bf16 kernels
+issue wgmma (HGMMA) and TMA loads (UTMALDG), and that the backward's
+CUDA-core kernels exist in fp32 alone, and holds each kernel against its plain PyTorch
 version on the card: the LSTM layer's forward (T steps in one launch,
 from a zero or a given carry, with the local-SGD worker dim; a step is
 the same launch at T = 1) and its backward (the same T steps in reverse
@@ -113,8 +115,11 @@ the hand-written backward), each loss finite, ms a step, tokens/s,
 peak memory and a profiled step's busy share; its 2-layer fp32 copy
 against the CPU (loss, every gradient leaf, one Adam step); the flash
 backward against its plain version over GQA, MQA, windowed and
-unmasked cases, every head dim, fp32 and bf16, and timed beside SDPA's
-backward.
+unmasked cases and edges inside the bf16 kernels' tiles, every head
+dim, fp32 and bf16 (two launches bitwise, the rows of B = 1 launches
+bitwise the batch's), and timed beside SDPA's backward at the train
+path's shape, 4 x 2048 causal and Whisper's 8 x 1500 without a mask,
+with its Delta pass alone.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -122,11 +127,11 @@ exists, and its bound, reads the device's busy share on each path with
 ``torch.profiler``, and prints each phase's seconds. Any failed phase
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
-``--flash-serve``, ``--flash-ablation``, ``--ssd-ablation``,
-``--lstm-ablation`` or ``--evl-ablation`` it runs only that probe
-(``flash_host``, ``flash_serve``, ``flash_ablation``,
-``ssd_ablation``, ``lstm_ablation``, ``evl_ablation``) and prints no
-result; with ``--decode``,
+``--flash-serve``, ``--flash-bwd``, ``--flash-ablation``,
+``--ssd-ablation``, ``--lstm-ablation`` or ``--evl-ablation`` it runs
+only that probe (``flash_host``, ``flash_serve``, ``flash_bwd_probe``,
+``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
+``evl_ablation``) and prints no result; with ``--decode``,
 ``--dense``, ``--moe``, ``--audio`` or ``--train-zoo``, the build and
 the ``[decode]``, ``[dense]``, ``[moe]``, ``[audio]`` or
 ``[train-zoo]`` phase alone, and no result.
@@ -138,6 +143,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import json
 import shutil
@@ -476,11 +482,16 @@ TRAIN_FP32_TOL = 1e-4
 # the flash backward against its plain version on the card: (B, Sq, Skv,
 # Hq, Hkv, D, mask), each in fp32 (rtol 2e-4 / atol 2e-5, the forward's)
 # and bf16 (within FLASH_BWD_BF16_REL of max |grad|: the gradients stored
-# in bf16, 2^-9 of an element, after fp32 sums in another order): GQA
-# 4 over 4 key tiles with a ragged edge (200 = 3 x 64 + 8) and GQA 16/4
-# over 5, where a dk or dv that lost a head of its group would miss by a
-# quarter; MQA windowed; no mask at Sq < Skv and Sq = Skv; every head
-# dim; the train path's shape
+# in bf16, 2^-9 of an element, after fp32 sums in another order, P and
+# dS rounded once to bf16 by the tensor-core kernels): GQA 4 over 4 key
+# tiles with a ragged edge (200 = 3 x 64 + 8) and GQA 16/4 over 5, where
+# a dk or dv that lost a head of its group would miss by a quarter; MQA
+# windowed; no mask at Sq < Skv and Sq = Skv; every head dim; the train
+# path's shape. Then edges inside the bf16 kernels' tiles (128 keys or
+# queries a block, 64 a stage): 190 and 129 tokens at D 128 (the second
+# block's last 64 keys or queries wholly past the end, or all but one),
+# MQA 16/1 over 3 key blocks, a window edge inside a 64-query tile, no
+# mask at Sq > Skv, and Whisper's cross-attention shape
 FLASH_BWD_CASES = [
     (2, 200, 200, 8, 2, 128, dict(causal=True)),
     (1, 300, 300, 16, 4, 128, dict(causal=True)),
@@ -489,8 +500,22 @@ FLASH_BWD_CASES = [
     (2, 150, 150, 4, 2, 32, dict(causal=False)),
     (1, 64, 64, 4, 4, 128, dict(causal=True)),
     (2, 96, 96, 32, 32, 80, dict(causal=True, window=40)),
-    (8, 512, 512, 20, 20, 128, dict(causal=True))]
+    (8, 512, 512, 20, 20, 128, dict(causal=True)),
+    (2, 190, 190, 8, 2, 128, dict(causal=True)),
+    (3, 129, 129, 4, 4, 128, dict(causal=True)),
+    (1, 300, 300, 16, 1, 128, dict(causal=True)),
+    (2, 256, 256, 8, 8, 128, dict(causal=True, window=50)),
+    (2, 300, 77, 4, 4, 80, dict(causal=False)),
+    (2, 448, 1500, 16, 16, 64, dict(causal=False))]
 FLASH_BWD_BF16_REL = 1e-2
+# where the bf16 backward is timed beyond the train path's launches:
+# the long prompt's shape (Qwen1.5-4B, 4 x 2048), Whisper's encoder
+# (8 x 1500, no mask), and Granite-20B's MQA 48/1 at the train path's 8 x
+# 512, where the dK/dV blocks are B x Hkv x 4 = 32 on 132 SMs, each
+# walking 48 query heads (B, Sq, Skv, Hq, Hkv, D, causal)
+FLASH_BWD_TIMED = [(4, 2048, 2048, 20, 20, 128, True),
+                   (8, 1500, 1500, 16, 16, 64, False),
+                   (8, 512, 512, 48, 1, 128, True)]
 # each arch's fp32 copy: 2 layers, but Zamba2's one stage of 6, and 1
 # for the [dense] and [moe] models, whose CPU halves (the LM head at full
 # width, up to 256k x 6144) took 110.5 s of the smoke at 2 (PERF.md)
@@ -771,11 +796,12 @@ def build_kernels() -> None:
 
 
 def check_sass(label: str, library: str, sources, symbol: str,
-               instantiations: int) -> None:
+               instantiations: int) -> dict:
     """Phases 1b and 1c: a bf16 kernel runs on the tensor cores, fed by
     TMA: the library's SASS (``cuobjdump --dump-sass``) holds wgmma
     (HGMMA) and TMA loads (UTMALDG) in each of the ``instantiations`` of
-    the kernel whose name holds ``symbol``."""
+    the kernel whose name holds ``symbol``. Returns the (HGMMA, UTMALDG)
+    counts of every function of the library by its mangled name."""
     from repro_torch.kernels import build
 
     lib = build.library_path(library, sources)
@@ -806,14 +832,28 @@ def check_sass(label: str, library: str, sources, symbol: str,
           and all(h > 0 and u > 0 for h, u in bf16.values()),
           f"an instantiation of {symbol} lacks wgmma or TMA, or one of "
           f"{instantiations} is missing: {bf16}")
+    return counts
 
 
 def check_flash_sass() -> None:
-    """Phase 1b: the bf16 flash kernel, one instantiation a head dim."""
+    """Phase 1b: the bf16 flash kernel, one instantiation a head dim; the
+    bf16 backward's wgmma kernel, one a head dim and mask (causal or
+    none); and the backward's CUDA-core kernels in fp32 only (one each a
+    head dim, none instantiated for bf16)."""
     from repro_torch.kernels.attention import kernel as attn_kernel
 
+    n = len(attn_kernel.HEAD_DIMS)
     check_sass("bf16 flash", "flash_attention", attn_kernel.SOURCES,
-               FLASH_SYMBOL, len(attn_kernel.HEAD_DIMS))
+               FLASH_SYMBOL, n)
+    counts = check_sass("bf16 flash backward", "flash_attention_bwd",
+                        attn_kernel.BWD_SOURCES, FLASH_BWD_WGMMA, 2 * n)
+    fp32 = [f for f in counts if any(s in f for s in FLASH_BWD_SYMBOLS)]
+    print(f"[sass] flash_attention_bwd library: {len(fp32)} CUDA-core "
+          f"kernel instantiations, none for bf16: {sorted(fp32)}")
+    check(len(fp32) == len(FLASH_BWD_SYMBOLS) * n
+          and not any("bfloat16" in f for f in fp32),
+          f"the backward's CUDA-core kernels are not fp32 alone, one each "
+          f"a head dim: {fp32}")
 
 
 def check_ssd_sass() -> None:
@@ -4702,7 +4742,13 @@ def audio_main_path(tag: str) -> dict:
 
 # --------------------------------------------------------- [train-zoo] --
 
+# the backward's device kernels: the fp32 CUDA-core ones, which a bf16
+# launch must not reach, and the bf16 ones (the Delta pass, then the
+# wgmma kernel of the dK/dV and dQ blocks, one instantiation a head dim
+# and mask: bwd_wgmma<D, causal>, "bwd_wgmmaILi" in its mangled name)
 FLASH_BWD_SYMBOLS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+FLASH_BWD_BF16_SYMBOLS = ("delta_bf16", "bwd_wgmma<")
+FLASH_BWD_WGMMA = "bwd_wgmmaILi"
 
 
 def flash_bwd_inputs(B, Sq, Skv, Hq, Hkv, D, mask, dtype, seed):
@@ -4751,8 +4797,10 @@ def check_flash_bwd() -> dict:
     and bf16, through the autograd Function the path runs (its forward
     launch with the logsumexp, then the backward launch); the forward's
     logsumexp against ``logsumexp_ref`` and its output bitwise the
-    serving launch's; a second backward launch bitwise the first.
-    Returns the largest |kernel - plain| (fp32) and relative (bf16)."""
+    serving launch's; a second backward launch bitwise the first, and
+    the rows of B = 1 launches (the first and the last row) bitwise the
+    whole batch's. Returns the largest |kernel - plain| (fp32) and
+    relative (bf16)."""
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.attention.ref import (attention_bwd_ref,
@@ -4790,6 +4838,16 @@ def check_flash_bwd() -> dict:
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"flash backward at {what} {dt}: two launches differ")
+            for i in sorted({0, B - 1} if B > 1 else ()):
+                one = attn_kernel.flash_attention_bwd_cuda(
+                    *(t[i:i + 1].contiguous()
+                      for t in (q, k, v, out, dout, lse)),
+                    mask["causal"], mask.get("window"))
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b[i:i + 1])
+                          for a, b in zip(one, got)),
+                      f"flash backward at {what} {dt}: row {i} of a B = 1 "
+                      f"launch differs from the B = {B} launch's")
             want = attention_bwd_ref(*f32, want_lse, causal=mask["causal"],
                                      window=mask.get("window"))
             worst[dt] = max(worst[dt], flash_bwd_err(got, want, dt, what))
@@ -4803,7 +4861,7 @@ def check_flash_bwd() -> dict:
           f"(bound {FLASH_BWD_BF16_REL}); the forward's logsumexp vs "
           f"logsumexp_ref max {lse_err:.3e} (1e-4), its output bitwise "
           f"the serving launch's; a second backward launch bitwise the "
-          f"first")
+          f"first, the rows of B = 1 launches bitwise the batch's")
     return worst
 
 
@@ -4821,23 +4879,50 @@ def flash_bwd_bound(B, Sq, Skv, Hq, Hkv, D, window=None, causal=True,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_bwd_delta_ms(out, dout, lse, inner: int, reps: int) -> float:
+    """Device ms of the bf16 backward's Delta pass alone (its own C entry,
+    ``flash_attention_bwd_delta``: Delta and lse in log2 units into the
+    scratch the backward takes)."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    fn = attn_kernel._bwd_library().flash_attention_bwd_delta
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    B, Sq, Hq, D = out.shape
+    pad = attn_kernel.BWD_ROW_PAD
+    scratch = torch.empty((2, B, Hq, -(-Sq // pad) * pad),
+                          dtype=torch.float32, device="cuda")
+
+    def run():
+        rc = fn(out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                scratch.data_ptr(), B, Sq, Hq, D,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the flash backward's Delta pass failed: {rc}")
+
+    return graph_ms(run, inner, reps)
+
+
 def time_flash_bwd(launches: dict, tag: str):
-    """The backward kernel at each row key of the train path (bf16): its
-    device time (``graph_ms``) beside its plain version's
-    (``attention_bwd_ref``), the library's (one
-    ``scaled_dot_product_attention`` forward + backward, less its
-    forward; never called by the port) and its bound; held against the
-    plain version there first. Returns rows by key and the largest
-    relative |kernel - plain|."""
+    """The backward kernels at each row key of the train path (bf16), and
+    at FLASH_BWD_TIMED's shapes: their device time (``graph_ms``) beside
+    the Delta pass's alone, the plain version's (``attention_bwd_ref``),
+    the library's (one ``scaled_dot_product_attention`` forward +
+    backward, less its forward; never called by the port) and the bound;
+    held against the plain version there first. Returns rows by key and
+    the largest relative |kernel - plain|."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.attention.ref import attention_bwd_ref
 
     rows, worst = {}, 0.0
-    for key in sorted(launches, key=str):
-        shape, w, causal = flash_row(key)
+    shapes = [flash_row(key) for key in sorted(launches, key=str)] + [
+        (t[:6], None, t[6]) for t in FLASH_BWD_TIMED]
+    for shape, w, causal in shapes:
         B, Sq, Skv, Hq, Hkv, D = shape
+        key = flash_key(shape, w, causal)
         mask = dict(causal=causal, window=w)
         q, k, v, out, dout, lse = flash_bwd_inputs(
             *shape, mask, torch.bfloat16, seed=B * 7 + Sq)
@@ -4866,6 +4951,7 @@ def time_flash_bwd(launches: dict, tag: str):
         rows[key] = {
             "ms": graph_ms(lambda: attn_kernel.flash_attention_bwd_cuda(
                 q, k, v, out, dout, lse, causal, w), inner, reps),
+            "delta_ms": flash_bwd_delta_ms(out, dout, lse, inner, reps),
             "plain_ms": graph_ms(lambda: attention_bwd_ref(
                 q, k, v, out, dout, lse, causal=causal, window=w), inner,
                 reps),
@@ -4878,16 +4964,56 @@ def time_flash_bwd(launches: dict, tag: str):
               f"{'causal' if causal else 'non-causal'}"
               f"{f' window {w}' if w else ''}: kernel "
               f"{r['ms'] * 1e3:.2f} us = {tflops:.1f} TFLOP/s (the "
-              f"bound's operations over its time), plain "
+              f"bound's operations over its time), its Delta pass alone "
+              f"{r['delta_ms'] * 1e3:.2f} us, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, scaled_dot_product_attention "
               f"forward + backward less its forward "
               f"{r['library_ms'] * 1e3:.2f} us (its forward "
-              f"{lib_fwd * 1e3:.2f} us), bound {r['bound_ms'] * 1e3:.3f} us "
-              f"({by}) = {100 * r['bound_ms'] / r['ms']:.2f} % of the "
-              f"kernel's time; |kernel - plain| {err:.3e} of max |grad|; "
-              f"{launches[key]} launches on the main path")
+              f"{lib_fwd * 1e3:.2f} us; the kernel "
+              f"{r['ms'] / r['library_ms']:.2f}x its time), bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({by}) = "
+              f"{100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time; "
+              f"|kernel - plain| {err:.3e} of max |grad|; "
+              f"{launches.get(key, 0)} launches on the main path")
         del q, k, v, out, dout, lse, qt, kt, vt, dot
     return rows, worst
+
+
+# the train path's backward launch, which ``--flash-bwd`` re-times
+FLASH_BWD_PROBE = (8, 512, 512, 20, 20, 128)
+
+
+def flash_bwd_probe(tag: str) -> None:
+    """``--flash-bwd``: the bf16 flash backward as training launches it
+    (causal, from the forward's output and logsumexp) at the train
+    path's shape: device us a launch (``graph_ms``) and a digest of dq,
+    dk and dv's bytes on seeded inputs. Uses only the binding every
+    version since the backward has (``flash_attention_bwd_cuda``, the
+    forward with ``lse``), so that a copy of this script in an earlier
+    ``git archive`` checkout times that one's kernels in the same call
+    (turns: earlier, this, this, earlier). Prints one JSON line."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    B, Sq, Skv, Hq, Hkv, D = FLASH_BWD_PROBE
+    g = torch.Generator(device="cuda").manual_seed(B * 7 + Sq)
+    q, dout = (torch.randn((B, Sq, Hq, D), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Skv, Hkv, D), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device="cuda")
+    out = attn_kernel.flash_attention_cuda(q, k, v, True, None, 0, Skv,
+                                           lse=lse)
+    grads = attn_kernel.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                 True, None)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(b"".join(
+        t.view(torch.int16).cpu().numpy().tobytes()
+        for t in grads)).hexdigest()[:16]
+    us = 1e3 * graph_ms(lambda: attn_kernel.flash_attention_bwd_cuda(
+        q, k, v, out, dout, lse, True, None), 10, 11)
+    print(json.dumps({"flash_bwd": tag, "root": str(ROOT),
+                      "shape": "x".join(map(str, FLASH_BWD_PROBE)),
+                      "us": us, "digest": digest}))
 
 
 def train_fp32_copy(tag: str) -> float:
@@ -5113,8 +5239,13 @@ def train_zoo_main_path(tag: str) -> dict:
         k: read_counters()[k] for k in ("flash_attention",
                                         "flash_attention_bwd")})
     fwd_us = sum(us for us, _, name in kernels if FLASH_SYMBOL in name)
-    bwd_us = sum(us for us, _, name in kernels
-                 if any(s in name for s in FLASH_BWD_SYMBOLS))
+    bwd_parts = [sum(us for us, _, name in kernels if s in name)
+                 for s in FLASH_BWD_BF16_SYMBOLS]
+    bwd_us = sum(bwd_parts)
+    cuda_core = [name for _, _, name in kernels
+                 if any(s in name for s in FLASH_BWD_SYMBOLS)]
+    check(not cuda_core, f"the bf16 step ran the backward's CUDA-core "
+                         f"kernels: {cuda_core}")
     gemm = sum(us for us, _, name in kernels
                if any(w in name.lower() for w in ("nvjet", "gemm",
                                                   "cutlass", "xmma")))
@@ -5139,7 +5270,10 @@ def train_zoo_main_path(tag: str) -> dict:
           f"reserved; profiled step: busy "
           f"{100 * busy / wall:.2f} %, flash forward {fwd_us:.1f} us = "
           f"{100 * fwd_us / busy:.2f} %, backward {bwd_us:.1f} us = "
-          f"{100 * bwd_us / busy:.2f} %, matrix products {gemm:.1f} us = "
+          f"{100 * bwd_us / busy:.2f} % (the Delta pass, the dK/dV and dQ "
+          f"kernel: "
+          f"{', '.join(f'{x:.1f}' for x in bwd_parts)} us), matrix "
+          f"products {gemm:.1f} us = "
           f"{100 * gemm / busy:.2f} % of the busy time; memory back to "
           f"{baseline / 2**30:.3f} GiB")
     cpu_err = timed("train-zoo: fp32 copy vs CPU", train_fp32_copy, tag)
@@ -5231,7 +5365,8 @@ def main() -> None:
               "--audio": lambda: (build_kernels(), audio_main_path(tag)),
               "--train-zoo": lambda: (build_kernels(),
                                       train_zoo_main_path(tag)),
-              "--flash-serve": lambda: flash_serve(tag)}
+              "--flash-serve": lambda: flash_serve(tag),
+              "--flash-bwd": lambda: flash_bwd_probe(tag)}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -5373,7 +5508,7 @@ def main() -> None:
                                         "flash_attention_wgmma.cu"),
                             "src/repro/kernels/attention/kernel.py:34"),
         "flash_attention_bwd": (csrc.format("attention",
-                                            "flash_attention_bwd.cu"),
+                                            "flash_attention_bwd_wgmma.cu"),
                                 "src/repro/kernels/attention/kernel.py:34"),
         "ssd_scan": (csrc.format("ssd", "ssd_scan_wgmma.cu"),
                      "src/repro/kernels/ssd/kernel.py:27"),

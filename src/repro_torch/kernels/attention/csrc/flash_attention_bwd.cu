@@ -1,7 +1,11 @@
 // The backward of flash attention for Hopper (sm_90a): dq, dk and dv of
 // out = softmax(q k^T * D^-0.5 + mask) v, from q, k, v, the forward's
 // output o, the cotangent dout and the forward's logsumexp lse (written
-// by flash_attention.cu's entry point when training asks for it).
+// by flash_attention.cu's entry point when training asks for it). The
+// entry point of both routes: bf16 goes to the tensor-core kernels of
+// flash_attention_bwd_wgmma.cu (wgmma fed by TMA); fp32 to the CUDA-core
+// kernels below, as the forward's entry chooses (the tensor cores have no
+// fp32-exact product), and no bf16 input reaches them.
 //
 // Replaces no TPU kernel of its own: the JAX package trains through
 // XLA's autodiff of blocked_attention (repro/models/attention.py), the
@@ -18,14 +22,13 @@
 //   dv_j += P dout_i;  dP = dout_i . v_j;  dS = P (dP - Delta_i)
 //   dq_i += dS k_j D^-0.5;  dk_j += dS q_i D^-0.5
 //
-// all in fp32, the inputs read in their dtype (fp32 or bf16) and the
-// gradients stored in it. Training's launches only: q_offset 0, every
-// key valid, causal with an optional window or no mask at all (the
-// binding refuses any other), so every query row sees at least one key.
+// all in fp32. Training's launches only: q_offset 0, every key valid,
+// causal with an optional window or no mask at all (the binding refuses
+// any other), so every query row sees at least one key.
 //
-// Design: right first, on the CUDA cores; three kernels, each output
-// element written by one thread of one block in a fixed order, so a
-// launch is deterministic (no atomics: training holds runs bitwise).
+// The fp32 kernels, right first, on the CUDA cores; three kernels, each
+// output element written by one thread of one block in a fixed order, so
+// a launch is deterministic (no atomics: training holds runs bitwise).
 //
 //   delta_kernel  one warp a (batch, query, head) row: Delta by a
 //                 shuffle sum.
@@ -49,17 +52,14 @@
 // Shared-memory rows are padded (D + 1, 32 + 1 floats) as in the fp32
 // forward. D is a template parameter: 32, 64, 80, 128.
 //
-// What bounds it on an H100: the work is 2.5x the forward's products
-// (s again, dP, dv, dk, dq: 10 D flops a (query, key) pair), and this
-// kernel does them on fp32 FMAs behind shared-memory reads, at most 67
-// TFLOP/s where the bf16 tensor cores give 989. Its times beside that
-// bound and beside SDPA's backward are in PERF.md; a tensor-core
-// (wgmma) redesign is later work.
+// What bounds them on an H100: the work is 2.5x the forward's products
+// (s again, dP, dv, dk, dq: 10 D flops a (query, key) pair), done here on
+// fp32 FMAs behind shared-memory reads, at most 67 TFLOP/s. Only the fp32
+// copy of the training path and the fp32 checks launch them.
 //
-// The C entry point launches the three kernels in order on one stream
-// and returns cudaGetLastError() after them.
+// The C entry point launches the three kernels of its route in order on
+// one stream and returns cudaGetLastError() after them.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -86,19 +86,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // the mask of training's launches (q_offset 0, every key valid)
 __device__ __forceinline__ bool keep(const Params& p, int qp, int kp) {
   bool in = qp < p.Sq && kp < p.Skv;
@@ -108,31 +95,30 @@ __device__ __forceinline__ bool keep(const Params& p, int qp, int kp) {
 }
 
 // rows [r0, r0 + n) of a contiguous [B, S, H, D] tensor at (b, h) into a
-// shared [n][D + 1] fp32 tile, zeros past S
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int b, int h,
-                                      int S, int H, int r0, int n) {
+// shared [n][D + 1] tile, zeros past S
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int b,
+                                      int h, int S, int H, int r0, int n) {
   for (int i = threadIdx.x; i < n * D; i += THREADS) {
     const int r = i / D;
     const int d = i - r * D;
     const int s = r0 + r;
     dst[r * (D + 1) + d] =
-        s < S ? to_f(src[((static_cast<long long>(b) * S + s) * H + h) * D +
-                         d])
+        s < S ? src[((static_cast<long long>(b) * S + s) * H + h) * D + d]
               : 0.0f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) delta_kernel(Params p) {
   const long long row = static_cast<long long>(blockIdx.x) * (THREADS / 32) +
                         threadIdx.x / 32;  // (b, s, h), h fastest
   if (row >= static_cast<long long>(p.B) * p.Sq * p.Hq) return;
   const int lane = threadIdx.x & 31;
-  const T* o = static_cast<const T*>(p.o) + row * D;
-  const T* dout = static_cast<const T*>(p.dout) + row * D;
+  const float* o = static_cast<const float*>(p.o) + row * D;
+  const float* dout = static_cast<const float*>(p.dout) + row * D;
   float acc = 0.0f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f(dout[d]), to_f(o[d]), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(dout[d], o[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -151,7 +137,7 @@ constexpr int dkdv_smem() {
          4;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 8;
@@ -171,11 +157,11 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Params p) {
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
-  const T* q = static_cast<const T*>(p.q);
-  const T* dout = static_cast<const T*>(p.dout);
+  const float* q = static_cast<const float*>(p.q);
+  const float* dout = static_cast<const float*>(p.dout);
 
-  stage<T, D>(ks, static_cast<const T*>(p.k), b, hk, p.Skv, p.Hkv, k0, BKV);
-  stage<T, D>(vs, static_cast<const T*>(p.v), b, hk, p.Skv, p.Hkv, k0, BKV);
+  stage<D>(ks, static_cast<const float*>(p.k), b, hk, p.Skv, p.Hkv, k0, BKV);
+  stage<D>(vs, static_cast<const float*>(p.v), b, hk, p.Skv, p.Hkv, k0, BKV);
 
   // the query tiles some key of this block is seen from
   const int k_last = min(k0 + BKV, p.Skv) - 1;
@@ -195,8 +181,8 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Params p) {
     const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
     for (int q0 = q_begin; q0 < q_end; q0 += BQI) {
       __syncthreads();  // k, v staged; the previous tile's P, dS consumed
-      stage<T, D>(qs, q, b, h, p.Sq, p.Hq, q0, BQI);
-      stage<T, D>(dos, dout, b, h, p.Sq, p.Hq, q0, BQI);
+      stage<D>(qs, q, b, h, p.Sq, p.Hq, q0, BQI);
+      stage<D>(dos, dout, b, h, p.Sq, p.Hq, q0, BQI);
       if (tid < BQI) {
         const bool in = q0 + tid < p.Sq;
         lse_s[tid] = in ? p.lse[row0 + q0 + tid] : 0.0f;
@@ -266,8 +252,8 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Params p) {
     }
   }
 
-  T* dkb = static_cast<T*>(p.dk);
-  T* dvb = static_cast<T*>(p.dv);
+  float* dkb = static_cast<float*>(p.dk);
+  float* dvb = static_cast<float*>(p.dv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty + 16 * i;
@@ -276,8 +262,8 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Params p) {
         ((static_cast<long long>(b) * p.Skv + kj) * p.Hkv + hk) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      dkb[off + tx + 8 * c] = from_f<T>(dk[i][c] * p.scale);
-      dvb[off + tx + 8 * c] = from_f<T>(dv[i][c]);
+      dkb[off + tx + 8 * c] = dk[i][c] * p.scale;
+      dvb[off + tx + 8 * c] = dv[i][c];
     }
   }
 }
@@ -287,7 +273,7 @@ constexpr int dq_smem() {
   return (2 * BQ * (D + 1) + 2 * BKI * (D + 1) + BQ * PS) * 4;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 8;
@@ -305,11 +291,11 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
 
-  stage<T, D>(qs, static_cast<const T*>(p.q), b, h, p.Sq, p.Hq, q0, BQ);
-  stage<T, D>(dos, static_cast<const T*>(p.dout), b, h, p.Sq, p.Hq, q0, BQ);
+  stage<D>(qs, static_cast<const float*>(p.q), b, h, p.Sq, p.Hq, q0, BQ);
+  stage<D>(dos, static_cast<const float*>(p.dout), b, h, p.Sq, p.Hq, q0, BQ);
   const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
   float lse[4], del[4];
 #pragma unroll
@@ -333,8 +319,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
 
   for (int k0 = k_begin; k0 < k_end; k0 += BKI) {
     __syncthreads();  // q, dout staged; the previous tile's dS consumed
-    stage<T, D>(ks, k, b, hk, p.Skv, p.Hkv, k0, BKI);
-    stage<T, D>(vs, v, b, hk, p.Skv, p.Hkv, k0, BKI);
+    stage<D>(ks, k, b, hk, p.Skv, p.Hkv, k0, BKI);
+    stage<D>(vs, v, b, hk, p.Skv, p.Hkv, k0, BKI);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -390,7 +376,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
     }
   }
 
-  T* dqb = static_cast<T*>(p.dq);
+  float* dqb = static_cast<float*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
@@ -399,58 +385,67 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
         ((static_cast<long long>(b) * p.Sq + qi) * p.Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      dqb[off + tx + 8 * c] = from_f<T>(dq[i][c] * p.scale);
+      dqb[off + tx + 8 * c] = dq[i][c] * p.scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int kv_smem = dkdv_smem<D>();
   constexpr int q_smem = dq_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kv_smem);
+      dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              q_smem);
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(p.B) * p.Sq * p.Hq;
   const int rows_per_block = THREADS / 32;
-  delta_kernel<T, D><<<static_cast<unsigned>(
-                           (rows + rows_per_block - 1) / rows_per_block),
-                       THREADS, 0, stream>>>(p);
+  delta_kernel<D><<<static_cast<unsigned>(
+                         (rows + rows_per_block - 1) / rows_per_block),
+                     THREADS, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, D><<<dim3(p.B * p.Hkv, (p.Skv + BKV - 1) / BKV), THREADS,
-                      kv_smem, stream>>>(p);
+  dkdv_kernel<D><<<dim3(p.B * p.Hkv, (p.Skv + BKV - 1) / BKV), THREADS,
+                   kv_smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<dim3(p.B * p.Hq, (p.Sq + BQ - 1) / BQ), THREADS, q_smem,
-                    stream>>>(p);
+  dq_kernel<D><<<dim3(p.B * p.Hq, (p.Sq + BQ - 1) / BQ), THREADS, q_smem,
+                 stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dtype(const Params& p, int D, cudaStream_t stream) {
+cudaError_t launch_fp32(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 80: return launch<T, 80>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 32: return launch<32>(p, stream);
+    case 64: return launch<64>(p, stream);
+    case 80: return launch<80>(p, stream);
+    case 128: return launch<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+namespace flash_bwd_wgmma {
+int backward(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, void* scratch, void* dq,
+             void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
+             int D, int causal, int window, float scale,
+             cudaStream_t stream);  // flash_attention_bwd_wgmma.cu
+}
+
 extern "C" {
 
 // q, o, dout, dq contiguous [B, Sq, Hq, D]; k, v, dk, dv contiguous
 // [B, Skv, Hkv, D]; all fp32 (bf16 = 0) or all bf16 (bf16 = 1); lse the
-// forward's fp32 [B, Hq, Sq]; delta an fp32 [B, Hq, Sq] scratch. window
-// <= 0 means no window. Returns cudaGetLastError() after the three
-// launches (0 when there is nothing to launch).
+// forward's fp32 [B, Hq, Sq]; delta an fp32 scratch of 2 B Hq Sq_pad
+// floats, Sq_pad = Sq rounded up to 128 (fp32 uses its first B Hq Sq).
+// window <= 0 means no window. Returns cudaGetLastError() after the three
+// launches (0 when there is nothing to launch), or, for bf16, -1, -2, -3
+// or -4 when the CUDA driver refuses q's, k's, v's or dout's tensor map
+// (TMA's 16-byte rules), before any launch.
 int flash_attention_backward(const void* q, const void* k, const void* v,
                              const void* o, const void* dout,
                              const void* lse, void* delta, void* dq,
@@ -459,12 +454,15 @@ int flash_attention_backward(const void* q, const void* k, const void* v,
                              int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return flash_bwd_wgmma::backward(q, k, v, o, dout, lse, delta, dq, dk,
+                                     dv, B, Sq, Skv, Hq, Hkv, D, causal,
+                                     window, scale, s);
   const Params p{q, k, v, o, dout, static_cast<const float*>(lse),
                  static_cast<float*>(delta), dq, dk, dv, B, Sq, Skv, Hq,
                  Hkv, Hq / Hkv, causal, window, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dtype<__nv_bfloat16>(p, D, s)
-              : launch_dtype<float>(p, D, s);
+  return launch_fp32(p, D, s);
 }
 
 }  // extern "C"

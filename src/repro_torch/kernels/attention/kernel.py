@@ -2,16 +2,20 @@
 ``csrc/flash_attention.cu`` (the entry point, and the fp32 kernel on the
 CUDA cores) and ``csrc/flash_attention_wgmma.cu`` (the bf16 kernel:
 wgmma on the tensor cores, fed by TMA), the entry point choosing by
-dtype; and one of ``csrc/flash_attention_bwd.cu``, the backward (dq, dk
-and dv from the forward's output and logsumexp, on the CUDA cores, fp32
-or bf16), built apart so that the two build at once.
+dtype; and one of ``csrc/flash_attention_bwd.cu`` (the backward's entry
+point, and its fp32 kernels on the CUDA cores) and
+``csrc/flash_attention_bwd_wgmma.cu`` (its bf16 kernels: wgmma fed by
+TMA), the backward's entry choosing by dtype in the same way (dq, dk and
+dv from the forward's output and logsumexp), built apart so that the
+two build at once.
 
 Built with ``nvcc`` for ``sm_90a`` at first use
 (``repro_torch.kernels.build``) and called through ``ctypes``, as the
 LSTM and EVL kernels are: pointers, the (batch, seq, head) strides of
 q, k, v and the output, and the current stream go in; the C function
 returns ``cudaGetLastError()``, raised here if it is not 0, or one of
-``TMA_REFUSED``'s codes, raised as a ``ValueError``.
+``TMA_REFUSED``'s codes (the backward's ``BWD_TMA_REFUSED``), raised as
+a ``ValueError``.
 ``FLASH_LAUNCHES`` counts the launches by ``launch_key``: (B, Sq, Skv,
 Hq, Hkv, D) for a causal launch, with ``NON_CAUSAL`` appended for one
 without the causal mask (the encoder's and cross-attention's).
@@ -31,15 +35,21 @@ from repro_torch.kernels.build import LaunchCounter
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = [_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu"]
-BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu"]
+BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu",
+               _CSRC / "flash_attention_bwd_wgmma.cu"]
 LIBRARIES = {"flash_attention": SOURCES, "flash_attention_bwd": BWD_SOURCES}
 # the head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 80, 128)
 # the entry point's returns when the CUDA driver refuses to encode a
 # bf16 operand's tensor map (TMA reads only 16-byte aligned tensors whose
 # strides are 16-byte multiples), before anything is launched; cudaError
-# values are positive
+# values are positive. The backward's are the same, and one for dout.
 TMA_REFUSED = {-1: "q", -2: "k", -3: "v"}
+BWD_TMA_REFUSED = {**TMA_REFUSED, -4: "dout"}
+# the backward's fp32 scratch holds lse in log2 units and Delta for each
+# query row, the rows padded to a multiple of this (its bf16 kernels'
+# query block)
+BWD_ROW_PAD = 128
 
 FLASH_LAUNCHES = LaunchCounter()
 FLASH_BWD_LAUNCHES = LaunchCounter()
@@ -74,15 +84,16 @@ def launch_key(B, Sq, Skv, Hq, Hkv, D, causal: bool = True) -> tuple:
     return (B, Sq, Skv, Hq, Hkv, D) + (() if causal else (NON_CAUSAL,))
 
 
-def raise_for(rc: int, q, k, v) -> None:
-    """Raise for the entry point's return ``rc`` on q, k, v: a
-    ``ValueError`` naming the operand TMA cannot read, a
-    ``RuntimeError`` for a CUDA error; nothing for 0."""
+def raise_for(rc: int, q, k, v, dout=None, what: str = "") -> None:
+    """Raise for an entry point's return ``rc`` on q, k, v (and the
+    backward's dout): a ``ValueError`` naming the operand TMA cannot
+    read, a ``RuntimeError`` for a CUDA error; nothing for 0."""
     if rc == 0:
         return
-    if rc in TMA_REFUSED:
-        name = TMA_REFUSED[rc]
-        t = dict(q=q, k=k, v=v)[name]
+    codes = TMA_REFUSED if dout is None else BWD_TMA_REFUSED
+    if rc in codes:
+        name = codes[rc]
+        t = dict(q=q, k=k, v=v, dout=dout)[name]
         raise ValueError(
             f"flash_attention kernel (bf16, TMA) cannot read {name}: TMA "
             f"takes 16-byte aligned tensors whose (batch, seq, head) "
@@ -91,7 +102,7 @@ def raise_for(rc: int, q, k, v) -> None:
             f"strides are {[s * t.element_size() for s in t.stride()[:3]]} "
             f"bytes at shape {tuple(t.shape)}")
     B, Sq, Hq, D = q.shape
-    raise RuntimeError(f"flash_attention kernel launch failed at "
+    raise RuntimeError(f"flash_attention {what}kernel launch failed at "
                        f"B={B} Sq={Sq} Skv={k.shape[1]} Hq={Hq} "
                        f"Hkv={k.shape[2]} D={D} {q.dtype}: cudaError {rc}")
 
@@ -126,13 +137,16 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool, window):
     checked: q, out, dout [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D],
     contiguous, one dtype (fp32 or bf16); lse the forward's contiguous
     fp32 [B, Hq, Sq]; q_offset 0 and every key valid. Returns fresh
-    (dq, dk, dv) in q's dtype."""
+    (dq, dk, dv) in q's dtype. bf16 reads q, k, v and dout by TMA, so a
+    tensor TMA cannot read raises a ``ValueError`` before any launch."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    rows = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    delta = torch.empty((2, B, Hq, rows), dtype=torch.float32,
+                        device=q.device)
     rc = _bwd_library().flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -140,9 +154,6 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool, window):
         int(q.dtype == torch.bfloat16), int(causal),
         0 if window is None else int(window), D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed "
-                           f"at B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} "
-                           f"D={D} {q.dtype}: cudaError {rc}")
+    raise_for(rc, q, k, v, dout, what="backward ")
     FLASH_BWD_LAUNCHES.add(launch_key(B, Sq, Skv, Hq, Hkv, D, causal))
     return dq, dk, dv

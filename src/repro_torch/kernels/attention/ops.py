@@ -17,9 +17,12 @@ strides and mask their own ragged edges.
 Gradients. On the card an input that requires grad, while grad is
 enabled, goes through ``FlashAttentionFunction``: its forward launches
 the kernel with the logsumexp output and saves q, k, v, the output and
-the logsumexp; its backward launches the backward kernel
-(``csrc/flash_attention_bwd.cu``: dq, dk and dv in the inputs' dtype).
-That backward takes what a training forward launches, causal with an
+the logsumexp; its backward launches the backward's entry point (dq, dk
+and dv in the inputs' dtype): bf16 on the tensor-core kernels of
+``csrc/flash_attention_bwd_wgmma.cu``, which read q, k, v and dout by
+TMA (the same 16-byte rules, a ``ValueError`` naming the operand), fp32
+on the CUDA-core kernels of ``csrc/flash_attention_bwd.cu``. That
+backward takes what a training forward launches, causal with an
 optional window or no mask at all, at q_offset 0 with every key valid;
 any other argument raises before anything is launched. On the CPU the
 gradient is autograd's of the plain version, the one CPU route.

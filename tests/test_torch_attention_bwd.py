@@ -12,16 +12,24 @@ are the JAX kernel tests' fp32 ones, rtol 2e-4 / atol 2e-5 (the same
 products summed in another order). The wrapper's refusal of what the
 backward kernel does not take is checked here too.
 
-On a card (``cuda``, skipped without one): the backward kernel against
+On a card (``cuda``, skipped without one): the backward kernels against
 ``attention_bwd_ref`` on the same inputs and cotangent, fp32 at 2e-4 /
 2e-5 and bf16 within 1e-2 of max |grad| (the gradients are stored in
 bf16, one rounding of 2^-9 of an element, after fp32 sums in another
-order); a GQA group of 4 over several key tiles, where a sum over the
-group that lost a head would miss by a quarter of the gradient; two
-runs bitwise equal; the forward's output bitwise the same with and
-without its logsumexp. The JAX package is imported inside the parity
-tests only: ``python -m pytest -q -m cuda tests/test_torch_attention_bwd.py``
-runs on a card without jax."""
+order; the bf16 kernels also round P and dS once, see
+``tests/test_torch_flash_bwd_numerics.py``); edges that fall inside the
+bf16 kernels' tiles (128 keys or queries a block, 64 a stage): lengths
+that are no multiple of 64, a window edge inside a 64-query tile, no
+mask at Sq > Skv and Sq < Skv, 64 tokens (one box); GQA groups of 4 and
+16 (MQA 16/1) over several key tiles, where a sum over the group that
+lost a head would miss by a quarter of the gradient or more; two runs
+bitwise equal, and the rows of a B = 1 launch bitwise the B = 8
+launch's; the forward's output bitwise the same with and without its
+logsumexp. The JAX package is imported inside the parity tests only:
+``python -m pytest -q -m cuda tests/test_torch_attention_bwd.py`` runs
+on a card without jax."""
+
+import re
 
 import numpy as np
 import pytest
@@ -187,13 +195,69 @@ def _hold(got, want, dtype, what):
             assert err <= bound, (what, name, err, bound)
 
 
+# (B, Sq, Skv, mask) whose edges fall inside the bf16 kernels' tiles
+EDGES = [(2, 200, 200, dict(causal=True)),
+         (1, 77, 300, dict(causal=False)),
+         (1, 333, 333, dict(causal=True)),
+         (2, 190, 190, dict(causal=True, window=50)),
+         (1, 300, 130, dict(causal=False)),
+         (1, 130, 300, dict(causal=False)),
+         (2, 64, 64, dict(causal=True))]
+_EDGE_IDS = ["causal-200", "full-77x300", "causal-333", "window50-190",
+             "full-300x130", "full-130x300", "causal-64"]
+
+
+def test_backward_refusal_codes_match_its_entry_point():
+    """The backward's refusal codes are the ones its CUDA source returns
+    (read from the text: the source builds on a card only): the
+    forward's for q, k, v, and one for dout."""
+    src = flash_kernel.BWD_SOURCES[1].read_text()
+    found = re.search(r"constexpr int kTmaRefusedQ = (-\d+), "
+                      r"kTmaRefusedK = (-\d+), kTmaRefusedV = (-\d+),\s+"
+                      r"kTmaRefusedDout = (-\d+);", src)
+    assert found is not None
+    assert dict(zip(map(int, found.groups()), ("q", "k", "v", "dout"))) \
+        == flash_kernel.BWD_TMA_REFUSED
+    assert {k: v for k, v in flash_kernel.BWD_TMA_REFUSED.items()
+            if v != "dout"} == flash_kernel.TMA_REFUSED
+    assert all(f"return kTmaRefused{n};" in src
+               for n in ("Q", "K", "V", "Dout"))
+
+
+def test_backward_scratch_pad_matches_its_source():
+    """The binding sizes the bf16 backward's scratch (lse and Delta a
+    query row, rows padded to whole query blocks) by the padding its CUDA
+    source reads them with."""
+    src = flash_kernel.BWD_SOURCES[1].read_text()
+    found = re.search(r"constexpr int PAD = (\d+);", src)
+    assert found is not None
+    assert int(found.group(1)) == flash_kernel.BWD_ROW_PAD
+    assert f"constexpr int BQ = {flash_kernel.BWD_ROW_PAD};" in src
+
+
+def test_backward_raises_a_refused_dout_by_name():
+    """A dout TMA cannot read raises a ValueError naming it; the
+    forward's codes raise as before, a CUDA error a RuntimeError naming
+    the backward."""
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in _inputs(1, 16, 16, 4, 2, 32))
+    base = torch.zeros(dout.numel() + 8, dtype=torch.bfloat16)
+    shifted = base[1:1 + dout.numel()].view(dout.shape)
+    flash_kernel.raise_for(0, q, k, v, dout)
+    with pytest.raises(ValueError, match="cannot read dout: .* starts 2 "
+                                         "bytes past a 16-byte boundary"):
+        flash_kernel.raise_for(-4, q, k, v, shifted, what="backward ")
+    with pytest.raises(ValueError, match="cannot read k"):
+        flash_kernel.raise_for(-2, q, k, v, dout, what="backward ")
+    with pytest.raises(RuntimeError, match="backward kernel launch failed"):
+        flash_kernel.raise_for(700, q, k, v, dout, what="backward ")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"{h[0]}-{h[1]}")
-@pytest.mark.parametrize("case", MASKS + [(2, 200, 200, dict(causal=True)),
-                                          (1, 77, 300, dict(causal=False))],
-                         ids=_MASK_IDS + ["causal-200", "full-77x300"])
+@pytest.mark.parametrize("case", MASKS + EDGES, ids=_MASK_IDS + _EDGE_IDS)
 def test_cuda_backward_kernel_matches_plain_version(case, heads, D, dtype):
     _card()
     B, Sq, Skv, mask = case
@@ -212,20 +276,62 @@ def test_cuda_backward_kernel_matches_plain_version(case, heads, D, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_backward_sums_a_gqa_group_over_key_tiles(dtype):
-    """GQA 16/4 over 300 keys (five 64-key tiles of the dk/dv blocks, a
-    ragged last one), causal: every kv head's dk and dv sum its four
-    query heads; two runs give the same bits."""
+@pytest.mark.parametrize("case", [
+    (2, 300, 300, 16, 4, 128, dict(causal=True)),
+    (1, 333, 333, 16, 1, 128, dict(causal=True)),
+    (2, 190, 190, 16, 1, 64, dict(causal=True, window=50)),
+    (1, 300, 130, 16, 4, 80, dict(causal=False))],
+    ids=["gqa16-4-300", "mqa16-1-333", "mqa16-1-window50",
+         "gqa16-4-full-300x130"])
+def test_cuda_backward_sums_a_gqa_group_over_key_tiles(case, dtype):
+    """GQA 16/4 and MQA 16/1 over several key tiles (64-key tiles of the
+    fp32 dk/dv blocks, 128 of the bf16 ones, a ragged last one), causal,
+    windowed or unmasked: every kv head's dk and dv sum its query heads;
+    two runs give the same bits."""
     _card()
+    B, Sq, Skv, Hq, Hkv, D, mask = case
     dt = getattr(torch, dtype)
     q, k, v, dout = (torch.from_numpy(a).cuda().to(dt)
-                     for a in _inputs(2, 300, 300, 16, 4, 128, seed=22))
-    out, got = _card_grads(q, k, v, dout, dict(causal=True))
-    _, again = _card_grads(q, k, v, dout, dict(causal=True))
+                     for a in _inputs(B, Sq, Skv, Hq, Hkv, D, seed=22))
+    out, got = _card_grads(q, k, v, dout, mask)
+    _, again = _card_grads(q, k, v, dout, mask)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     f32 = [t.float() for t in (q, k, v, out, dout)]
-    want = attention_bwd_ref(*f32, logsumexp_ref(f32[0], f32[1]))
-    _hold(got, want, dt, "GQA 16/4 x 300")
+    want = attention_bwd_ref(*f32, logsumexp_ref(f32[0], f32[1], **mask),
+                             **mask)
+    _hold(got, want, dt, f"GQA {Hq}/{Hkv} {Sq} x {Skv} {mask}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [dict(causal=True),
+                                  dict(causal=True, window=50),
+                                  dict(causal=False)],
+                         ids=["causal", "window50", "full"])
+def test_cuda_bf16_backward_bits_repeat_and_do_not_depend_on_batch(mask):
+    """The bf16 kernels' sums run in a fixed order with one writer an
+    element: two launches give the same bits, and the rows of a B = 1
+    launch are the B = 8 launch's, bit for bit (a ragged 333 tokens,
+    GQA 8/2, D 128)."""
+    _card()
+    q, k, v, dout = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+                     for a in _inputs(8, 333, 333, 8, 2, 128, seed=24))
+    lse = torch.empty((8, 8, 333), dtype=torch.float32, device="cuda")
+    out = flash_kernel.flash_attention_cuda(q, k, v, mask["causal"],
+                                            mask.get("window"), 0, 333,
+                                            lse=lse)
+    args = (mask["causal"], mask.get("window"))
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                *args)
+    again = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                  *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i in (0, 5):
+        one = flash_kernel.flash_attention_bwd_cuda(
+            *(t[i:i + 1].contiguous() for t in (q, k, v, out, dout, lse)),
+            *args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b[i:i + 1]) for a, b in zip(one, got))
 
 
 @pytest.mark.cuda
