@@ -14,6 +14,8 @@ NVIDIA H100.
     python3 chip_smoke.py --moe              # the [moe] phase alone
     python3 chip_smoke.py --audio            # the [audio] phase alone
     python3 chip_smoke.py --train-zoo        # the [train-zoo] phase alone
+    python3 chip_smoke.py --train-ssm        # the [train-ssm] phase alone
+    python3 chip_smoke.py --ssd-bwd          # the SSD backward, train shape
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -119,7 +121,23 @@ unmasked cases and edges inside the bf16 kernels' tiles, every head
 dim, fp32 and bf16 (two launches bitwise, the rows of B = 1 launches
 bitwise the batch's), and timed beside SDPA's backward at the train
 path's shape, 4 x 2048 causal and Whisper's 8 x 1500 without a mask,
-with its Delta pass alone.
+with its Delta pass alone. Then the SSM families' training
+(``[train-ssm]``): Mamba2-370M at full width and depth (48 layers) and
+Zamba2-2.7B at full width cut to 12 layers (two stages), bf16, remat on,
+8 x 512 tokens: step 0's loss and gradient bitwise the same in two runs,
+Adam steps (4 and a profiled one for Mamba2, 2 for Zamba2), every SSD
+launch through the kernels (2 forward launches a Mamba2 layer and 1 of
+the hand-written backward; Zamba2's shared block 2 flash forward and 1
+backward a stage), each loss finite, ms a step, tokens/s, peak memory
+and the profiled step's busy share and the SSD backward's share of it;
+each one's fp32 copy (Mamba2 2 layers, Zamba2 one stage) against the
+CPU (loss and every gradient leaf); ``train --arch mamba2-370m --steps
+2`` through the CLI; the SSD backward against its plain version over
+ragged shapes, every bf16 chunk, Mamba2's and Zamba2's instantiations
+and the path's, fp32 and bf16, with and without a final-state
+cotangent (two launches bitwise, the rows of B = 1 launches bitwise the
+batch's, a mid-chunk clip against float64), and timed at the path's
+shapes beside its plain version and its bound.
 Every kernel launch counter is set to 0 just before each path and read
 just after, and no plain version may run on a card tensor. It times
 each kernel beside its plain version, a PyTorch yardstick where one
@@ -128,13 +146,15 @@ exists, and its bound, reads the device's busy share on each path with
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
 ``--flash-serve``, ``--flash-bwd``, ``--flash-ablation``,
-``--ssd-ablation``, ``--lstm-ablation`` or ``--evl-ablation`` it runs
-only that probe (``flash_host``, ``flash_serve``, ``flash_bwd_probe``,
-``flash_ablation``, ``ssd_ablation``, ``lstm_ablation``,
-``evl_ablation``) and prints no result; with ``--decode``,
-``--dense``, ``--moe``, ``--audio`` or ``--train-zoo``, the build and
-the ``[decode]``, ``[dense]``, ``[moe]``, ``[audio]`` or
-``[train-zoo]`` phase alone, and no result.
+``--ssd-ablation``, ``--lstm-ablation``, ``--evl-ablation`` or
+``--ssd-bwd`` it runs only that probe (``flash_host``, ``flash_serve``,
+``flash_bwd_probe``, ``flash_ablation``, ``ssd_ablation``,
+``lstm_ablation``, ``evl_ablation``, ``ssd_bwd_probe``) and prints no
+result; with ``--decode``, ``--dense``, ``--moe``, ``--audio``,
+``--train-zoo`` or ``--train-ssm``, the build and the ``[decode]``,
+``[dense]``, ``[moe]``, ``[audio]``, ``[train-zoo]`` or ``[train-ssm]``
+phase alone (``[train-ssm]`` with the SSD library's SASS check), and no
+result.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -516,6 +536,46 @@ FLASH_BWD_BF16_REL = 1e-2
 FLASH_BWD_TIMED = [(4, 2048, 2048, 20, 20, 128, True),
                    (8, 1500, 1500, 16, 16, 64, False),
                    (8, 512, 512, 48, 1, 128, True)]
+# zoo training of the SSM families ([train-ssm]): Mamba2-370M at full
+# width and depth (48 layers, d 1024, 32 SSD heads of 64, state 128,
+# chunk 128; 0.37 B parameters, ~12 GB at Adam's ~32 bytes a parameter)
+# and Zamba2-2.7B at full width cut to TRAIN_ZAMBA_LAYERS (2 stages of 6
+# Mamba2 layers, 80 SSD heads of 64, state 64, each stage followed by the
+# shared attention block of 32 heads of 80; a depth must be a multiple of
+# 6), bf16, remat on, random weights from seed 0, TRAIN_ZOO_BATCH
+# tokens, Adam at TRAIN_ZOO_LR. Per step: 2 SSD forward launches a
+# Mamba2 layer (the forward and its recomputation under remat) and 1
+# backward launch; Zamba2 also 2 flash forward and 1 flash backward
+# launches a stage. Mamba2 takes TRAIN_ZOO_STEPS steps and one more under
+# the profiler, Zamba2 TRAIN_ZAMBA_STEPS; each one's fp32 copy (Mamba2 2
+# layers, Zamba2 one stage) at TRAIN_FP32_BATCH against the CPU: the loss
+# and every gradient leaf within TRAIN_FP32_TOL of the leaf's max.
+TRAIN_SSM_ARCH = MAMBA_ARCH
+TRAIN_ZAMBA_LAYERS = 12
+# the training CLI's default (--batch, --seq) for a zoo arch
+TRAIN_CLI_BATCH = (32, 128)
+TRAIN_ZAMBA_STEPS = 2
+# device-kernel names of the SSD backward's four kernels (each chunk's C
+# B^T, the states' sweep, the chunks, the heads' sum of dB and dC)
+SSD_BWD_SYMBOLS = ("ssd_bwd_scores", "ssd_bwd_states", "ssd_bwd_chunk",
+                   "ssd_bwd_sum_heads")
+# the SSD backward against its plain version on the card, (B, L, H, P, N,
+# chunk): the JAX sweep's ragged shapes, every bf16 chunk at a ragged L,
+# Mamba2-370M's and Zamba2's instantiations (states 128 and 64) at a
+# ragged L of 300, the [train-ssm] fp32 copies' launches (2 x 64 tokens,
+# one ragged chunk) and the training path's two, each at the three
+# decays in fp32 (within SSD_BWD_FP32_REL of each gradient's max |grad|:
+# the same fp32 sums in another order) and bf16 (SSD_BWD_BF16_REL: the
+# gradients stored in bf16, 2^-9 of an element, after fp32 sums in
+# another order, as the flash backward is held), with and without a
+# final-state cotangent in turn
+SSD_TRAIN = [(8, 512, 32, 64, 128, 128), (8, 512, 80, 64, 64, 128)]
+SSD_BWD_CASES = ([(1, 100, 1, 32, 16, 32), (2, 96, 3, 16, 8, 32)]
+                 + [(2, 100, 3, 32, 32, K) for K in (16, 32, 64, 128)]
+                 + [(2, 300, 4, 64, 128, 128), (2, 300, 4, 64, 64, 128),
+                    (2, 64, 32, 64, 128, 128), (2, 64, 80, 64, 64, 128)]
+                 + SSD_TRAIN)
+SSD_BWD_FP32_REL, SSD_BWD_BF16_REL = 1e-4, 1e-2
 # each arch's fp32 copy: 2 layers, but Zamba2's one stage of 6, and 1
 # for the [dense] and [moe] models, whose CPU halves (the LM head at full
 # width, up to 256k x 6144) took 110.5 s of the smoke at 2 (PERF.md)
@@ -583,6 +643,7 @@ def counters():
             "flash_attention": attn_kernel.FLASH_LAUNCHES,
             "flash_attention_bwd": attn_kernel.FLASH_BWD_LAUNCHES,
             "ssd_scan": ssd_kernel.SSD_LAUNCHES,
+            "ssd_scan_bwd": ssd_kernel.SSD_BWD_LAUNCHES,
             "ssd_chunk": ssd_kernel.SSD_CHUNK_LAUNCHES}
 
 
@@ -632,11 +693,13 @@ def no_plain_version_on_the_card():
     import repro_torch.kernels.evl.ops as evl_ops
     import repro_torch.kernels.lstm.ops as lstm_ops
     import repro_torch.kernels.ssd.ops as ssd_ops
+    import repro_torch.kernels.ssd.ref as ssd_ref
 
     names = [(lstm_ops, "lstm_cell_ref"), (lstm_ops, "lstm_layer_ref"),
              (evl_ops, "evl_loss_ref"), (evl_ops, "evl_loss_and_grad_ref"),
              (attn_ops, "attention_ref"), (ssd_ops, "ssd_scan_ref"),
-             (ssd_ops, "ssd_chunk_ref")]
+             (ssd_ops, "ssd_chunk_ref"), (ssd_ref, "ssd_scan_ref"),
+             (ssd_ref, "ssd_scan_bwd_ref")]
     calls: list[str] = []
     saved = {(m, n): getattr(m, n) for m, n in names}
     for (mod, name), fn in saved.items():
@@ -768,9 +831,37 @@ def eager_ms(fn, n=200):
     return e0.elapsed_time(e1) / n
 
 
+def ptxas_report(name: str, sources, symbols) -> list[str]:
+    """What ``ptxas -v`` said of the kernels named by ``symbols`` when
+    ``build`` built library ``name`` (its log beside the library): one
+    line a kernel and dtype with its registers and spills."""
+    from repro_torch.kernels import build
+
+    # per entry: "Compiling entry function '<name>'", "Function
+    # properties for <name>" (and for each function it calls), "<n> bytes
+    # stack frame, <n> bytes spill stores, <n> bytes spill loads", "Used
+    # <n> registers, ..."
+    report, fn, props, spill = [], None, None, "spills not reported"
+    for line in build.ptxas_log(name, sources).read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn, spill = line.split("'")[1], "spills not reported"
+        elif "Function properties for" in line:
+            props = line.split("Function properties for", 1)[1].strip()
+        elif fn and props == fn and "spill stores" in line:
+            spill = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            sym = next((k for k in symbols if k in fn), None)
+            if sym:
+                regs = line.split("Used", 1)[1].split("registers")[0].strip()
+                report.append(f"{sym} {'bf16' if 'bfloat16' in fn else 'fp32'}"
+                              f": {regs} registers, {spill}")
+            fn = None
+    return report
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel library from the checkout, one nvcc
-    each, all at once."""
+    each, all at once; print the SSD backward's ``ptxas_report``."""
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.evl import kernel as evl_kernel
@@ -788,20 +879,22 @@ def build_kernels() -> None:
     attn_kernel._library()
     attn_kernel._bwd_library()
     ssd_kernel._library()
+    ssd_kernel._bwd_library()
     for name, path in paths.items():
         print(f"[build] {name}: {'cached' if cached[name] else 'built'} -> "
               f"{path.relative_to(ROOT)}")
+    report = ptxas_report("ssd_scan_bwd", ssd_kernel.BWD_SOURCES,
+                          SSD_BWD_SYMBOLS)
+    check(len(report) == 2 * len(SSD_BWD_SYMBOLS),
+          f"ptxas -v reported {len(report)} kernels of the SSD backward")
     print(f"[build] {len(libs)} libraries in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s; the SSD backward's ptxas -v: "
+          + "; ".join(report))
 
 
-def check_sass(label: str, library: str, sources, symbol: str,
-               instantiations: int) -> dict:
-    """Phases 1b and 1c: a bf16 kernel runs on the tensor cores, fed by
-    TMA: the library's SASS (``cuobjdump --dump-sass``) holds wgmma
-    (HGMMA) and TMA loads (UTMALDG) in each of the ``instantiations`` of
-    the kernel whose name holds ``symbol``. Returns the (HGMMA, UTMALDG)
-    counts of every function of the library by its mangled name."""
+def sass_counts(library: str, sources) -> dict:
+    """The library's SASS (``cuobjdump --dump-sass``): the (HGMMA,
+    UTMALDG) counts of every function by its mangled name."""
     from repro_torch.kernels import build
 
     lib = build.library_path(library, sources)
@@ -818,6 +911,16 @@ def check_sass(label: str, library: str, sources, symbol: str,
         elif fn is not None:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "UTMALDG" in line
+    return counts
+
+
+def check_sass(label: str, library: str, sources, symbol: str,
+               instantiations: int) -> dict:
+    """Phases 1b and 1c: a bf16 kernel runs on the tensor cores, fed by
+    TMA: ``sass_counts`` finds wgmma (HGMMA) and TMA loads (UTMALDG) in
+    each of the ``instantiations`` of the kernel whose name holds
+    ``symbol``. Returns the library's ``sass_counts``."""
+    counts = sass_counts(library, sources)
     hgmma = sum(c[0] for c in counts.values())
     utmaldg = sum(c[1] for c in counts.values())
     bf16 = {f: c for f, c in counts.items() if symbol in f}
@@ -858,11 +961,19 @@ def check_flash_sass() -> None:
 
 def check_ssd_sass() -> None:
     """Phase 1c: the bf16 SSD kernel, one instantiation a chunk and
-    number of 64-column slabs of the state (1 or 2)."""
+    number of 64-column slabs of the state (1 or 2); the backward's
+    four kernels, one instantiation a dtype each."""
     from repro_torch.kernels.ssd import kernel as ssd_kernel
 
     check_sass("bf16 SSD", "ssd_scan", ssd_kernel.SOURCES, SSD_SYMBOL,
                2 * len(ssd_kernel.BF16_CHUNKS))
+    fns = list(sass_counts("ssd_scan_bwd", ssd_kernel.BWD_SOURCES))
+    mine = {s: [f for f in fns if s in f] for s in SSD_BWD_SYMBOLS}
+    check(all(len(f) == 2 for f in mine.values()),
+          f"the SSD backward's kernels are not one instantiation a dtype "
+          f"each: {mine}")
+    print(f"[sass] ssd_scan_bwd library: {len(fns)} functions, "
+          f"instantiations {({k: len(v) for k, v in mine.items()})}")
 
 
 def layer_inputs(W, B, T, I, H, carry=True, seed=0):
@@ -1818,10 +1929,9 @@ def online_main_path(alone_ms: float, tag: str) -> dict:
         flushes = snap["batches"]
         n_layers = len(res.params["lstm"])
         totals = {k: sum(v.values()) for k, v in launches.items()}
-        want = {"lstm_layer": n_layers * (steps + published + flushes + 1),
-                "lstm_layer_bwd": n_layers * steps, "evl": steps,
-                "flash_attention": 0, "flash_attention_bwd": 0,
-                "ssd_scan": 0, "ssd_chunk": 0}
+        want = dict(dict.fromkeys(counters(), 0),
+                    lstm_layer=n_layers * (steps + published + flushes + 1),
+                    lstm_layer_bwd=n_layers * steps, evl=steps)
         check(totals == want,
               f"online launches {totals}, not {want}: {steps} local steps, "
               f"{published} publishes (a calibration predict each), "
@@ -4904,10 +5014,11 @@ def flash_bwd_delta_ms(out, dout, lse, inner: int, reps: int) -> float:
     return graph_ms(run, inner, reps)
 
 
-def time_flash_bwd(launches: dict, tag: str):
+def time_flash_bwd(launches: dict, tag: str, extra=FLASH_BWD_TIMED):
     """The backward kernels at each row key of the train path (bf16), and
-    at FLASH_BWD_TIMED's shapes: their device time (``graph_ms``) beside
-    the Delta pass's alone, the plain version's (``attention_bwd_ref``),
+    at ``extra``'s (FLASH_BWD_TIMED's) shapes: their device time
+    (``graph_ms``) beside the Delta pass's alone, the plain version's
+    (``attention_bwd_ref``),
     the library's (one ``scaled_dot_product_attention`` forward +
     backward, less its forward; never called by the port) and the bound;
     held against the plain version there first. Returns rows by key and
@@ -4919,7 +5030,7 @@ def time_flash_bwd(launches: dict, tag: str):
 
     rows, worst = {}, 0.0
     shapes = [flash_row(key) for key in sorted(launches, key=str)] + [
-        (t[:6], None, t[6]) for t in FLASH_BWD_TIMED]
+        (t[:6], None, t[6]) for t in extra]
     for shape, w, causal in shapes:
         B, Sq, Skv, Hq, Hkv, D = shape
         key = flash_key(shape, w, causal)
@@ -5016,30 +5127,26 @@ def flash_bwd_probe(tag: str) -> None:
                       "us": us, "digest": digest}))
 
 
-def train_fp32_copy(tag: str) -> float:
-    """Qwen1.5-4B at full width, 2 layers, fp32 (TF32 off), noised as
-    the card-vs-CPU copies: ``lm_loss`` and every gradient leaf
-    (``launch.specs.loss_and_grad``), and one Adam step of
-    ``make_optimizer`` on that gradient (``make_train_step``'s step at
-    one microbatch, its gradient kept to be compared: the CPU half
-    computes it once), on the card (through the fp32 flash kernels,
-    forward and backward) and on the CPU (the plain versions) from the
-    same weights on the same TRAIN_FP32_BATCH tokens: the loss, each
-    gradient leaf and Adam's moments within TRAIN_FP32_TOL of the
-    leaf's max |value|, the parameters as TRAIN_FP32_TOL's comment says.
-    Returns the largest relative difference of the loss and the
-    gradients."""
+def train_fp32_copy(arch: str, n_layers: int, tag: str, phase: str):
+    """``arch`` at full width cut to ``n_layers``, fp32 (TF32 off), remat
+    on, noised as the card-vs-CPU copies: ``lm_loss`` and every gradient
+    leaf (``launch.specs.loss_and_grad``) on the card (through the fp32
+    kernels, forward and backward, exactly ``train_launches``) and on
+    the CPU (the plain versions) from the same weights on the same
+    TRAIN_FP32_BATCH tokens (the SSD scan's one ragged chunk): the loss
+    and each gradient leaf within TRAIN_FP32_TOL of the leaf's max
+    |value|. Returns the largest relative difference of the loss and the
+    gradients, and the config with each device's (parameters, gradient)
+    for ``fp32_adam_step``."""
     import dataclasses
 
     from repro_torch.checkpoint.convert import params_to
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_token_batch
-    from repro_torch.launch.specs import loss_and_grad, make_optimizer
+    from repro_torch.launch.specs import loss_and_grad
     from repro_torch.models.transformer import init_lm
-    from repro_torch.optim import apply_updates
-    from repro_torch.tree import tree_flatten_with_path
 
-    cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ZOO_ARCH), 2),
+    cfg = dataclasses.replace(cut_depth(get_config(arch), n_layers),
                               dtype="float32")
     g = torch.Generator(device="cuda").manual_seed(1)
     params = init_lm(cfg, g)
@@ -5049,236 +5156,140 @@ def train_fp32_copy(tag: str) -> float:
                                                     device="cuda"))
     toks = torch.as_tensor(synthetic_token_batch(
         *TRAIN_FP32_BATCH, cfg.vocab, seed=21), dtype=torch.long)
-    opt = make_optimizer(cfg)
-    out = {}
+    want = train_launches(cfg, *TRAIN_FP32_BATCH)
+    runs, loss = {}, {}
     for dev in ("cuda", "cpu"):
         p = params if dev == "cuda" else params_to(params, "cpu")
         reset_counters()
         with no_plain_version_on_the_card() as plain_calls:
-            loss, grads = loss_and_grad(cfg, p, toks.to(dev))
-            updates, state = opt.update(grads, opt.init(p), p, TRAIN_ZOO_LR)
-            new = apply_updates(p, updates)
-            del updates
-        got = {k: sum(v.values()) for k, v in read_counters().items()}
+            loss[dev], grads = loss_and_grad(cfg, p, toks.to(dev))
         if dev == "cuda":
-            check(not plain_calls and got["flash_attention"] == 4
-                  and got["flash_attention_bwd"] == 2
-                  and sum(got.values()) == 6,
-                  f"the fp32 copy's gradient on the card launched {got}, "
-                  f"not 4 forward + 2 backward flash launches (plain "
-                  f"versions: {plain_calls})")
-        out[dev] = [float(loss)] + [dict(tree_flatten_with_path(t)) for t in
-                                    (grads, state.mu, state.nu, new)]
-        del p, loss, grads, new, state
+            check(not plain_calls, f"plain versions ran on the card: "
+                                   f"{plain_calls}")
+            launches_ok(read_counters(), want,
+                        f"{arch} fp32 copy's gradient on the card")
+        runs[dev] = (p, grads)
     del params
-    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    check(rel <= TRAIN_FP32_TOL, f"fp32 copy's loss: card "
-                                 f"{out['cuda'][0]} vs CPU {out['cpu'][0]}")
-    worst = {"loss": rel}
-    for i, name in enumerate(("gradient", "mu", "nu"), start=1):
-        for path, c in out["cpu"][i].items():
-            d = out["cuda"][i][path].cpu()
-            top = float(c.abs().max())
-            err = float((d - c).abs().max()) / max(top, 1e-30)
-            worst[name] = max(worst.get(name, 0.0), err)
-            check(err <= TRAIN_FP32_TOL,
-                  f"fp32 copy's {name} {path}: card vs CPU {err:.3e} of "
-                  f"max |value| {top:.3e}")
+    rel = abs(float(loss["cuda"]) - float(loss["cpu"])) / abs(
+        float(loss["cpu"]))
+    check(rel <= TRAIN_FP32_TOL, f"{arch} fp32 copy's loss: card "
+                                 f"{float(loss['cuda'])} vs CPU "
+                                 f"{float(loss['cpu'])}")
+    grad_err = leaves_close(f"{arch} fp32 copy's gradient",
+                            runs["cuda"][1], runs["cpu"][1])
+    print(f"[{phase}] {tag}: {arch} fp32 copy, full width, {n_layers} "
+          f"layers, batch {TRAIN_FP32_BATCH}: card vs CPU, same weights: "
+          f"loss {float(loss['cuda']):.6f} vs {float(loss['cpu']):.6f} (rel "
+          f"{rel:.3e}); max |card - cpu| / max |cpu| over the gradient's "
+          f"leaves {grad_err:.3e} (bound {TRAIN_FP32_TOL}); the card's "
+          f"gradient launched "
+          f"{ {k: sum(v.values()) for k, v in want.items()} } (fp32), no "
+          f"plain version")
+    return max(rel, grad_err), (cfg, runs)
+
+
+def leaves_close(label: str, got, want) -> float:
+    """Each leaf of the tree ``got`` (on the card) within TRAIN_FP32_TOL
+    of the same leaf of ``want`` (on the CPU), relative to that leaf's
+    max |value|. Returns the largest such difference."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    got = dict(tree_flatten_with_path(got))
+    worst = 0.0
+    for path, c in tree_flatten_with_path(want):
+        top = float(c.abs().max())
+        err = float((got[path].cpu() - c).abs().max()) / max(top, 1e-30)
+        worst = max(worst, err)
+        check(err <= TRAIN_FP32_TOL, f"{label} {path}: card vs CPU "
+                                     f"{err:.3e} of max |value| {top:.3e}")
+    return worst
+
+
+def fp32_adam_step(copy, tag: str, phase: str) -> None:
+    """One Adam step of ``make_optimizer`` (``make_train_step``'s step at
+    one microbatch) on ``train_fp32_copy``'s gradient, on the card and
+    on the CPU: Adam's moments within TRAIN_FP32_TOL of each leaf's max
+    |value|, the parameters as TRAIN_FP32_TOL's comment says."""
+    from repro_torch.launch.specs import make_optimizer
+    from repro_torch.optim import apply_updates
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg, runs = copy
+    opt = make_optimizer(cfg)
+    out = {}
+    for dev, (p, grads) in runs.items():
+        updates, state = opt.update(grads, opt.init(p), p, TRAIN_ZOO_LR)
+        out[dev] = (state.mu, state.nu, apply_updates(p, updates))
+    label = f"{cfg.name} fp32 copy's"
+    mu = leaves_close(f"{label} Adam mu", out["cuda"][0], out["cpu"][0])
+    nu = leaves_close(f"{label} Adam nu", out["cuda"][1], out["cpu"][1])
+    stepped = dict(tree_flatten_with_path(out["cuda"][2]))
     off = n = 0
     step_max = 0.0
-    for path, c in out["cpu"][4].items():
-        diff = (out["cuda"][4][path].cpu() - c).abs()
+    for path, c in tree_flatten_with_path(out["cpu"][2]):
+        diff = (stepped[path].cpu() - c).abs()
         off += int((diff > 1e-6 + 1e-4 * c.abs()).sum())
         n += diff.numel()
         step_max = max(step_max, float(diff.max()))
     check(off <= n * 1e-3 and step_max <= 2 * TRAIN_ZOO_LR,
-          f"fp32 copy's parameters after one Adam step: {off} of {n} "
-          f"elements beyond rtol 1e-4 / atol 1e-6, max |diff| {step_max}")
-    print(f"[train-zoo] {tag}: {TRAIN_ZOO_ARCH} fp32 copy, full width, 2 "
-          f"layers, batch {TRAIN_FP32_BATCH}: card vs CPU, same weights: "
-          f"loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f} (rel "
-          f"{rel:.3e}); max |card - cpu| / max |cpu| over the leaves: "
-          f"gradients {worst['gradient']:.3e}, Adam's mu {worst['mu']:.3e}, "
-          f"nu {worst['nu']:.3e} (bound {TRAIN_FP32_TOL}); parameters "
-          f"after the step: {off} of {n} elements beyond rtol 1e-4 / atol "
-          f"1e-6, max |diff| {step_max:.3e} (lr {TRAIN_ZOO_LR}); the "
-          f"card's gradient launched 4 flash forward (fp32) and 2 "
-          f"backward, no plain version")
-    return max(worst["loss"], worst["gradient"])
+          f"{label} parameters after one Adam step: {off} of {n} elements "
+          f"beyond rtol 1e-4 / atol 1e-6, max |diff| {step_max}")
+    print(f"[{phase}] {tag}: {label} Adam step, card vs CPU: max |card - "
+          f"cpu| / max |cpu| over the leaves: mu {mu:.3e}, nu {nu:.3e} "
+          f"(bound {TRAIN_FP32_TOL}); parameters after the step: {off} of "
+          f"{n} elements beyond rtol 1e-4 / atol 1e-6, max |diff| "
+          f"{step_max:.3e} (lr {TRAIN_ZOO_LR})")
 
+def train_cli(phase: str, arch: str, reduced: bool, steps: int,
+              batch_seq=None) -> None:
+    """The training CLI's zoo mode on the card: ``train --arch <arch>
+    [--reduced] --steps <steps> [--batch B --seq S] --device cuda``
+    (``batch_seq`` (B, S), else the CLI's defaults, TRAIN_CLI_BATCH),
+    each step exactly ``train_launches`` (remat), nothing else."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced as reduce_cfg
+    from repro_torch.launch import train as train_cli_main
 
-def train_zoo_cli() -> None:
-    """The training CLI's zoo mode on the card: ``train --arch
-    qwen1.5-4b --reduced --steps 3`` (2 layers, fp32), each step 2 x 2
-    flash forward and 2 backward launches, nothing else."""
-    from repro_torch.launch import train as train_cli
-
+    cfg = reduce_cfg(get_config(arch)) if reduced else get_config(arch)
+    args = (["--arch", arch] + (["--reduced"] if reduced else [])
+            + ["--steps", str(steps)]
+            + ([] if batch_seq is None else
+               ["--batch", str(batch_seq[0]), "--seq", str(batch_seq[1])])
+            + ["--device", "cuda"])
     reset_counters()
-    args = ["--arch", TRAIN_ZOO_ARCH, "--reduced", "--steps", "3",
-            "--batch", "8", "--seq", "64", "--device", "cuda"]
-    losses = train_cli.main(args)
-    got = {k: c.total for k, c in counters().items()}
-    check(len(losses) == 3 and np.isfinite(losses[-1])
-          and got["flash_attention"] == 12
-          and got["flash_attention_bwd"] == 6 and sum(got.values()) == 18,
-          f"train {' '.join(args)}: losses {losses}, launches {got}")
-    print(f"[train-zoo] train {' '.join(args)}: losses "
-          f"{[round(x, 4) for x in losses]}, 12 flash forward and 6 "
-          f"backward launches (2 layers, remat, 3 steps), nothing else")
+    losses = train_cli_main.main(args)
+    want = {k: {s: steps * n for s, n in v.items()} for k, v in
+            train_launches(cfg, *(batch_seq or TRAIN_CLI_BATCH)).items()}
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"train {' '.join(args)}: losses {losses}")
+    launches_ok(read_counters(), want, f"train {' '.join(args)}")
+    print(f"[{phase}] train {' '.join(args)}: losses "
+          f"{[round(x, 4) for x in losses]}, launches {want} ({cfg.n_layers} "
+          f"layers, remat, {steps} steps), nothing else")
 
 
 def train_zoo_main_path(tag: str) -> dict:
-    """The [train-zoo] phase: Qwen1.5-4B at full width, TRAIN_ZOO_LAYERS
-    layers, bf16, remat on, random weights from seed 0, alone on the
-    card (at most 1 GiB allocated when it starts). (a) Step 0's loss and
-    gradient (``launch.specs.loss_and_grad``) twice: bitwise the same,
-    with exactly 2 flash forward and 1 backward launches a layer and no
-    other kernel; (b) TRAIN_ZOO_STEPS steps of ``make_train_step``
-    (Adam, clip 1.0), the launch counts zeroed before each and read
-    after it (the same counts a step; no plain version on the card),
-    each loss finite, ms a step and tokens/s (the median after step 0),
-    the peak memory under TRAIN_ZOO_PEAK_GIB; (c) one more step under
-    the profiler: the device's busy share and the flash kernels' and
-    the matrix products' shares; (d) the model freed, then
-    ``train_fp32_copy``, ``check_flash_bwd`` and ``time_flash_bwd`` at
-    the path's shape, and the forward there (``time_flash``). Returns
-    the flash forward and backward launches by row key, both kernels'
-    rows at the path's shape, the forward's largest |kernel - plain|
-    there and the backward's in fp32 over ``check_flash_bwd``."""
-    from repro_torch.configs import get_config
-    from repro_torch.data.tokens import synthetic_token_batch
-    from repro_torch.launch.specs import loss_and_grad, make_train_step
-    from repro_torch.models.transformer import init_lm
-    from repro_torch.tree import tree_leaves
-
+    """The [train-zoo] phase: ``train_zoo_model`` for Qwen1.5-4B at full
+    width, TRAIN_ZOO_LAYERS layers (TRAIN_ZOO_STEPS steps and a profiled
+    one: 2 flash forward and 1 backward launches a layer); then
+    ``train_fp32_copy``, the training CLI, ``check_flash_bwd`` and
+    ``time_flash_bwd`` at the path's shape, and the forward there
+    (``time_flash``). Returns the flash forward and backward launches by
+    row key, both kernels' rows at the path's shape, the forward's
+    largest |kernel - plain| there and the backward's in fp32 over
+    ``check_flash_bwd``."""
     t_phase = time.perf_counter()
+    launches = train_zoo_model(TRAIN_ZOO_ARCH, TRAIN_ZOO_LAYERS,
+                               TRAIN_ZOO_STEPS, tag, "train-zoo", True)
     baseline = settled_memory()
-    check(baseline < 2**30, f"[train-zoo] starts with "
-                            f"{baseline / 2**30:.2f} GiB allocated")
-    cfg = cut_depth(get_config(TRAIN_ZOO_ARCH), TRAIN_ZOO_LAYERS)
-    check(cfg.dtype == "bfloat16" and cfg.remat,
-          f"{cfg.name} is not trained in bf16 with remat")
-    t0 = time.perf_counter()
-    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in named_leaves(params))
-    B, S = TRAIN_ZOO_BATCH
-    batches = [torch.as_tensor(synthetic_token_batch(B, S, cfg.vocab,
-                                                     seed=i),
-                               dtype=torch.long, device="cuda")
-               for i in range(TRAIN_ZOO_STEPS + 1)]
-    key = flash_key((B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
-                    None)
-    L = cfg.n_layers
-    want = {"flash_attention": {key: 2 * L},
-            "flash_attention_bwd": {key: L}}
-
-    def counts_ok(got, what):
-        check(all(got[k] == want.get(k, {}) for k in got),
-              f"{what}: launches {got}, {want} expected (2 forward and 1 "
-              f"backward flash launches a layer, nothing else)")
-
-    # (a) step 0's gradient twice
-    reset_counters()
-    with no_plain_version_on_the_card() as plain_calls:
-        loss_a, grads_a = loss_and_grad(cfg, params, batches[0])
-        torch.cuda.synchronize()
-        counts_ok(read_counters(), "step 0's gradient")
-        loss_b, grads_b = loss_and_grad(cfg, params, batches[0])
-        torch.cuda.synchronize()
-    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
-    leaves_a, leaves_b = tree_leaves(grads_a), tree_leaves(grads_b)
-    check(torch.equal(loss_a, loss_b) and len(leaves_a) == len(leaves_b)
-          and all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b)),
-          "step 0's loss and gradients differ between two runs")
-    check(all(float(g.abs().max()) > 0 for g in leaves_a),
-          "a gradient leaf of step 0 is all zeros")
-    grad_peak = torch.cuda.max_memory_allocated() / 2**30
-    loss0 = float(loss_a)
-    del loss_a, loss_b, grads_a, grads_b, leaves_a, leaves_b
-    # (b) the steps, from an empty cache: the gradient runs' freed
-    # activations would otherwise split the blocks Adam's updates need
-    settled_memory()
-    step, opt = make_train_step(cfg, lr=TRAIN_ZOO_LR)
-    state = opt.init(params)
-    torch.cuda.reset_peak_memory_stats()
-    losses, times, launches = [], [], {}
-    for i in range(TRAIN_ZOO_STEPS):
-        reset_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with no_plain_version_on_the_card() as plain_calls:
-            params, state, loss = step(params, state, batches[i])
-            losses.append(float(loss))
-        times.append(time.perf_counter() - t0)
-        got = read_counters()
-        check(not plain_calls, f"step {i}: plain versions ran on the card: "
-                               f"{plain_calls}")
-        counts_ok(got, f"step {i}")
-        launches = merge_launches(launches, {
-            k: got[k] for k in ("flash_attention", "flash_attention_bwd")})
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    reserved = torch.cuda.max_memory_reserved() / 2**30
-    check(all(np.isfinite(losses)), f"losses {losses}")
-    check(losses[0] == loss0,
-          f"step 0's loss {losses[0]} != its gradient run's {loss0}")
-    check(peak < TRAIN_ZOO_PEAK_GIB, f"a step's peak {peak:.2f} GiB")
-    step_ms = 1e3 * statistics.median(times[1:])
-    # (c) one more step, profiled
-    box = [params, state]
-
-    def drive():
-        box[0], box[1], _ = step(box[0], box[1], batches[TRAIN_ZOO_STEPS])
-
-    reset_counters()
-    wall, busy, kernels = profile(
-        f"{cfg.name} ({L} layers) train step {B} x {S}", drive, tag)
-    counts_ok(read_counters(), "the profiled step")
-    launches = merge_launches(launches, {
-        k: read_counters()[k] for k in ("flash_attention",
-                                        "flash_attention_bwd")})
-    fwd_us = sum(us for us, _, name in kernels if FLASH_SYMBOL in name)
-    bwd_parts = [sum(us for us, _, name in kernels if s in name)
-                 for s in FLASH_BWD_BF16_SYMBOLS]
-    bwd_us = sum(bwd_parts)
-    cuda_core = [name for _, _, name in kernels
-                 if any(s in name for s in FLASH_BWD_SYMBOLS)]
-    check(not cuda_core, f"the bf16 step ran the backward's CUDA-core "
-                         f"kernels: {cuda_core}")
-    gemm = sum(us for us, _, name in kernels
-               if any(w in name.lower() for w in ("nvjet", "gemm",
-                                                  "cutlass", "xmma")))
-    check(fwd_us > 0 and bwd_us > 0,
-          f"the profiled step ran no flash kernel: "
-          f"{[name for _, _, name in kernels][:20]}")
-    del params, state, box, batches, loss
-    release(baseline, f"{cfg.name} training")
-    print(f"[train-zoo] {tag}: {TRAIN_ZOO_ARCH} cut to {L} layers: "
-          f"{describe(cfg)}; {n_params} parameters, bf16, remat, drawn on "
-          f"the card in {init_s:.2f} s; batch {B} x {S}; step 0's loss "
-          f"{loss0:.6f} and every gradient leaf bitwise equal in "
-          f"two runs (peak {grad_peak:.2f} GiB); {TRAIN_ZOO_STEPS} Adam "
-          f"steps (lr {TRAIN_ZOO_LR}, clip 1.0): losses "
-          f"{[round(x, 6) for x in losses]}, each step exactly {2 * L} "
-          f"flash forward launches (the forward and its recomputation) "
-          f"and {L} backward launches at {key}, nothing else, no plain "
-          f"version on the card; {step_ms:.1f} ms a step (median of steps "
-          f"1..{TRAIN_ZOO_STEPS - 1}; {[round(1e3 * t, 1) for t in times]}),"
-          f" {B * S / (step_ms / 1e3):.0f} tokens/s; peak {peak:.2f} GiB "
-          f"allocated (bound {TRAIN_ZOO_PEAK_GIB}), {reserved:.2f} GiB "
-          f"reserved; profiled step: busy "
-          f"{100 * busy / wall:.2f} %, flash forward {fwd_us:.1f} us = "
-          f"{100 * fwd_us / busy:.2f} %, backward {bwd_us:.1f} us = "
-          f"{100 * bwd_us / busy:.2f} % (the Delta pass, the dK/dV and dQ "
-          f"kernel: "
-          f"{', '.join(f'{x:.1f}' for x in bwd_parts)} us), matrix "
-          f"products {gemm:.1f} us = "
-          f"{100 * gemm / busy:.2f} % of the busy time; memory back to "
-          f"{baseline / 2**30:.3f} GiB")
-    cpu_err = timed("train-zoo: fp32 copy vs CPU", train_fp32_copy, tag)
+    cpu_err, copy = timed("train-zoo: fp32 copy vs CPU", train_fp32_copy,
+                          TRAIN_ZOO_ARCH, 2, tag, "train-zoo")
+    timed("train-zoo: fp32 copy's Adam step vs CPU", fp32_adam_step, copy,
+          tag, "train-zoo")
+    del copy
     release(baseline, "the fp32 copy")
-    timed("train-zoo: the train CLI", train_zoo_cli)
+    timed("train-zoo: the train CLI", train_cli, "train-zoo", TRAIN_ZOO_ARCH,
+          True, 3, (8, 64))
     release(baseline, "the train CLI")
     errs = timed("check flash_attention_bwd", check_flash_bwd)
     rows, time_err = timed("time flash_attention_bwd", time_flash_bwd,
@@ -5291,6 +5302,438 @@ def train_zoo_main_path(tag: str) -> dict:
           f"fp32 copy vs CPU {cpu_err:.3e}")
     return {"launches": launches, "rows": rows, "fwd_rows": fwd_rows,
             "fwd_err": fwd_err, "bwd_err": errs[torch.float32]}
+
+
+SSD_GRADS = ("dxd", "da", "dB", "dC")
+
+
+def ssd_bwd_inputs(B, L, H, P, N, kind, dtype, chunk, seed, with_state):
+    """``ssd_inputs`` and the cotangents on the card: dy [B, L, H, P] in
+    ``dtype``, dstate [B, H, P, N] fp32 (None unless ``with_state``)."""
+    xd, a, Bm, Cm = ssd_inputs(B, L, H, P, N, kind, dtype, chunk, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(xd.shape, generator=g, device="cuda").to(dtype)
+    ds = (torch.randn((B, H, P, N), generator=g, device="cuda")
+          if with_state else None)
+    return xd, a, Bm, Cm, dy, ds
+
+
+def ssd_bwd_err(got, want, dtype, what) -> float:
+    """The backward's (dxd, da, dB, dC) against the plain version's: each
+    in its input's dtype, finite, and within SSD_BWD_FP32_REL (fp32) or
+    SSD_BWD_BF16_REL (bf16) of its max |grad|. Returns the largest
+    |kernel - plain| over max |grad|, and the largest |kernel - plain|."""
+    rel = SSD_BWD_FP32_REL if dtype == torch.float32 else SSD_BWD_BF16_REL
+    worst = worst_abs = 0.0
+    for name, g, w in zip(SSD_GRADS, got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"ssd backward {what}: {name} {g.dtype} {tuple(g.shape)}, "
+              f"plain {w.dtype} {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()),
+              f"ssd backward {what}: {name} is not finite")
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        check(err <= rel * top,
+              f"ssd backward disagrees with its plain version at {what}: "
+              f"{name} max err {err}, max |grad| {top} (bound {rel})")
+        worst = max(worst, err / max(top, 1e-30))
+        worst_abs = max(worst_abs, err)
+    return worst, worst_abs
+
+
+def check_ssd_bwd() -> dict:
+    """The SSD backward kernel against ``ssd_scan_bwd_ref`` on the card,
+    on the same inputs and cotangents, over SSD_BWD_CASES at the three
+    decays, fp32 and bf16, with and without dstate in turn, through the
+    autograd Function the path runs (one forward and one backward
+    launch); a second launch bitwise the first, and the rows of B = 1
+    launches (the first and the last) bitwise the batch's; then a
+    mid-chunk clip at Mamba2's instantiation, kernel and plain version
+    each read against float64. Returns the largest |kernel - plain| over
+    max |grad| by dtype, and "abs", the largest |kernel - plain| in
+    fp32."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_scan_bwd_ref
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    fp32_abs = 0.0
+    n = 0
+    for B, L, H, P, N, K in SSD_BWD_CASES:
+        for kind in SSD_DRAWS:
+            for dt in worst:
+                n += 1
+                what = f"({B}, {L}, {H}, {P}, {N}, {K}) {kind} {dt}"
+                xd, a, Bm, Cm, dy, ds = ssd_bwd_inputs(
+                    B, L, H, P, N, kind, dt, K, 300 + 7 * n, n % 2 == 0)
+                leaves = [t.clone().requires_grad_() for t in (xd, a, Bm, Cm)]
+                before = (ssd_kernel.SSD_LAUNCHES.total,
+                          ssd_kernel.SSD_BWD_LAUNCHES.total)
+                y, s = ssd_scan(*leaves, chunk=K)
+                torch.autograd.backward((y, s) if ds is not None else y,
+                                        (dy, ds) if ds is not None else dy)
+                check((ssd_kernel.SSD_LAUNCHES.total,
+                       ssd_kernel.SSD_BWD_LAUNCHES.total)
+                      == (before[0] + 1, before[1] + 1),
+                      f"ssd backward at {what}: not one forward and one "
+                      f"backward launch")
+                got = [t.grad for t in leaves]
+                want = ssd_scan_bwd_ref(xd, a, Bm, Cm, K, dy, ds)
+                rel, err = ssd_bwd_err(got, want, dt, what)
+                worst[dt] = max(worst[dt], rel)
+                if dt == torch.float32:
+                    fp32_abs = max(fp32_abs, err)
+                again = ssd_kernel.ssd_scan_bwd_cuda(xd, a, Bm, Cm, K, dy, ds)
+                torch.cuda.synchronize()
+                check(all(torch.equal(g, h) for g, h in zip(got, again)),
+                      f"ssd backward at {what}: two launches differ")
+                for i in sorted({0, B - 1} if B > 1 else ()):
+                    one = ssd_kernel.ssd_scan_bwd_cuda(
+                        *(t[i:i + 1].contiguous()
+                          for t in (xd, a, Bm, Cm)), K,
+                        dy[i:i + 1].contiguous(),
+                        None if ds is None else ds[i:i + 1].contiguous())
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(o[0], g[i])
+                              for o, g in zip(one, got)),
+                          f"ssd backward at {what}: row {i} of a B = 1 "
+                          f"launch differs from the B = {B} launch's")
+                del xd, a, Bm, Cm, dy, ds, leaves, y, s, got, want, again
+    parts = []
+    for dt in worst:
+        args = ssd_bwd_inputs(2, 300, 4, 64, 128, "clip-mid", dt, 128, 977,
+                              True)
+        got = ssd_kernel.ssd_scan_bwd_cuda(*args[:4], 128, *args[4:])
+        plain = ssd_scan_bwd_ref(*args[:4], 128, *args[4:])
+        exact = ssd_scan_bwd_ref(*(t.double() for t in args[:4]), 128,
+                                 args[4].double(), args[5].double())
+        for name, g, p, e in zip(SSD_GRADS, got, plain, exact):
+            kern = float((g.double() - e).abs().max())
+            ref = float((p.double() - e).abs().max())
+            top = float(e.abs().max())
+            check(kern <= SSD_F64_FACTOR * ref + 1e-6 * top,
+                  f"ssd backward {name} at a mid-chunk clip {dt}: "
+                  f"{kern:.3e} from float64, past {SSD_F64_FACTOR} x the "
+                  f"plain version's {ref:.3e} + 1e-6 of {top:.3e}")
+            parts.append(f"{str(dt)[6:]} {name} {kern / top:.2e} (plain "
+                         f"{ref / top:.2e})")
+    print(f"[check] ssd backward vs ssd_scan_bwd_ref over {n} cases "
+          f"(B, L, H, P, N, chunk) {SSD_BWD_CASES} x {SSD_DRAWS} x fp32, "
+          f"bf16, dstate in turn, through the autograd Function: max "
+          f"|kernel - plain| / max |grad| fp32 {worst[torch.float32]:.3e} "
+          f"(bound {SSD_BWD_FP32_REL}), bf16 {worst[torch.bfloat16]:.3e} "
+          f"(bound {SSD_BWD_BF16_REL}); a second launch bitwise the first, "
+          f"the rows of B = 1 launches bitwise the batch's; at a mid-chunk "
+          f"clip (2, 300, 4, 64, 128, 128), |x - float64| / max |grad| of "
+          f"the kernel (and of the plain version): " + "; ".join(parts))
+    return dict(worst, abs=fp32_abs)
+
+
+def ssd_bwd_bound(B, L, H, P, N, K, itemsize=2):
+    """The SSD backward at the card's peak: xd, dy and dxd, B_, C_, dB
+    and dC (``itemsize`` bytes), a and da (fp32) each moved once at the
+    memory rate; the products this L needs, chunk by chunk over its r
+    valid rows on the r (r + 1) / 2 pairs j <= i: C B^T once, the heads
+    share it (2 N a pair); per head D = (dy xd^T) o Lmat, then (scores
+    o Lmat)^T dy, D B and D^T C (2 (2 N + 2 P) a pair in all), and the
+    five with a state (the states' recomputation, dS's walk, B dS^T, dy
+    S and xd dS: 10 r N P), at the tensor cores' bf16 peak (the fp32
+    peak for fp32 inputs)."""
+    nbytes = itemsize * (3 * B * L * H * P + 4 * B * L * N) + 4 * 2 * B * L * H
+    ops = 0
+    for t0 in range(0, L, K):
+        r = min(K, L - t0)
+        pairs = r * (r + 1) // 2
+        ops += B * (2 * pairs * N
+                    + H * (2 * pairs * (2 * N + 2 * P) + 10 * r * N * P))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
+            ops)
+
+
+def time_ssd_bwd(launches: dict, tag: str, shapes=SSD_TRAIN):
+    """The SSD backward (bf16) at every shape of the train path and at
+    ``shapes``: held against its plain version there first, then its
+    device time (``graph_ms``) beside the plain version's and its bound
+    (no single PyTorch call computes this gradient). Returns rows by
+    shape and the largest relative |kernel - plain|."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.ref import ssd_scan_bwd_ref
+
+    rows, worst = {}, 0.0
+    for shape in sorted(set(launches) | set(shapes)):
+        B, L, H, P, N, K = shape
+        xd, a, Bm, Cm, dy, _ = ssd_bwd_inputs(
+            B, L, H, P, N, "sweep", torch.bfloat16, K, B * 7 + L, False)
+        err = ssd_bwd_err(ssd_kernel.ssd_scan_bwd_cuda(xd, a, Bm, Cm, K, dy),
+                          ssd_scan_bwd_ref(xd, a, Bm, Cm, K, dy),
+                          torch.bfloat16, str(shape))[0]
+        worst = max(worst, err)
+        (bnd, by), ops = ssd_bwd_bound(*shape)
+        rows[shape] = {
+            "ms": graph_ms(lambda: ssd_kernel.ssd_scan_bwd_cuda(
+                xd, a, Bm, Cm, K, dy), 3, 7),
+            "plain_ms": graph_ms(lambda: ssd_scan_bwd_ref(
+                xd, a, Bm, Cm, K, dy), 3, 5),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "max_abs_err": err}
+        r = rows[shape]
+        print(f"[time] {tag}: ssd_scan_bwd {shape} bf16: kernel "
+              f"{r['ms'] * 1e3:.2f} us = {ops / (r['ms'] * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s (the bound's operations over its time), plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({by}; {ops / 1e9:.2f} GFLOP) "
+              f"= {100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's "
+              f"time; |kernel - plain| {err:.3e} of max |grad|; no library "
+              f"call; {launches.get(shape, 0)} launches on the main path")
+        del xd, a, Bm, Cm, dy
+    return rows, worst
+
+
+def ssd_bwd_probe(tag: str) -> None:
+    """``--ssd-bwd``: the bf16 SSD backward as Mamba2-370M's training
+    launches it, at SSD_TRAIN[0]: device us a launch (``graph_ms``) and a
+    digest of dxd, da, dB and dC's bytes on seeded inputs. Prints one
+    JSON line."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+    B, L, H, P, N, K = SSD_TRAIN[0]
+    xd, a, Bm, Cm, dy, _ = ssd_bwd_inputs(B, L, H, P, N, "sweep",
+                                          torch.bfloat16, K, B * 7 + L, False)
+    grads = ssd_kernel.ssd_scan_bwd_cuda(xd, a, Bm, Cm, K, dy)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(b"".join(
+        t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        for t in grads)).hexdigest()[:16]
+    us = 1e3 * graph_ms(lambda: ssd_kernel.ssd_scan_bwd_cuda(
+        xd, a, Bm, Cm, K, dy), 3, 11)
+    print(json.dumps({"ssd_bwd": tag, "root": str(ROOT),
+                      "shape": "x".join(map(str, SSD_TRAIN[0])), "us": us,
+                      "digest": digest}))
+
+
+def train_launches(cfg, B: int, S: int) -> dict:
+    """The kernel launches of one training step (a gradient) of a zoo
+    config under remat, by kernel and shape as ``read_counters``: 2
+    forward launches and 1 backward of the flash kernel an attention
+    layer (the hybrid's: a run of the shared block, one a stage), and of
+    the SSD scan a Mamba2 layer."""
+    L = cfg.n_layers
+    want = {}
+    if cfg.family in ("ssm", "hybrid"):
+        ssd = (B, S, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+               cfg.ssm_chunk)
+        want = {"ssd_scan": {ssd: 2 * L}, "ssd_scan_bwd": {ssd: L}}
+    attn = {"ssm": 0, "hybrid": L // max(cfg.attn_every, 1)}.get(cfg.family,
+                                                                 L)
+    if attn:
+        key = flash_key((B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+                        None)
+        want.update(flash_attention={key: 2 * attn},
+                    flash_attention_bwd={key: attn})
+    return want
+
+
+def launches_ok(got: dict, want: dict, what: str) -> None:
+    check(all(got[k] == want.get(k, {}) for k in got),
+          f"{what}: launches {got}, {want} expected, nothing else")
+
+
+# the bf16 device kernels a training step's launches run, by counter (the
+# tensor-core forwards and the backwards' kernels), and those it must not
+# run (the fp32 CUDA-core ones)
+STEP_SYMBOLS = {"flash_attention": (FLASH_SYMBOL,),
+                "flash_attention_bwd": FLASH_BWD_BF16_SYMBOLS,
+                "ssd_scan": (SSD_SYMBOL,), "ssd_scan_bwd": SSD_BWD_SYMBOLS}
+STEP_FP32_SYMBOLS = FLASH_BWD_SYMBOLS + (FLASH_FP32_SYMBOL, SSD_FP32_SYMBOL)
+
+
+def train_zoo_model(arch: str, n_layers: int, steps: int, tag: str,
+                    phase: str, profiled: bool) -> dict:
+    """One model of a training phase (``phase``: [train-zoo],
+    [train-ssm]), alone on the card (at most 1 GiB allocated when it
+    starts): ``arch`` at full width cut to ``n_layers`` (bf16, remat,
+    random weights from seed 0). (a) Step 0's loss and gradient
+    (``launch.specs.loss_and_grad``) twice: bitwise the same, with
+    exactly ``train_launches`` and no other kernel; (b) ``steps`` steps
+    of ``make_train_step`` (Adam, clip 1.0) on TRAIN_ZOO_BATCH tokens,
+    the counts zeroed before each and read after it (the same counts a
+    step; no plain version on the card), each loss finite, ms a step and
+    tokens/s (the median after step 0), the peak memory under
+    TRAIN_ZOO_PEAK_GIB; (c) with ``profiled``, one more step under the
+    profiler: the device's busy share, each launched kernel's share
+    (STEP_SYMBOLS; none of STEP_FP32_SYMBOLS may run) and the matrix
+    products'. Returns the launches by kernel and shape of (b) and
+    (c)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.specs import loss_and_grad, make_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.tree import tree_leaves
+
+    baseline = settled_memory()
+    check(baseline < 2**30, f"[{phase}] {arch} starts with "
+                            f"{baseline / 2**30:.2f} GiB allocated")
+    cfg = cut_depth(get_config(arch), n_layers)
+    check(cfg.dtype == "bfloat16" and cfg.remat,
+          f"{cfg.name} is not trained in bf16 with remat")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    B, S = TRAIN_ZOO_BATCH
+    batches = [torch.as_tensor(synthetic_token_batch(B, S, cfg.vocab,
+                                                     seed=i),
+                               dtype=torch.long, device="cuda")
+               for i in range(steps + profiled)]
+    want = train_launches(cfg, B, S)
+    # (a) step 0's gradient twice, its peak apart from the earlier phases'
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with no_plain_version_on_the_card() as plain_calls:
+        loss_a, grads_a = loss_and_grad(cfg, params, batches[0])
+        torch.cuda.synchronize()
+        launches_ok(read_counters(), want, f"{arch} step 0's gradient")
+        loss_b, grads_b = loss_and_grad(cfg, params, batches[0])
+        torch.cuda.synchronize()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    leaves_a, leaves_b = tree_leaves(grads_a), tree_leaves(grads_b)
+    check(torch.equal(loss_a, loss_b) and len(leaves_a) == len(leaves_b)
+          and all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b)),
+          f"{arch}: step 0's loss and gradients differ between two runs")
+    check(all(float(g.abs().max()) > 0 for g in leaves_a),
+          f"{arch}: a gradient leaf of step 0 is all zeros")
+    grad_peak = torch.cuda.max_memory_allocated() / 2**30
+    loss0 = float(loss_a)
+    del loss_a, loss_b, grads_a, grads_b, leaves_a, leaves_b
+    # (b) the steps, from an empty cache: the gradient runs' freed
+    # activations would otherwise split the blocks Adam's updates need
+    settled_memory()
+    step, opt = make_train_step(cfg, lr=TRAIN_ZOO_LR)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = [], [], {}
+    for i in range(steps):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_version_on_the_card() as plain_calls:
+            params, state, loss = step(params, state, batches[i])
+            losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        got = read_counters()
+        check(not plain_calls, f"{arch} step {i}: plain versions ran on the "
+                               f"card: {plain_calls}")
+        launches_ok(got, want, f"{arch} step {i}")
+        launches = merge_launches(launches, {k: got[k] for k in want})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    check(all(np.isfinite(losses)), f"{arch} losses {losses}")
+    check(losses[0] == loss0,
+          f"{arch} step 0's loss {losses[0]} != its gradient run's {loss0}")
+    check(peak < TRAIN_ZOO_PEAK_GIB, f"{arch}: a step's peak {peak:.2f} GiB")
+    step_ms = 1e3 * statistics.median(times[1:])
+    prof = ""
+    if profiled:
+        box = [params, state]
+
+        def drive():
+            box[0], box[1], _ = step(box[0], box[1], batches[steps])
+
+        reset_counters()
+        wall, busy, kernels = profile(
+            f"{cfg.name} ({cfg.n_layers} layers) train step {B} x {S}",
+            drive, tag)
+        got = read_counters()
+        launches_ok(got, want, f"{arch} profiled step")
+        launches = merge_launches(launches, {k: got[k] for k in want})
+        fp32 = [name for _, _, name in kernels
+                if any(s in name for s in STEP_FP32_SYMBOLS)]
+        check(not fp32, f"the bf16 step ran fp32 CUDA-core kernels: {fp32}")
+        shares = []
+        for k in want:
+            parts = [sum(us for us, _, name in kernels if s in name)
+                     for s in STEP_SYMBOLS[k]]
+            check(all(parts), f"the profiled step ran no {k} kernel "
+                              f"{STEP_SYMBOLS[k]}: "
+                              f"{[name for _, _, name in kernels][:20]}")
+            shares.append(f"{k} {sum(parts):.1f} us = "
+                          f"{100 * sum(parts) / busy:.2f} %"
+                          + (f" ({', '.join(f'{x:.1f}' for x in parts)} us "
+                             f"in {', '.join(STEP_SYMBOLS[k])})"
+                             if len(parts) > 1 else ""))
+        gemm = sum(us for us, _, name in kernels
+                   if any(w in name.lower() for w in ("nvjet", "gemm",
+                                                      "cutlass", "xmma")))
+        prof = (f"; profiled step: wall {wall / 1e3:.1f} ms, busy "
+                f"{100 * busy / wall:.2f} %; of the busy time "
+                f"{'; '.join(shares)}; matrix products {gemm:.1f} us = "
+                f"{100 * gemm / busy:.2f} %")
+        del box
+    del params, state, batches, loss
+    release(baseline, f"{cfg.name} training")
+    print(f"[{phase}] {tag}: {arch} at {cfg.n_layers} layers: "
+          f"{describe(cfg)}; {n_params} parameters, bf16, remat, drawn on "
+          f"the card in {init_s:.2f} s; batch {B} x {S}; step 0's loss "
+          f"{loss0:.6f} and every gradient leaf bitwise equal in two runs "
+          f"(peak {grad_peak:.2f} GiB); {steps} Adam steps (lr "
+          f"{TRAIN_ZOO_LR}, clip 1.0): losses {[round(x, 6) for x in losses]}"
+          f", each step exactly {want}, nothing else, no plain version on "
+          f"the card; {step_ms:.1f} ms a step (median of steps 1.."
+          f"{steps - 1}; {[round(1e3 * t, 1) for t in times]}), "
+          f"{B * S / (step_ms / 1e3):.0f} tokens/s; peak {peak:.2f} GiB "
+          f"allocated (bound {TRAIN_ZOO_PEAK_GIB}), {reserved:.2f} GiB "
+          f"reserved{prof}; memory back to {baseline / 2**30:.3f} GiB")
+    return launches
+
+
+def train_ssm_main_path(tag: str) -> dict:
+    """The [train-ssm] phase: ``train_zoo_model`` for Mamba2-370M at full
+    depth (TRAIN_ZOO_STEPS steps and a profiled one) and Zamba2-2.7B at
+    TRAIN_ZAMBA_LAYERS (TRAIN_ZAMBA_STEPS steps); each one's fp32 copy
+    against the CPU (``train_fp32_copy``: Mamba2 2 layers, Zamba2 one
+    stage); the training CLI (``train_cli``) at Mamba2's full config;
+    ``check_ssd_bwd``,
+    ``time_ssd_bwd`` at the path's shapes, and the forward kernels at
+    the path's shapes (``time_ssd``; Zamba2's shared block through
+    ``time_flash`` and ``time_flash_bwd``). Returns the launches by
+    kernel and shape, the kernels' rows and their largest errors."""
+    t_phase = time.perf_counter()
+    launches = merge_launches(
+        train_zoo_model(TRAIN_SSM_ARCH, 48, TRAIN_ZOO_STEPS, tag,
+                        "train-ssm", True),
+        train_zoo_model(ZAMBA_ARCH, TRAIN_ZAMBA_LAYERS, TRAIN_ZAMBA_STEPS,
+                        tag, "train-ssm", False))
+    baseline = settled_memory()
+    cpu_err = max(
+        timed("train-ssm: Mamba2 fp32 copy vs CPU", train_fp32_copy,
+              TRAIN_SSM_ARCH, 2, tag, "train-ssm")[0],
+        timed("train-ssm: Zamba2 fp32 copy vs CPU", train_fp32_copy,
+              ZAMBA_ARCH, ZAMBA_CPU_LAYERS, tag, "train-ssm")[0])
+    release(baseline, "the fp32 copies")
+    timed("train-ssm: the train CLI", train_cli, "train-ssm", TRAIN_SSM_ARCH,
+          False, 2)
+    release(baseline, "the train CLI")
+    errs = timed("check ssd_scan_bwd", check_ssd_bwd)
+    rows, time_err = timed("time ssd_scan_bwd", time_ssd_bwd,
+                           launches["ssd_scan_bwd"], tag)
+    fwd_rows, fwd_err = timed("time ssd_scan at the train shapes", time_ssd,
+                              launches["ssd_scan"], tag, ())
+    flash_rows, flash_err = timed(
+        "time flash_attention at Zamba2's train shape", time_flash,
+        launches["flash_attention"], tag, ())
+    flash_bwd_rows, flash_bwd_err = timed(
+        "time flash_attention_bwd at Zamba2's train shape", time_flash_bwd,
+        launches["flash_attention_bwd"], tag, ())
+    release(baseline, "the SSD backward's checks")
+    print(f"[train-ssm] {tag}: phase {time.perf_counter() - t_phase:.2f} s; "
+          f"fp32 copies vs CPU {cpu_err:.3e}")
+    return {"launches": launches, "rows": rows, "fwd_rows": fwd_rows,
+            "fwd_err": fwd_err, "flash_rows": flash_rows,
+            "flash_err": flash_err, "flash_bwd_rows": flash_bwd_rows,
+            "bwd_err": errs["abs"]}
 
 
 def kernel_entry(name, source, replaces, rows, launches, max_err) -> dict:
@@ -5365,8 +5808,11 @@ def main() -> None:
               "--audio": lambda: (build_kernels(), audio_main_path(tag)),
               "--train-zoo": lambda: (build_kernels(),
                                       train_zoo_main_path(tag)),
+              "--train-ssm": lambda: (build_kernels(), check_ssd_sass(),
+                                      train_ssm_main_path(tag)),
               "--flash-serve": lambda: flash_serve(tag),
-              "--flash-bwd": lambda: flash_bwd_probe(tag)}
+              "--flash-bwd": lambda: flash_bwd_probe(tag),
+              "--ssd-bwd": lambda: (build_kernels(), ssd_bwd_probe(tag))}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -5494,6 +5940,15 @@ def main() -> None:
     every = merge_launches(every, train["launches"])
     rows["flash_attention_bwd"] = train["rows"]
     errs["flash_attention_bwd"] = train["bwd_err"]
+    ssm = timed("SSM training (train-ssm)", train_ssm_main_path, tag)
+    rows["ssd_scan"].update(ssm["fwd_rows"])
+    errs["ssd_scan"] = max(errs["ssd_scan"], ssm["fwd_err"])
+    rows["flash_attention"].update(ssm["flash_rows"])
+    errs["flash_attention"] = max(errs["flash_attention"], ssm["flash_err"])
+    rows["flash_attention_bwd"].update(ssm["flash_bwd_rows"])
+    every = merge_launches(every, ssm["launches"])
+    rows["ssd_scan_bwd"] = ssm["rows"]
+    errs["ssd_scan_bwd"] = ssm["bwd_err"]
     rows["ssd_chunk"], every["ssd_chunk"], errs["ssd_chunk"] = \
         decode["ssd_chunk"]
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
@@ -5512,6 +5967,8 @@ def main() -> None:
                                 "src/repro/kernels/attention/kernel.py:34"),
         "ssd_scan": (csrc.format("ssd", "ssd_scan_wgmma.cu"),
                      "src/repro/kernels/ssd/kernel.py:27"),
+        "ssd_scan_bwd": (csrc.format("ssd", "ssd_scan_bwd.cu"),
+                         "src/repro/kernels/ssd/kernel.py:27"),
         "ssd_chunk": (csrc.format("ssd", "ssd_scan.cu"),
                       "src/repro/kernels/ssd/ops.py:36")}
     entries = [kernel_entry(k, *meta[k], rows[k], every[k], errs[k])

@@ -2,9 +2,11 @@
 with ``ctypes``.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` turns each kernel's ``csrc/*.cu`` (plain C interface,
-no PyTorch headers, so it builds in seconds) into ``lib<name>.so`` under
-``kernels/_build/<name>-<hash of the sources and flags>/``. The hash keys
+-Xcompiler -fPIC -Xptxas -v`` turns each kernel's ``csrc/*.cu`` (plain C
+interface, no PyTorch headers, so it builds in seconds) into
+``lib<name>.so`` under ``kernels/_build/<name>-<hash of the sources and
+flags>/``, with what ``ptxas -v`` said of each kernel (registers,
+spills) in ``ptxas.log`` beside it (``ptxas_log``). The hash keys
 the cache: an edited source builds anew, an unchanged one loads the
 library already there. A file lock around the build makes concurrent
 first calls (threads or processes) build once; ``build_all`` starts one
@@ -28,7 +30,7 @@ from pathlib import Path
 
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -75,6 +77,12 @@ def library_path(name: str, sources: list[Path]) -> Path:
     return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
+def ptxas_log(name: str, sources: list[Path]) -> Path:
+    """Where ``build`` keeps nvcc's output (``ptxas -v``'s lines) for
+    ``name``'s library."""
+    return library_path(name, sources).parent / "ptxas.log"
+
+
 def build(name: str, sources: list[Path]) -> Path:
     """Compile ``sources`` into ``lib<name>.so`` unless a library for
     these exact sources is already built; returns its path."""
@@ -94,6 +102,8 @@ def build(name: str, sources: list[Path]) -> Path:
                     raise RuntimeError(
                         f"nvcc failed for {name} ({done.returncode}):\n"
                         f"{' '.join(cmd)}\n{done.stdout}{done.stderr}")
+                ptxas_log(name, sources).write_text(done.stdout
+                                                    + done.stderr)
                 os.replace(tmp, lib)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)

@@ -16,8 +16,9 @@ themselves are counted by each kernel's binding
 ``LAYER_BWD_LAUNCHES``,
 ``repro_torch.kernels.evl.kernel.EVL_LAUNCHES`` (the loss and its dL/du
 in one launch), ``repro_torch.kernels.attention.kernel.FLASH_LAUNCHES``,
-``repro_torch.kernels.ssd.kernel.SSD_LAUNCHES``, and
-``SSD_CHUNK_LAUNCHES`` for the single-chunk entry's). ``ssd_chunk``
+``repro_torch.kernels.ssd.kernel.SSD_LAUNCHES`` (``SSD_BWD_LAUNCHES``
+for its backward's), and ``SSD_CHUNK_LAUNCHES`` for the single-chunk
+entry's). ``ssd_chunk``
 records each of its dispatches as the op ``"ssd_chunk"``.
 """
 

@@ -1,15 +1,21 @@
-"""Binding of the hand-written CUDA SSD chunk scan: one library of
-``csrc/ssd_scan.cu`` (the entry point, and the fp32 kernel on the CUDA
-cores) and ``csrc/ssd_scan_wgmma.cu`` (the bf16 kernel: wgmma on the
-tensor cores, fed by TMA), the entry point choosing by dtype.
+"""Binding of the hand-written CUDA SSD chunk scan and its gradient: one
+library of ``csrc/ssd_scan.cu`` (the entry point, and the fp32 kernel
+on the CUDA cores) and ``csrc/ssd_scan_wgmma.cu`` (the bf16 kernel:
+wgmma on the tensor cores, fed by TMA), the entry point choosing by
+dtype; and one of ``csrc/ssd_scan_bwd.cu`` (the backward: dxd, da, dB
+and dC from the cotangents of y and of the final state, bf16 or fp32 on
+the CUDA cores, deterministic), built apart so that the two build at
+once.
 
 Built with ``nvcc`` for ``sm_90a`` at first use
 (``repro_torch.kernels.build``) and called through ``ctypes``, as the
 other kernels are: pointers, the sizes, the chunk and the current
 stream go in; the C function returns ``cudaGetLastError()``, raised here
-if it is not 0, or one of ``TMA_REFUSED``'s codes, raised as a
-``ValueError``. ``SSD_LAUNCHES`` counts the launches by
-(B, L, H, P, N, chunk); ``SSD_CHUNK_LAUNCHES`` counts, by (K, P, N),
+if it is not 0, or one of ``TMA_REFUSED``'s codes (the backward's
+``BWD_REFUSED``), raised as a ``ValueError``. ``SSD_LAUNCHES`` counts
+the forward's launches by (B, L, H, P, N, chunk); ``SSD_BWD_LAUNCHES``
+the backward's by the same key, one a call of its entry point (which
+runs its four kernels); ``SSD_CHUNK_LAUNCHES`` counts, by (K, P, N),
 those that ``ops.ssd_chunk`` makes (one chunk of one (batch, head)
 from a given state), which ``SSD_LAUNCHES`` counts too.
 """
@@ -26,7 +32,8 @@ from repro_torch.kernels.build import LaunchCounter
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = [_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_wgmma.cu"]
-LIBRARIES = {"ssd_scan": SOURCES}
+BWD_SOURCES = [_CSRC / "ssd_scan_bwd.cu"]
+LIBRARIES = {"ssd_scan": SOURCES, "ssd_scan_bwd": BWD_SOURCES}
 # dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232_448
 _ROW_BLOCK = 32
@@ -39,8 +46,15 @@ BF16_MAX_HEAD_DIM, BF16_MAX_STATE = 64, 128
 # strides are 16-byte multiples), before anything is launched; cudaError
 # values are positive
 TMA_REFUSED = {-1: "xd", -2: "B_", -3: "C_"}
+# the backward: the largest state it takes (its register accumulators),
+# the rows of the [K, K] matrices and of a state it holds at once, and
+# its entry point's return for a shape it refuses, before any launch
+BWD_MAX_STATE = 128
+BWD_ROW_BLOCK = BWD_STATE_TILE = 16
+BWD_REFUSED = {-1: "shape"}
 
 SSD_LAUNCHES = LaunchCounter()
+SSD_BWD_LAUNCHES = LaunchCounter()
 SSD_CHUNK_LAUNCHES = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -59,11 +73,49 @@ def smem_bytes(chunk: int, head_dim: int, state: int) -> int:
                 + K)
 
 
+def bwd_smem_bytes(chunk: int, head_dim: int, state: int) -> int:
+    """Shared memory of the backward's larger block, all fp32: the
+    states kernel's xd or dy [K][P], B or C [K][N], the state [P][N], cum
+    and a weight [K]; the chunk kernel's xd^T, dy^T [P][K + 1], B^T, C^T
+    [N][K + 1], two blocks of 16 rows of [K, K] matrices [16][K + 1],
+    16 rows of a state [16][N] (then a row's terms), six [K] arrays and
+    32 floats. A copy of ``states_smem_bytes`` and ``chunk_smem_bytes``
+    in ssd_scan_bwd.cu, so that the wrapper refuses a shape past
+    ``SMEM_LIMIT`` before it launches the forward (the scores kernel's,
+    B^T and C^T, is less than the chunk kernel's)."""
+    K, P, N = chunk, head_dim, state
+    KP, RB = K + 1, min(K, BWD_ROW_BLOCK)
+    states = K * P + K * N + P * N + 2 * K
+    chunk_block = ((2 * P + 2 * N) * KP + 2 * RB * KP + BWD_STATE_TILE * N
+                   + 6 * K + 32)
+    return 4 * max(states, chunk_block)
+
+
+def bwd_scratch_floats(Bsz: int, L: int, H: int, P: int, N: int,
+                       chunk: int) -> int:
+    """The backward's fp32 scratch: the state entering and the cotangent
+    of the state leaving each chunk, [B, n_chunks, H, P, N] each; the
+    heads' partials of dB and dC, [B, H, L, N] each; and each chunk's C
+    B^T and its transpose, [B, n_chunks, chunk, chunk] each."""
+    nc = -(-L // chunk)
+    return (2 * Bsz * nc * H * P * N + 2 * Bsz * H * L * N
+            + 2 * Bsz * nc * chunk * chunk)
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("ssd_scan", SOURCES)
     fn = lib.ssd_scan_forward
     if fn.argtypes is None:
         fn.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+        fn.restype = _I
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("ssd_scan_bwd", BWD_SOURCES)
+    fn = lib.ssd_scan_backward
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 11 + [_I] * 7 + [_P]
         fn.restype = _I
     return lib
 
@@ -111,3 +163,35 @@ def ssd_scan_cuda(xd, a, B_, C_, chunk: int):
     raise_for(rc, xd, B_, C_, chunk)
     SSD_LAUNCHES.add((Bsz, L, H, P, N, chunk))
     return y, state
+
+
+def ssd_scan_bwd_cuda(xd, a, B_, C_, chunk: int, dy, dstate=None):
+    """The backward's launch on the CUDA tensors the autograd Function
+    checked: xd and dy [B, L, H, P], B_ and C_ [B, L, N], one dtype (fp32
+    or bf16); a [B, L, H] fp32; dstate [B, H, P, N] fp32 or None (a zero
+    cotangent); all contiguous. Returns fresh (dxd, da, dB, dC), each in
+    its input's dtype."""
+    Bsz, L, H, P = xd.shape
+    N = B_.shape[-1]
+    if xd.numel() == 0:
+        return tuple(torch.zeros_like(t) for t in (xd, a, B_, C_))
+    grads = tuple(torch.empty_like(t) for t in (xd, a, B_, C_))
+    scratch = torch.empty(bwd_scratch_floats(Bsz, L, H, P, N, chunk),
+                          dtype=torch.float32, device=xd.device)
+    rc = _bwd_library().ssd_scan_backward(
+        xd.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+        dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+        scratch.data_ptr(), *(g.data_ptr() for g in grads), Bsz, L, H, P,
+        N, chunk, int(xd.dtype == torch.bfloat16),
+        torch.cuda.current_stream(xd.device).cuda_stream)
+    if rc in BWD_REFUSED:
+        raise ValueError(f"ssd_scan backward kernel refuses chunk {chunk}, "
+                         f"head dim {P}, state {N}: state <= "
+                         f"{BWD_MAX_STATE} and {bwd_smem_bytes(chunk, P, N)}"
+                         f" bytes of shared memory <= {SMEM_LIMIT}")
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed at "
+                           f"B={Bsz} L={L} H={H} P={P} N={N} chunk={chunk} "
+                           f"{xd.dtype}: cudaError {rc}")
+    SSD_BWD_LAUNCHES.add((Bsz, L, H, P, N, chunk))
+    return grads

@@ -14,40 +14,44 @@ strides are not 16-byte multiples when the kernel's entry point encodes
 its tensor maps, and the binding raises a ``ValueError`` before anything
 is launched. fp32 runs on the CUDA-core kernel. The TPU wrapper's
 padding of L to a multiple of the chunk has no counterpart on the card:
-the kernel masks the ragged last chunk itself. The kernel has no
-backward (ROADMAP: ``BACKWARD_ITEM``), so on the card an input that
-requires grad, while grad is enabled, is refused with a
-``NotImplementedError`` naming that item; the CPU route
-differentiates.
+the kernel masks the ragged last chunk itself.
+
+Gradients. On the card an input that requires grad, while grad is
+enabled, goes through ``SSDScanFunction``: its forward launches the
+scan kernel and saves xd, a, B_ and C_; its backward launches the
+backward's entry point (``kernel.ssd_scan_bwd_cuda``: dxd, da, dB and
+dC from the cotangents of y and of the final state, bf16 or fp32 on the
+CUDA cores of ``csrc/ssd_scan_bwd.cu``), which takes states up to 128
+and what fits its shared memory; any other shape raises before anything
+is launched. On the CPU the gradient is autograd's of the plain
+version, the one CPU route.
 
 ``ssd_chunk(xd, a, B_, C_, state)`` is the counterpart of
 ``repro.kernels.ssd.ops.ssd_chunk_fused``: one chunk of one (batch,
 head) from a given state, xd [K, P]; a [K] float32; B_, C_ [K, N];
-state [P, N] float32. On the card it runs the same scan kernel at
-chunk K from zero and folds the state in after it
-(``ref.fold_state``), as the TPU entry does; on the CPU it runs
-``ref.ssd_chunk_ref``. It takes the same checks and the same refusal
-of gradients on the card.
+state [P, N] float32. On the card it runs the same scan (through
+``SSDScanFunction`` when a gradient is asked) at chunk K from zero and
+folds the state in after it (``ref.fold_state``, plain differentiable
+torch), as the TPU entry does; on the CPU it runs ``ref.ssd_chunk_ref``.
+It takes the same checks.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.ssd import kernel
 from repro_torch.kernels.ssd.ref import fold_state, ssd_chunk_ref, \
     ssd_scan_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the ROADMAP item that ports the scan's backward kernel
-BACKWARD_ITEM = "The SSD scan's backward"
 
 
-def _no_backward(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} kernel has no backward yet (ROADMAP, Next: "
-        f"{BACKWARD_ITEM}): call it on the card under torch.no_grad(), or "
-        f"differentiate on the CPU")
+def _on_card(t) -> bool:
+    """The route of a checked tensor: the card's kernels (True) or, on
+    the CPU, the plain versions."""
+    return t.device.type == "cuda"
 
 
 def _check(xd, a, B_, C_, chunk, name="ssd_scan") -> None:
@@ -100,22 +104,67 @@ def _check_card(xd, a, B_, C_, chunk, name="ssd_scan") -> None:
         raise ValueError(f"{name} kernel: chunk {chunk}, head dim {P} and "
                          f"state {N} need {kernel.smem_bytes(chunk, P, N)} "
                          f"bytes of shared memory, over {kernel.SMEM_LIMIT}")
+
+
+def _check_grad(xd, B_, chunk, name="ssd_scan") -> None:
+    """What the backward kernel takes, checked before the forward's
+    launch."""
+    P, N = xd.shape[3], B_.shape[2]
+    need = kernel.bwd_smem_bytes(chunk, P, N)
+    if N > kernel.BWD_MAX_STATE or need > kernel.SMEM_LIMIT:
+        raise ValueError(f"{name} backward kernel takes states <= "
+                         f"{kernel.BWD_MAX_STATE} and at most "
+                         f"{kernel.SMEM_LIMIT} bytes of shared memory, got "
+                         f"chunk {chunk}, head dim {P}, state {N} ({need} "
+                         f"bytes)")
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """The SSD scan on the card with its gradient: the scan kernel, then
+    the backward kernel, from the cotangents of y and of the final state
+    (None where the caller dropped it). Takes checked CUDA tensors
+    (``ssd_scan``)."""
+
+    @staticmethod
+    def forward(ctx, xd, a, B_, C_, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xd, a, B_, C_)
+        ctx.chunk = chunk
+        return kernel.ssd_scan_cuda(xd, a, B_, C_, chunk)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dstate):
+        xd, a, B_, C_ = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xd)
+        grads = kernel.ssd_scan_bwd_cuda(
+            xd, a, B_, C_, ctx.chunk, dy.to(xd.dtype).contiguous(),
+            None if dstate is None else dstate.float().contiguous())
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
+def _scan_card(xd, a, B_, C_, chunk, name="ssd_scan"):
+    """The card's scan on checked tensors: through ``SSDScanFunction``
+    where autograd records an input, else the kernel alone."""
+    _check_card(xd, a, B_, C_, chunk, name)
     # the kernel writes its outputs through ctypes, outside autograd: a
-    # gradient through it would be lost without a word, so refuse it
-    # until the kernel has a backward
+    # gradient goes through the Function, whose backward is a kernel too
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (xd, a, B_, C_)):
-        raise _no_backward(name)
+        _check_grad(xd, B_, chunk, name)
+        return SSDScanFunction.apply(xd, a, B_, C_, chunk)
+    return kernel.ssd_scan_cuda(xd, a, B_, C_, chunk)
 
 
 def ssd_scan(xd, a, B_, C_, chunk: int = 128):
     """The chunked SSD scan from a zero state. Returns (y [B, L, H, P] in
     xd's dtype, final state [B, H, P, N] float32)."""
     _check(xd, a, B_, C_, chunk)
-    if xd.device.type == "cpu":
+    if not _on_card(xd):
         return ssd_scan_ref(xd, a, B_, C_, chunk)
-    _check_card(xd, a, B_, C_, chunk)
-    return kernel.ssd_scan_cuda(xd, a, B_, C_, chunk)
+    return _scan_card(xd, a, B_, C_, chunk)
 
 
 def ssd_chunk(xd, a, B_, C_, state):
@@ -136,15 +185,12 @@ def ssd_chunk(xd, a, B_, C_, state):
                          f"{(P, B_.shape[1])} float32 on {xd.device}, got "
                          f"{tuple(state.shape)} {state.dtype} on "
                          f"{state.device}")
-    if xd.device.type == "cpu":
+    if not _on_card(xd):
         f32 = torch.float32
         y, new_state = ssd_chunk_ref(xd.to(f32), a, B_.to(f32), C_.to(f32),
                                      state)
         return y.to(xd.dtype), new_state
-    _check_card(*args, K, "ssd_chunk")
-    if torch.is_grad_enabled() and state.requires_grad:
-        raise _no_backward("ssd_chunk")
-    y, new_state = kernel.ssd_scan_cuda(*args, K)
+    y, new_state = _scan_card(*args, K, "ssd_chunk")
     kernel.SSD_CHUNK_LAUNCHES.add((K, P, B_.shape[1]))
     y, new_state = fold_state(y, new_state, args[1], args[3],
                               state[None, None])

@@ -2,7 +2,9 @@
 state-space-duality recurrence (``ssd_chunk_ref``, the same math as
 ``repro.kernels.ssd.ref.ssd_chunk_ref``) and the whole scan over the
 chunks (``ssd_scan_ref``, the same math, padding and casts as
-``repro.models.ssm.ssd_chunked`` with no initial state); and
+``repro.models.ssm.ssd_chunked`` with no initial state); the scan's
+gradient written out chunk by chunk (``ssd_scan_bwd_ref``, what the
+JAX package takes as XLA's autodiff of ``ssd_chunked``); and
 ``fold_state``, which folds a given initial state into a scan run from
 zero, on both devices, as the TPU kernel's single-chunk entry
 (``repro.kernels.ssd.ops.ssd_chunk_fused``) does."""
@@ -90,6 +92,90 @@ def ssd_scan_ref(xd, a, B_, C_, chunk: int = 128):
         ys.append(Y.to(xd.dtype))
     y = torch.cat(ys, dim=1) if ys else xd.new_zeros((Bsz, 0, H, P))
     return y[:, :L], state
+
+
+def _pad_chunks(t, pad: int, nc: int, chunk: int):
+    """[B, L, ...] -> [B, nc, chunk, ...], L padded with zeros."""
+    if pad:
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    return t.reshape(t.shape[0], nc, chunk, *t.shape[2:])
+
+
+def ssd_scan_bwd_ref(xd, a, B_, C_, chunk, dy, dstate=None):
+    """The gradient of ``ssd_scan_ref`` written out, chunk by chunk: the
+    cotangents dy [B, L, H, P] of y and ``dstate`` [B, H, P, N] of the
+    final state (None: zero) give (dxd, da, dB, dC), each in its input's
+    dtype. Works in float32 (float64 when xd is float64); L is padded to
+    a multiple of ``chunk`` as ``ssd_scan_ref`` pads it.
+
+    For a chunk, cum the cumsum of a over it, S the state that enters it
+    and dS the cotangent of the state that leaves it, Lmat = exp(cum_q -
+    cum_k) on and below the diagonal (0 above), scores = C B^T, M =
+    scores o Lmat, dM = dy xd^T, D = dM o Lmat, decay_k = exp(cum_K -
+    cum_k) and cum_K the chunk's last cum:
+
+        dxd = M^T dy + (B o decay) dS^T
+        dC  = D B + exp(cum) o (dy S)
+        dB  = D^T C + decay o (xd dS)
+        dS_in = exp(cum_K) dS + sum_q exp(cum_q) dy_q^T C_q
+
+    and dcum gathers the segment sums' term (D o scores: its row sums
+    with a plus sign, its column sums with a minus sign), the carried
+    state's (exp(cum_q) C_q . (dy S)_q), the state update's decay
+    (minus decay_k B_k . (xd dS)_k at row k, their sum at the last row)
+    and the carried state's decay (exp(cum_K) <S, dS> at the last row);
+    da is dcum's reverse cumsum within the chunk. B_ and C_ are shared
+    by the heads, so dB and dC sum over them."""
+    Bsz, L, H, P = xd.shape
+    N = B_.shape[-1]
+    work = torch.float64 if xd.dtype == torch.float64 else torch.float32
+    pad = (-L) % chunk
+    nc = (L + pad) // chunk
+    xc, dyc = (_pad_chunks(t.to(work), pad, nc, chunk) for t in (xd, dy))
+    ac = _pad_chunks(a.to(work), pad, nc, chunk)
+    Bc, Cc = (_pad_chunks(t.to(work), pad, nc, chunk) for t in (B_, C_))
+
+    states = [torch.zeros((Bsz, H, P, N), dtype=work, device=xd.device)]
+    for c in range(nc - 1):                 # the state entering each chunk
+        cum = torch.cumsum(ac[:, c].transpose(1, 2), dim=-1)    # [B, H, K]
+        decay = torch.exp(cum[..., -1:] - cum)
+        states.append(states[-1] * torch.exp(cum[..., -1])[..., None, None]
+                      + torch.einsum("bkn,bhk,bkhp->bhpn", Bc[:, c], decay,
+                                     xc[:, c]))
+    dS = (torch.zeros_like(states[0]) if dstate is None
+          else dstate.to(work))
+    dxs, das, dBs, dCs = [], [], [], []
+    for c in reversed(range(nc)):
+        x, g, Bk, Ck, S = xc[:, c], dyc[:, c], Bc[:, c], Cc[:, c], states[c]
+        a_hk = ac[:, c].transpose(1, 2)                         # [B, H, K]
+        cum = torch.cumsum(a_hk, dim=-1)
+        Lmat = torch.exp(segsum(a_hk))                      # [B, H, K, K]
+        ecum = torch.exp(cum)
+        total = cum[..., -1]
+        decay = torch.exp(total[..., None] - cum)
+        scores = torch.einsum("bqn,bkn->bqk", Ck, Bk)
+        D = torch.einsum("bqhp,bkhp->bhqk", g, x) * Lmat
+        dyS = torch.einsum("bqhp,bhpn->bhqn", g, S)
+        xdS = torch.einsum("bkhp,bhpn->bhkn", x, dS)
+        dxs.append(torch.einsum("bqk,bhqk,bqhp->bkhp", scores, Lmat, g)
+                   + torch.einsum("bkn,bhk,bhpn->bkhp", Bk, decay, dS))
+        dCs.append(torch.einsum("bhqk,bkn->bqn", D, Bk)
+                   + torch.einsum("bhq,bhqn->bqn", ecum, dyS))
+        dBs.append(torch.einsum("bhqk,bqn->bkn", D, Ck)
+                   + torch.einsum("bhk,bhkn->bkn", decay, xdS))
+        E = D * scores[:, None]
+        carried = ecum * torch.einsum("bhqn,bqn->bhq", dyS, Ck)
+        G = decay * torch.einsum("bhkn,bkn->bhk", xdS, Bk)
+        dcum = E.sum(-1) - E.sum(-2) + carried - G
+        dcum[..., -1] += G.sum(-1) + torch.exp(total) * (S * dS).sum((-2, -1))
+        da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+        das.append(da.transpose(1, 2))                          # [B, K, H]
+        dS = dS * torch.exp(total)[..., None, None] + torch.einsum(
+            "bhq,bqhp,bqn->bhpn", ecum, g, Ck)
+    dxd, da, dB, dC = (torch.cat(t[::-1], dim=1)[:, :L]
+                       for t in (dxs, das, dBs, dCs))
+    return (dxd.to(xd.dtype), da.to(a.dtype), dB.to(B_.dtype),
+            dC.to(C_.dtype))
 
 
 def fold_state(y, state, a, C_, state0):

@@ -8,8 +8,8 @@ modes, as in ``repro.launch.train``:
     variant) trained with Adam on synthetic tokens (``make_train_step``
     of ``launch.specs``), ``--steps`` steps of ``--batch`` x ``--seq``
     tokens at ``--lr``; the audio family also takes synthetic frames.
-    On the card the ssm and hybrid families raise: their gradient needs
-    the SSD scan's backward, not ported yet.
+    On the card every family trains through the hand-written kernels'
+    backwards (flash attention's, the SSD scan's).
 
     # the paper's framework, 4 workers, EVL on the extreme-event head
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \

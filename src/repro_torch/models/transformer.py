@@ -58,11 +58,9 @@ configs') no pair is ever dropped and they agree.
 
 ``lm_loss`` is the training loss, next-token cross entropy in fp32
 plus ``aux_weight`` times the MoE aux. On the card its gradient runs
-through the flash kernel's backward; the ``ssm`` and ``hybrid``
-families' would need the SSD scan's, which is not ported, so their
-forward raises ``NotImplementedError`` on the card where autograd
-records a parameter (``_check_trainable``); on the CPU they
-differentiate.
+through the hand-written backwards of the flash kernel and of the SSD
+scan (``FlashAttentionFunction``, ``SSDScanFunction``), so every family
+trains there; on the CPU through autograd of their plain versions.
 """
 
 from __future__ import annotations
@@ -74,7 +72,6 @@ from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ssd.ops import BACKWARD_ITEM as SSD_BACKWARD_ITEM
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        embed_init, init_device, norm_param,
@@ -370,17 +367,6 @@ def _maybe_remat(cfg: ArchConfig, fn):
     return run
 
 
-def _check_trainable(cfg: ArchConfig, params) -> None:
-    """The ``ssm`` and ``hybrid`` families train on the CPU only: on the
-    card their gradient would need the SSD scan's backward kernel, which
-    is not ported. Raises where autograd records a parameter on the
-    card; never falls back to the plain scan."""
-    if cfg.family in ("ssm", "hybrid") and torch.is_grad_enabled() and any(
-            t.is_cuda and t.requires_grad for t in tree_leaves(params)):
-        raise not_ported(f"training {cfg.name} ({cfg.family}) on the card",
-                         SSD_BACKWARD_ITEM)
-
-
 def _embed(cfg: ArchConfig, params, tokens):
     return params["embed"][tokens]
 
@@ -437,7 +423,6 @@ def lm_forward(cfg: ArchConfig, params: PyTree, tokens, frames=None):
     families).
     """
     _require_ported(cfg)
-    _check_trainable(cfg, params)
     B, S = tokens.shape
     layers = _unstack(params["layers"])
     if cfg.family == "hybrid":

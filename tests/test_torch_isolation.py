@@ -90,7 +90,8 @@ def test_port_package_is_complete():
                 "kernels/attention/csrc/flash_attention.cu",
                 "kernels/attention/csrc/flash_attention_bwd.cu",
                 "kernels/attention/csrc/flash_attention_bwd_wgmma.cu",
-                "kernels/ssd/csrc/ssd_scan.cu"):
+                "kernels/ssd/csrc/ssd_scan.cu",
+                "kernels/ssd/csrc/ssd_scan_bwd.cu"):
         assert (ROOT / "src/repro_torch" / src).is_file()
 
 

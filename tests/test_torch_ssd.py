@@ -243,7 +243,7 @@ def test_bf16_matches_jax():
 
 
 def test_cpu_route_differentiates_like_jax():
-    """The plain route carries gradients (the kernel has none yet):
+    """The plain route carries gradients, autograd's of the plain scan:
     d(sum of y * w + sum of state * v) against jax.grad of the JAX
     model's scan, for every input."""
     import jax
@@ -433,48 +433,71 @@ def test_cuda_kernel_rows_do_not_depend_on_batch(L):
 
 
 @pytest.mark.cuda
-def test_cuda_ssm_family_training_raises():
-    """Training the reduced Mamba2-370M on the card raises before any
-    launch, naming the SSD backward's ROADMAP item; it never falls back
-    to the plain scan."""
+def test_cuda_ssm_family_trains():
+    """The reduced Mamba2-370M's loss and gradients on the card in fp32:
+    one forward and one backward launch of the SSD kernels a layer (remat
+    off), every gradient leaf finite and, with the same weights, within
+    1e-4 of its max of the CPU's (the plain versions)."""
     _card()
+    import dataclasses
+
+    from repro_torch.checkpoint.convert import params_to
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.launch.specs import loss_and_grad
     from repro_torch.models.transformer import init_lm
+    from repro_torch.tree import tree_leaves
 
-    cfg = reduced(get_config("mamba2-370m"), dtype="bfloat16")
+    cfg = dataclasses.replace(reduced(get_config("mamba2-370m")),
+                              remat=False)
     params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
-    toks = torch.zeros(2, 32, dtype=torch.long, device="cuda")
-    before = ssd_kernel.SSD_LAUNCHES.total
-    with pytest.raises(NotImplementedError, match="SSD scan's backward"):
-        loss_and_grad(cfg, params, toks)
-    assert ssd_kernel.SSD_LAUNCHES.total == before
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    ssd_kernel.SSD_LAUNCHES.reset()
+    ssd_kernel.SSD_BWD_LAUNCHES.reset()
+    loss, grads = loss_and_grad(cfg, params, toks.cuda())
+    torch.cuda.synchronize()
+    assert ssd_kernel.SSD_LAUNCHES.total == cfg.n_layers
+    assert ssd_kernel.SSD_BWD_LAUNCHES.total == cfg.n_layers
+    want_loss, want = loss_and_grad(cfg, params_to(params, "cpu"), toks)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-4)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        assert torch.all(torch.isfinite(g))
+        top = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(top, 1e-30)
 
 
 @pytest.mark.cuda
-def test_cuda_wrapper_refuses_gradients():
-    """The kernel's outputs have no grad_fn, so a gradient through them
-    would vanish silently: the wrapper raises instead, launches nothing,
-    runs under no_grad, and the CPU route of the same inputs
-    differentiates."""
+def test_cuda_wrapper_differentiates():
+    """On the card a gradient goes through ``SSDScanFunction``: one
+    forward and one backward launch for each input that asks, the
+    gradient of that input alone, matching the CPU route's; under
+    no_grad the kernel alone, and nothing records."""
     _card()
     args = _cuda(_draw(1, 20, 2, 8, 4, "slow", seed=12), torch.float32)
-    before = ssd_kernel.SSD_LAUNCHES.total
+    cpu = [t.cpu() for t in args]
     for leaf in range(4):
-        inputs = list(args)
+        inputs, ref_in = list(args), list(cpu)
         inputs[leaf] = inputs[leaf].clone().requires_grad_()
-        with pytest.raises(RuntimeError, match="no backward"):
-            ssd_scan(*inputs, chunk=16)
-    assert ssd_kernel.SSD_LAUNCHES.total == before
+        ref_in[leaf] = ref_in[leaf].clone().requires_grad_()
+        before = (ssd_kernel.SSD_LAUNCHES.total,
+                  ssd_kernel.SSD_BWD_LAUNCHES.total)
+        y, s = ssd_scan(*inputs, chunk=16)
+        (y.sum() + s.sum()).backward()
+        assert (ssd_kernel.SSD_LAUNCHES.total,
+                ssd_kernel.SSD_BWD_LAUNCHES.total) == (before[0] + 1,
+                                                       before[1] + 1)
+        ry, rs = ssd_scan(*ref_in, chunk=16)
+        (ry.sum() + rs.sum()).backward()
+        assert all(t.grad is None for i, t in enumerate(inputs) if i != leaf)
+        _close(inputs[leaf].grad.cpu().numpy(), ref_in[leaf].grad.numpy(),
+               rtol=1e-4, atol=1e-5)
+    before = ssd_kernel.SSD_BWD_LAUNCHES.total
     with torch.no_grad():
         y, _ = ssd_scan(args[0].clone().requires_grad_(), *args[1:],
                         chunk=16)
-    assert ssd_kernel.SSD_LAUNCHES.total == before + 1
     assert not y.requires_grad
-    cx = args[0].cpu().requires_grad_()
-    ssd_scan(cx, *(t.cpu() for t in args[1:]), chunk=16)[0].sum().backward()
-    assert cx.grad is not None and torch.all(torch.isfinite(cx.grad))
+    assert ssd_kernel.SSD_BWD_LAUNCHES.total == before
 
 
 @pytest.mark.cuda

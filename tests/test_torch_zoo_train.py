@@ -17,10 +17,6 @@ mode, on the CPU.
 - ``cfg.remat`` on and off give the same bits (loss and gradients), for
   each way the forward groups its blocks.
 - ``launch.train --arch qwen1.5-4b --reduced --steps 3 --device cpu``.
-- Where autograd records a parameter on the card, the ssm and hybrid
-  families' forward raises, naming the SSD backward's ROADMAP item
-  (here with a stand-in for a card parameter; on a card,
-  ``tests/test_torch_ssd.py``).
 
 Tolerances: the loss at rtol 1e-5 (one fp32 mean); gradients at rtol
 1e-4 / atol 1e-6 of fp32 (the same products summed in XLA's order on
@@ -266,25 +262,3 @@ def test_train_cli_trains_a_reduced_zoo_model(capsys):
     final = float(out.split("final loss ")[1].split()[0])
     assert len(losses) == 3 and np.isfinite(final)
     assert final == pytest.approx(losses[-1], abs=1e-4)
-
-
-class _CardLeaf:
-    """Stands in for a parameter on the card that autograd records."""
-    is_cuda = True
-    requires_grad = True
-
-
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
-def test_ssd_families_refuse_card_training(arch):
-    """Where autograd records a parameter on the card, the ssm and
-    hybrid forwards raise before any work, naming the SSD backward's
-    ROADMAP item; under no_grad, and for the attention families, they
-    do not."""
-    cfg = reduced(get_config(arch))
-    params = {"layers": {"w": _CardLeaf()}}
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP, Next: The SSD scan's backward\)"):
-        tfm.lm_forward(cfg, params, torch.zeros(1, 4, dtype=torch.long))
-    with torch.no_grad():
-        tfm._check_trainable(cfg, params)
-    tfm._check_trainable(reduced(get_config("qwen1.5-4b")), params)
