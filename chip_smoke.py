@@ -15,7 +15,8 @@ NVIDIA H100.
     python3 chip_smoke.py --audio            # the [audio] phase alone
     python3 chip_smoke.py --train-zoo        # the [train-zoo] phase alone
     python3 chip_smoke.py --train-ssm        # the [train-ssm] phase alone
-    python3 chip_smoke.py --ssd-bwd          # the SSD backward, train shape
+    python3 chip_smoke.py --ssd-bwd          # the SSD backward, train shapes
+    python3 chip_smoke.py --ssd-bwd-ablation # what bounds the SSD backward
 
 It builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per library, all started together), shows from the flash
@@ -146,11 +147,12 @@ exists, and its bound, reads the device's busy share on each path with
 exits non-zero. The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. With ``--flash-host``,
 ``--flash-serve``, ``--flash-bwd``, ``--flash-ablation``,
-``--ssd-ablation``, ``--lstm-ablation``, ``--evl-ablation`` or
-``--ssd-bwd`` it runs only that probe (``flash_host``, ``flash_serve``,
-``flash_bwd_probe``, ``flash_ablation``, ``ssd_ablation``,
-``lstm_ablation``, ``evl_ablation``, ``ssd_bwd_probe``) and prints no
-result; with ``--decode``, ``--dense``, ``--moe``, ``--audio``,
+``--ssd-ablation``, ``--lstm-ablation``, ``--evl-ablation``,
+``--ssd-bwd`` or ``--ssd-bwd-ablation`` it runs only that probe
+(``flash_host``, ``flash_serve``, ``flash_bwd_probe``, ``flash_ablation``,
+``ssd_ablation``, ``lstm_ablation``, ``evl_ablation``, ``ssd_bwd_probe``,
+``ssd_bwd_ablation``) and prints no result; with ``--decode``,
+``--dense``, ``--moe``, ``--audio``,
 ``--train-zoo`` or ``--train-ssm``, the build and the ``[decode]``,
 ``[dense]``, ``[moe]``, ``[audio]``, ``[train-zoo]`` or ``[train-ssm]``
 phase alone (``[train-ssm]`` with the SSD library's SASS check), and no
@@ -166,6 +168,7 @@ import contextlib
 import ctypes
 import hashlib
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -555,10 +558,17 @@ TRAIN_ZAMBA_LAYERS = 12
 # the training CLI's default (--batch, --seq) for a zoo arch
 TRAIN_CLI_BATCH = (32, 128)
 TRAIN_ZAMBA_STEPS = 2
-# device-kernel names of the SSD backward's four kernels (each chunk's C
-# B^T, the states' sweep, the chunks, the heads' sum of dB and dC)
-SSD_BWD_SYMBOLS = ("ssd_bwd_scores", "ssd_bwd_states", "ssd_bwd_chunk",
-                   "ssd_bwd_sum_heads")
+# device-kernel names of the SSD backward's bf16 route (the states' walk,
+# the chunks, da, the head groups' sum of dB and dC), which a bf16 step
+# must run; the first two are wgmma fed by TMA, one instantiation a chunk
+# and number of 64-column slabs of the state (1 or 2)
+SSD_BWD_SYMBOLS = ("ssd_wgmma_bwd_states", "ssd_wgmma_bwd_chunks",
+                   "ssd_wgmma_bwd_da", "ssd_wgmma_bwd_sum")
+SSD_BWD_WGMMA = SSD_BWD_SYMBOLS[:2]
+# and of its fp32 route on the CUDA cores (each chunk's C B^T, the
+# states' sweep, the chunks, the heads' sum), which a bf16 step must not
+SSD_BWD_FP32_SYMBOLS = ("ssd_bwd_scores", "ssd_bwd_states",
+                        "ssd_bwd_chunk", "ssd_bwd_sum_heads")
 # the SSD backward against its plain version on the card, (B, L, H, P, N,
 # chunk): the JAX sweep's ragged shapes, every bf16 chunk at a ragged L,
 # Mamba2-370M's and Zamba2's instantiations (states 128 and 64) at a
@@ -834,7 +844,8 @@ def eager_ms(fn, n=200):
 def ptxas_report(name: str, sources, symbols) -> list[str]:
     """What ``ptxas -v`` said of the kernels named by ``symbols`` when
     ``build`` built library ``name`` (its log beside the library): one
-    line a kernel and dtype with its registers and spills."""
+    line a kernel and instantiation (its dtype, or its template's
+    integers) with its registers and spills."""
     from repro_torch.kernels import build
 
     # per entry: "Compiling entry function '<name>'", "Function
@@ -853,8 +864,10 @@ def ptxas_report(name: str, sources, symbols) -> list[str]:
             sym = next((k for k in symbols if k in fn), None)
             if sym:
                 regs = line.split("Used", 1)[1].split("registers")[0].strip()
-                report.append(f"{sym} {'bf16' if 'bfloat16' in fn else 'fp32'}"
-                              f": {regs} registers, {spill}")
+                ints = re.findall(r"Li(\d+)E", fn)
+                kind = ("bf16" if "bfloat16" in fn else
+                        "<" + ", ".join(ints) + ">" if ints else "fp32")
+                report.append(f"{sym} {kind}: {regs} registers, {spill}")
             fn = None
     return report
 
@@ -884,9 +897,13 @@ def build_kernels() -> None:
         print(f"[build] {name}: {'cached' if cached[name] else 'built'} -> "
               f"{path.relative_to(ROOT)}")
     report = ptxas_report("ssd_scan_bwd", ssd_kernel.BWD_SOURCES,
-                          SSD_BWD_SYMBOLS)
-    check(len(report) == 2 * len(SSD_BWD_SYMBOLS),
-          f"ptxas -v reported {len(report)} kernels of the SSD backward")
+                          SSD_BWD_SYMBOLS + SSD_BWD_FP32_SYMBOLS)
+    want = (2 * len(ssd_kernel.BF16_CHUNKS) * len(SSD_BWD_WGMMA)
+            + len(SSD_BWD_SYMBOLS) - len(SSD_BWD_WGMMA)
+            + len(SSD_BWD_FP32_SYMBOLS))
+    check(len(report) == want,
+          f"ptxas -v reported {len(report)} kernels of the SSD backward, "
+          f"not {want}")
     print(f"[build] {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s; the SSD backward's ptxas -v: "
           + "; ".join(report))
@@ -961,19 +978,27 @@ def check_flash_sass() -> None:
 
 def check_ssd_sass() -> None:
     """Phase 1c: the bf16 SSD kernel, one instantiation a chunk and
-    number of 64-column slabs of the state (1 or 2); the backward's
-    four kernels, one instantiation a dtype each."""
+    number of 64-column slabs of the state (1 or 2); the bf16 backward's
+    states' walk and chunks the same, each with wgmma and TMA; the
+    backward's CUDA-core kernels in fp32 only (one instantiation each,
+    none for bf16)."""
     from repro_torch.kernels.ssd import kernel as ssd_kernel
 
-    check_sass("bf16 SSD", "ssd_scan", ssd_kernel.SOURCES, SSD_SYMBOL,
-               2 * len(ssd_kernel.BF16_CHUNKS))
-    fns = list(sass_counts("ssd_scan_bwd", ssd_kernel.BWD_SOURCES))
-    mine = {s: [f for f in fns if s in f] for s in SSD_BWD_SYMBOLS}
-    check(all(len(f) == 2 for f in mine.values()),
-          f"the SSD backward's kernels are not one instantiation a dtype "
-          f"each: {mine}")
-    print(f"[sass] ssd_scan_bwd library: {len(fns)} functions, "
-          f"instantiations {({k: len(v) for k, v in mine.items()})}")
+    n = 2 * len(ssd_kernel.BF16_CHUNKS)
+    check_sass("bf16 SSD", "ssd_scan", ssd_kernel.SOURCES, SSD_SYMBOL, n)
+    counts = {}
+    for sym in SSD_BWD_WGMMA:
+        counts = check_sass("bf16 SSD backward", "ssd_scan_bwd",
+                            ssd_kernel.BWD_SOURCES, sym, n)
+    fns = list(counts)
+    fp32 = {s: [f for f in fns if s in f] for s in SSD_BWD_FP32_SYMBOLS}
+    check(all(len(f) == 1 and "bfloat16" not in f[0]
+              for f in fp32.values()),
+          f"the SSD backward's CUDA-core kernels are not fp32 alone, one "
+          f"instantiation each: {fp32}")
+    print(f"[sass] ssd_scan_bwd library: {len(fns)} functions; the "
+          f"CUDA-core kernels fp32 only, none for bf16: "
+          f"{sorted(f for v in fp32.values() for f in v)}")
 
 
 def layer_inputs(W, B, T, I, H, carry=True, seed=0):
@@ -3411,8 +3436,7 @@ def ablation_entries(library: str, sources, ablations: dict, entry: str,
 # or used.
 FLASH_ABLATIONS = {
     # P.V from P_hi alone: 4 products per (query, key, dim), not 6
-    "no P_lo": [("""    wgmma_pv(o, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3],
-             dv);
+    "no P_lo": [("""    wgmma_rs_t(o, &lo[4 * kk], dv, 1);
 """, "")],
     # the scores go to P.V as they are: no mask, max, exp, sums or rescale
     "no softmax": [("""                                               int wg_first) {
@@ -3556,6 +3580,101 @@ def ssd_ablation(card: str) -> None:
               f"{1e3 * ssd_bound(*shape)[0]:.3f} us: " + "; ".join(
                   f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
                   for n, ts in row.items()))
+    print(json.dumps({"card": card, "us": times}))
+
+
+# what bounds the bf16 SSD backward (``--ssd-bwd-ablation``): copies of
+# ssd_scan_bwd_wgmma.cu with a part taken out, as text substitutions,
+# each of which must apply exactly once. An ablated kernel computes a
+# wrong result by design (and the compiler may drop the work that fed
+# what was taken out): it is timed, never checked or used.
+SSD_BWD_ABLATIONS = {
+    # the chunk blocks' products with a state (dy S; xd dS and B dS^T)
+    "no state products": [
+        ("        wgmma_ss(ds, sw128_desc(ys + 64 * wg * ROW_BYTES + kk * 32,"
+         " 16, 1024),",
+         "        if (i < 0) wgmma_ss(ds, sw128_desc(ys + 64 * wg * ROW_BYTES"
+         " + kk * 32, 16, 1024),"),
+        ("        wgmma_ss(xds,", "        if (i < 0) wgmma_ss(xds,"),
+        ("        wgmma_ss_t(dx,", "        if (i < 0) wgmma_ss_t(dx,")],
+    # the chunk blocks' intra-chunk column blocks (C B^T, D, D B; their
+    # transposes)
+    "no intra-chunk products": [
+        ("for (int kb = 0; kb <= wg; ++kb)", "for (int kb = 0; kb < 0; ++kb)"),
+        ("for (int qb = wg; qb < C::NW; ++qb)",
+         "for (int qb = wg; qb < 0; ++qb)")],
+    # one head a chunk block (of each group of HEADS): each block's fixed
+    # cost (B_ and C_, the groups' stores) beside a head's
+    "one head a chunk block": [
+        (f"nh = min(HEADS, p.H - h0);\n\n  {after}",
+         f"nh = min(1, p.H - h0);\n\n  {after}")
+        for after in ("float dc[", "float db[", "if (threadIdx.x == 0)")],
+    # a launch without the chunk blocks, and one without the states' walk
+    "no chunk kernel": [("  ssd_wgmma_bwd_chunks<K, NB>\n      <<<",
+                         "  if (p.K < 0) ssd_wgmma_bwd_chunks<K, NB>\n"
+                         "      <<<")],
+    "no states' walk": [("  ssd_wgmma_bwd_states<K, NB>\n      <<<",
+                         "  if (p.K < 0) ssd_wgmma_bwd_states<K, NB>\n"
+                         "      <<<")],
+}
+
+
+def ssd_bwd_ablation(card: str) -> None:
+    """``--ssd-bwd-ablation``: the bf16 SSD backward's device time beside
+    each ablation's (``SSD_BWD_ABLATIONS``) at both train shapes, in
+    turns (the kernel, the ablations, then the same reversed), each
+    library built from the checkout and called through a binding of its
+    own; then each of its four kernels' device time by name
+    (``torch.profiler``, 10 launches). Prints one line per shape and a
+    JSON object of every time (us)."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = ablation_entries("ssd_scan_bwd", ssd_kernel.BWD_SOURCES,
+                           SSD_BWD_ABLATIONS, "ssd_scan_backward",
+                           [P] * 11 + [I] * 7 + [P])
+    order = list(fns) + list(fns)[::-1]
+    times: dict = {}
+    for shape in SSD_TRAIN:
+        B, L, H, Pd, N, K = shape
+        xd, a, Bm, Cm, dy, _ = ssd_bwd_inputs(B, L, H, Pd, N, "sweep",
+                                              torch.bfloat16, K, 1, False)
+        grads = [torch.empty_like(t) for t in (xd, a, Bm, Cm)]
+        scratch = torch.empty(ssd_kernel.bwd_scratch_floats(
+            B, L, H, Pd, N, K, bf16=True), dtype=torch.float32,
+            device="cuda")
+
+        def launch(fn):
+            rc = fn(xd.data_ptr(), a.data_ptr(), Bm.data_ptr(),
+                    Cm.data_ptr(), dy.data_ptr(), None, scratch.data_ptr(),
+                    *(g.data_ptr() for g in grads), B, L, H, Pd, N, K, 1,
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"SSD backward ablation launch failed: {rc}")
+
+        row: dict = {n: [] for n in fns}
+        for n in order:
+            row[n].append(1e3 * graph_ms(lambda: launch(fns[n]), 10, 11))
+        for _ in range(3):
+            launch(fns["kernel"])
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                launch(fns["kernel"])
+            torch.cuda.synchronize()
+        split = {sym: sum(e.device_time_total for e in prof.key_averages()
+                          if sym in e.key) / 10 for sym in SSD_BWD_SYMBOLS}
+        times["x".join(map(str, shape))] = dict(row, split=split)
+        print(f"[ablation] {card}: SSD backward {shape} bf16, bound "
+              f"{1e3 * ssd_bwd_bound(*shape)[0][0]:.3f} us: " + "; ".join(
+                  f"{n} {' / '.join(f'{t:.2f}' for t in ts)} us"
+                  for n, ts in row.items()) + "; the kernel's launches by "
+              "name: " + "; ".join(f"{k} {v:.2f} us" for k, v in
+                                   split.items()))
+        del xd, a, Bm, Cm, dy, grads, scratch
     print(json.dumps({"card": card, "us": times}))
 
 
@@ -5429,6 +5548,12 @@ def check_ssd_bwd() -> dict:
     return dict(worst, abs=fp32_abs)
 
 
+def ssd_bwd_bytes(B, L, H, P, N, K, itemsize=2):
+    """The bytes the SSD backward must move: xd, dy and dxd, B_, C_, dB
+    and dC (``itemsize`` bytes), a and da (fp32), each once."""
+    return itemsize * (3 * B * L * H * P + 4 * B * L * N) + 4 * 2 * B * L * H
+
+
 def ssd_bwd_bound(B, L, H, P, N, K, itemsize=2):
     """The SSD backward at the card's peak: xd, dy and dxd, B_, C_, dB
     and dC (``itemsize`` bytes), a and da (fp32) each moved once at the
@@ -5439,7 +5564,7 @@ def ssd_bwd_bound(B, L, H, P, N, K, itemsize=2):
     five with a state (the states' recomputation, dS's walk, B dS^T, dy
     S and xd dS: 10 r N P), at the tensor cores' bf16 peak (the fp32
     peak for fp32 inputs)."""
-    nbytes = itemsize * (3 * B * L * H * P + 4 * B * L * N) + 4 * 2 * B * L * H
+    nbytes = ssd_bwd_bytes(B, L, H, P, N, K, itemsize)
     ops = 0
     for t0 in range(0, L, K):
         r = min(K, L - t0)
@@ -5471,6 +5596,7 @@ def time_ssd_bwd(launches: dict, tag: str, shapes=SSD_TRAIN):
                           torch.bfloat16, str(shape))[0]
         worst = max(worst, err)
         (bnd, by), ops = ssd_bwd_bound(*shape)
+        scratch = 4 * ssd_kernel.bwd_scratch_floats(*shape, bf16=True)
         rows[shape] = {
             "ms": graph_ms(lambda: ssd_kernel.ssd_scan_bwd_cuda(
                 xd, a, Bm, Cm, K, dy), 3, 7),
@@ -5485,32 +5611,45 @@ def time_ssd_bwd(launches: dict, tag: str, shapes=SSD_TRAIN):
               f"{r['plain_ms'] * 1e3:.2f} us, bound "
               f"{r['bound_ms'] * 1e3:.3f} us ({by}; {ops / 1e9:.2f} GFLOP) "
               f"= {100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's "
-              f"time; |kernel - plain| {err:.3e} of max |grad|; no library "
+              f"time; scratch {scratch:,} bytes written and read back "
+              f"(the bound's {ssd_bwd_bytes(*shape):,} bytes moved); "
+              f"|kernel - plain| {err:.3e} of max |grad|; no library "
               f"call; {launches.get(shape, 0)} launches on the main path")
         del xd, a, Bm, Cm, dy
     return rows, worst
 
 
 def ssd_bwd_probe(tag: str) -> None:
-    """``--ssd-bwd``: the bf16 SSD backward as Mamba2-370M's training
-    launches it, at SSD_TRAIN[0]: device us a launch (``graph_ms``) and a
-    digest of dxd, da, dB and dC's bytes on seeded inputs. Prints one
-    JSON line."""
+    """``--ssd-bwd``: the bf16 SSD backward as Mamba2-370M's and
+    Zamba2-2.7B's training launch it, at SSD_TRAIN: device us a launch
+    (``graph_ms``) beside its plain version's, and a digest of dxd, da,
+    dB and dC's bytes on seeded inputs. Prints one JSON line; the keys of
+    Mamba2's shape are those of the probe's first form (one shape)."""
     from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.ref import ssd_scan_bwd_ref
 
-    B, L, H, P, N, K = SSD_TRAIN[0]
-    xd, a, Bm, Cm, dy, _ = ssd_bwd_inputs(B, L, H, P, N, "sweep",
-                                          torch.bfloat16, K, B * 7 + L, False)
-    grads = ssd_kernel.ssd_scan_bwd_cuda(xd, a, Bm, Cm, K, dy)
-    torch.cuda.synchronize()
-    digest = hashlib.sha256(b"".join(
-        t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-        for t in grads)).hexdigest()[:16]
-    us = 1e3 * graph_ms(lambda: ssd_kernel.ssd_scan_bwd_cuda(
-        xd, a, Bm, Cm, K, dy), 3, 11)
-    print(json.dumps({"ssd_bwd": tag, "root": str(ROOT),
-                      "shape": "x".join(map(str, SSD_TRAIN[0])), "us": us,
-                      "digest": digest}))
+    out = {"ssd_bwd": tag, "root": str(ROOT)}
+    for i, shape in enumerate(SSD_TRAIN):
+        B, L, H, P, N, K = shape
+        xd, a, Bm, Cm, dy, _ = ssd_bwd_inputs(B, L, H, P, N, "sweep",
+                                              torch.bfloat16, K, B * 7 + L,
+                                              False)
+        grads = ssd_kernel.ssd_scan_bwd_cuda(xd, a, Bm, Cm, K, dy)
+        torch.cuda.synchronize()
+        row = {"shape": "x".join(map(str, shape)),
+               "us": 1e3 * graph_ms(lambda: ssd_kernel.ssd_scan_bwd_cuda(
+                   xd, a, Bm, Cm, K, dy), 3, 11),
+               "plain_us": 1e3 * graph_ms(lambda: ssd_scan_bwd_ref(
+                   xd, a, Bm, Cm, K, dy), 3, 5),
+               "digest": hashlib.sha256(b"".join(
+                   t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                   for t in grads)).hexdigest()[:16]}
+        if i == 0:
+            out.update(row)
+        else:
+            out.setdefault("more", []).append(row)
+        del xd, a, Bm, Cm, dy, grads
+    print(json.dumps(out))
 
 
 def train_launches(cfg, B: int, S: int) -> dict:
@@ -5546,7 +5685,8 @@ def launches_ok(got: dict, want: dict, what: str) -> None:
 STEP_SYMBOLS = {"flash_attention": (FLASH_SYMBOL,),
                 "flash_attention_bwd": FLASH_BWD_BF16_SYMBOLS,
                 "ssd_scan": (SSD_SYMBOL,), "ssd_scan_bwd": SSD_BWD_SYMBOLS}
-STEP_FP32_SYMBOLS = FLASH_BWD_SYMBOLS + (FLASH_FP32_SYMBOL, SSD_FP32_SYMBOL)
+STEP_FP32_SYMBOLS = (FLASH_BWD_SYMBOLS + SSD_BWD_FP32_SYMBOLS
+                     + (FLASH_FP32_SYMBOL, SSD_FP32_SYMBOL))
 
 
 def train_zoo_model(arch: str, n_layers: int, steps: int, tag: str,
@@ -5800,6 +5940,7 @@ def main() -> None:
     probes = {"--flash-host": lambda: flash_host(tag),
               "--flash-ablation": lambda: flash_ablation(card),
               "--ssd-ablation": lambda: ssd_ablation(card),
+              "--ssd-bwd-ablation": lambda: ssd_bwd_ablation(card),
               "--lstm-ablation": lambda: lstm_ablation(card),
               "--evl-ablation": lambda: evl_ablation(card),
               "--decode": lambda: (build_kernels(), decode_main_path(tag)),
@@ -5812,7 +5953,7 @@ def main() -> None:
                                       train_ssm_main_path(tag)),
               "--flash-serve": lambda: flash_serve(tag),
               "--flash-bwd": lambda: flash_bwd_probe(tag),
-              "--ssd-bwd": lambda: (build_kernels(), ssd_bwd_probe(tag))}
+              "--ssd-bwd": lambda: ssd_bwd_probe(tag)}
     if sys.argv[1:]:
         check(len(sys.argv) == 2 and sys.argv[1] in probes,
               f"arguments {sys.argv[1:]}: give none, or one of "
@@ -5967,7 +6108,7 @@ def main() -> None:
                                 "src/repro/kernels/attention/kernel.py:34"),
         "ssd_scan": (csrc.format("ssd", "ssd_scan_wgmma.cu"),
                      "src/repro/kernels/ssd/kernel.py:27"),
-        "ssd_scan_bwd": (csrc.format("ssd", "ssd_scan_bwd.cu"),
+        "ssd_scan_bwd": (csrc.format("ssd", "ssd_scan_bwd_wgmma.cu"),
                          "src/repro/kernels/ssd/kernel.py:27"),
         "ssd_chunk": (csrc.format("ssd", "ssd_scan.cu"),
                       "src/repro/kernels/ssd/ops.py:36")}

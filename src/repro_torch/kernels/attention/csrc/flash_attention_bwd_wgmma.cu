@@ -111,6 +111,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/hopper.cuh"
+
 namespace {
 
 constexpr int BKV = 128;        // keys per dK/dV block: 2 consumers x 64
@@ -172,160 +174,6 @@ struct QTile : Slabs<D> {
 static_assert(KVTile<128>::SMEM <= 232448 && QTile<128>::SMEM <= 232448,
               "the rings do not fit shared memory at D 128");
 
-// ------------------------------------------------------------------ PTX --
-// (as in flash_attention_wgmma.cu, which is built into another library)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 4-d tensor map at (c0 = column, c1 = head, c2 = row,
-// c3 = batch) into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// to shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
-         "r"(bar)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (each >> 4)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// returns once at most N committed groups of this warpgroup are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across its wait
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-#define ACC8(a, i)                                                     \
-  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),          \
-      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
-
-// d (+)= A B, m64n64k16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// o += A B, m64n128k16, A (4 bf16x2 registers a thread) in registers, B
-// MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&o)[64], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(o, 0), ACC8(o, 8), ACC8(o, 16), ACC8(o, 24), ACC8(o, 32),
-        ACC8(o, 40), ACC8(o, 48), ACC8(o, 56)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-// the same at m64n64k16
-__device__ __forceinline__ void wgmma_rs(float (&o)[32], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(o, 0), ACC8(o, 8), ACC8(o, 16), ACC8(o, 24)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-#undef ACC8
-
-// 2^x in one MUFU op; results below 2^-126 flush to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // --------------------------------------------------------- the products --
 
 // d = A B^T over D for one consumer's 64 rows of A and 64 rows of B, both
@@ -351,8 +199,8 @@ __device__ __forceinline__ void issue_rs(float (&o)[N],
                                          uint32_t b_slab) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(o, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
-             sw128_desc(b + kk * 16 * ROW_BYTES, b_slab, 1024));
+    wgmma_rs_t(o, &a[4 * kk],
+               sw128_desc(b + kk * 16 * ROW_BYTES, b_slab, 1024), 1);
 }
 
 // an fp32 accumulator of m64n64 into the bf16 A fragments of the next
@@ -494,8 +342,8 @@ __device__ __forceinline__ void dkdv_block(
       for (int c = 0; c < T::NB; ++c)
         for (int r = 0; r < boxes; ++r) {
           const uint32_t off = c * T::KV_SLAB + r * BOX_BYTES;
-          tma_load(k_s + off, &tk, kv_full, c * SLAB, hk, k0 + r * BOX, b);
-          tma_load(v_s + off, &tv, kv_full, c * SLAB, hk, k0 + r * BOX, b);
+          tma_load_4d(k_s + off, &tk, kv_full, c * SLAB, hk, k0 + r * BOX, b);
+          tma_load_4d(v_s + off, &tv, kv_full, c * SLAB, hk, k0 + r * BOX, b);
         }
       for (int it = 0; it < n_steps; ++it) {
         const int st = it % STAGES;
@@ -508,8 +356,8 @@ __device__ __forceinline__ void dkdv_block(
         mbar_expect_tx(full, 2 * T::Q_BYTES + 2 * T::VEC_BYTES);
         for (int c = 0; c < T::NB; ++c) {
           const uint32_t off = st * T::Q_BYTES + c * T::Q_SLAB;
-          tma_load(q_s + off, &tq, full, c * SLAB, h, q0, b);
-          tma_load(do_s + off, &tdo, full, c * SLAB, h, q0, b);
+          tma_load_4d(q_s + off, &tq, full, c * SLAB, h, q0, b);
+          tma_load_4d(do_s + off, &tdo, full, c * SLAB, h, q0, b);
         }
         const long long row =
             (static_cast<long long>(b) * p.Hq + h) * p.Sq_pad + q0;
@@ -658,8 +506,8 @@ __device__ __forceinline__ void dq_block(
       for (int c = 0; c < T::NB; ++c)
         for (int r = 0; r < boxes; ++r) {
           const uint32_t off = c * T::Q_SLAB + r * BOX_BYTES;
-          tma_load(q_s + off, &tq, q_full, c * SLAB, h, q0 + r * BOX, b);
-          tma_load(do_s + off, &tdo, q_full, c * SLAB, h, q0 + r * BOX, b);
+          tma_load_4d(q_s + off, &tq, q_full, c * SLAB, h, q0 + r * BOX, b);
+          tma_load_4d(do_s + off, &tdo, q_full, c * SLAB, h, q0 + r * BOX, b);
         }
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % STAGES;
@@ -670,8 +518,8 @@ __device__ __forceinline__ void dq_block(
         mbar_expect_tx(full, 2 * T::KV_BYTES);
         for (int c = 0; c < T::NB; ++c) {
           const uint32_t off = st * T::KV_BYTES + c * T::KV_SLAB;
-          tma_load(k_s + off, &tk, full, c * SLAB, hk, k0, b);
-          tma_load(v_s + off, &tv, full, c * SLAB, hk, k0, b);
+          tma_load_4d(k_s + off, &tk, full, c * SLAB, hk, k0, b);
+          tma_load_4d(v_s + off, &tv, full, c * SLAB, hk, k0, b);
         }
       }
     }
@@ -776,30 +624,6 @@ bwd_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------- host --
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
 
 // a 4-d map over a contiguous bf16 [N, S, H, D] (given as D, H, S, N
 // innermost first); boxes of SLAB columns x 1 head x BOX rows

@@ -4,14 +4,16 @@ with ``ctypes``.
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC -Xptxas -v`` turns each kernel's ``csrc/*.cu`` (plain C
 interface, no PyTorch headers, so it builds in seconds) into
-``lib<name>.so`` under ``kernels/_build/<name>-<hash of the sources and
-flags>/``, with what ``ptxas -v`` said of each kernel (registers,
-spills) in ``ptxas.log`` beside it (``ptxas_log``). The hash keys
-the cache: an edited source builds anew, an unchanged one loads the
-library already there. A file lock around the build makes concurrent
-first calls (threads or processes) build once; ``build_all`` starts one
-``nvcc`` per library, all at once. Nothing here runs at import time: a
-CPU-only machine imports every module and never builds.
+``lib<name>.so`` under ``kernels/_build/<name>-<hash of the sources, the
+headers they include and the flags>/``, with what ``ptxas -v`` said of
+each kernel (registers, spills) in ``ptxas.log`` beside it
+(``ptxas_log``). The hash keys the cache: an edited source or header
+(``kernels/csrc/hopper.cuh``, which the bf16 kernels include) builds
+anew, an unchanged one loads the library already there. A file lock
+around the build makes concurrent first calls (threads or processes)
+build once; ``build_all`` starts one ``nvcc`` per library, all at once.
+Nothing here runs at import time: a CPU-only machine imports every
+module and never builds.
 
 ``LaunchCounter`` is what each binding counts its launches with.
 """
@@ -22,6 +24,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,6 +34,8 @@ from pathlib import Path
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -69,10 +74,30 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str, sources: list[Path]) -> Path:
-    """Where ``name``'s library for these exact sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def with_headers(sources: list[Path]) -> list[Path]:
+    """The sources and every file they include by a quoted path (found
+    beside the including file), each once, in the order first met."""
+    seen: list[Path] = []
+
+    def visit(path: Path) -> None:
+        path = path.resolve()
+        if path in seen:
+            return
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (path.parent / inc).is_file():
+                visit(path.parent / inc)
+
     for src in sources:
+        visit(Path(src))
+    return seen
+
+
+def library_path(name: str, sources: list[Path]) -> Path:
+    """Where ``name``'s library for these exact sources, the headers
+    they include and the flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in with_headers(sources):
         digest.update(src.read_bytes())
     return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 

@@ -1,7 +1,9 @@
 // The gradient of the Mamba2 SSD chunk scan for Hopper (sm_90a): from the
 // cotangents dy of y and dstate of the final state, dxd, da, dB and dC of
-// the scan of ssd_scan.cu / ssd_scan_wgmma.cu; bf16 or fp32 in, fp32
-// inside, each gradient in its input's dtype (da in fp32).
+// the scan of ssd_scan.cu / ssd_scan_wgmma.cu; fp32 on the CUDA cores
+// here, each gradient in its input's dtype. The entry point chooses by
+// dtype: bf16 runs ssd_scan_bwd_wgmma.cu (wgmma fed by TMA), fp32 the
+// kernels below.
 //
 // Replaces no pallas_call: on the TPU the gradient is XLA's autodiff of
 // repro/models/ssm.py::ssd_chunked, the plain scan that the Pallas kernel
@@ -22,10 +24,11 @@
 //           term's and exp(cum_K) <S, dS>;
 //   da    = the reverse cumsum of dcum within the chunk.
 //
-// Design (simple and right first; every product on the CUDA cores, each
-// thread owning whole outputs, no float atomics, so every bit is the
-// same from run to run and a row's bits do not depend on the batch;
-// blocks of 512 threads, dot products in four interleaved partial sums):
+// Design of the fp32 route (simple and right first; every product on the
+// CUDA cores, each thread owning whole outputs, no float atomics, so
+// every bit is the same from run to run and a row's bits do not depend
+// on the batch; blocks of 512 threads, dot products in four interleaved
+// partial sums):
 //
 // 1. ssd_bwd_scores, grid (n_chunks, B): C B^T of each chunk, which the
 //    heads share, once, into an fp32 scratch (and its transpose).
@@ -59,22 +62,25 @@
 // to). A shape whose shared memory passes the limit, or a state past
 // MAX_STATE, is refused before anything is launched.
 //
-// What bounds it on an H100. At Mamba2-370M's training launch (B 8, L
-// 512, H 32, P 64, N 128, K 128, bf16) it must read xd, dy, B, C and a
-// and write dxd, dB, dC and da: 55.6 MB, 16.6 us at 3.35 TB/s; its
-// products (the scores once a chunk, which the heads share; per head D,
-// the three products with D or scores o Lmat on the pairs j <= i, and
-// the five with a state, the states' recomputation included) are 17.3
-// GFLOP, 17.5 us on the bf16 tensor cores: operations bound it, barely.
-// At Zamba2-2.7B's (H 80, N 64) the bytes do: 130.5 MB, 39.0 us. This
-// kernel runs the products in fp32 on the CUDA cores, each fma behind
-// two shared-memory loads, far from either bound and slower than its
-// plain version; wgmma fed by TMA is the later work.
+// What bounds it on an H100. The products in fp32 at the CUDA cores'
+// peak: at Mamba2-370M's training shape (B 8, L 512, H 32, P 64, N 128,
+// K 128) 17.3 GFLOP, 258 us at 67 TFLOP/s. These kernels run them each
+// fma behind two shared-memory loads, far from that; the bf16 training
+// launches take the wgmma route.
 //
 // The C entry point returns cudaGetLastError() after its launches.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace ssd_bwd_wgmma {
+// the bf16 route (ssd_scan_bwd_wgmma.cu): wgmma on the tensor cores, fed
+// by TMA; returns the launches' cudaError_t, kRefusedShape, or -2 .. -5
+// when the CUDA driver refuses xd's, B_'s, C_'s or dy's tensor map
+int backward(const void* xd, const float* a, const void* B, const void* C,
+             const void* dy, const float* dstate, float* scratch, void* dxd,
+             float* da, void* dB, void* dC, int batch, int L, int H, int P,
+             int N, int chunk, cudaStream_t stream);
+}  // namespace ssd_bwd_wgmma
 
 namespace {
 
@@ -89,13 +95,7 @@ constexpr size_t SMEM_LIMIT = 232448;
 constexpr int kRefusedShape = -1;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 size_t states_smem_bytes(int K, int P, int N) {
   return sizeof(float) * ((size_t)K * P + (size_t)K * N + (size_t)P * N +
@@ -547,12 +547,15 @@ extern "C" {
 
 // xd, dy and dxd [B, L, H, P], B_, C_, dB and dC [B, L, N], all in one
 // dtype (bf16 when ``bf16``, else fp32); a and da [B, L, H] fp32; dstate
-// [B, H, P, N] fp32 or null (a zero cotangent); scratch fp32 of
-// 2 B n_chunks H P N + 2 B H L N + 2 B n_chunks K K floats; all
-// contiguous, L >= 1;
-// ``chunk`` is K. Returns cudaGetLastError() after the launches, or
-// kRefusedShape (N past MAX_STATE or a kernel's shared memory past
-// SMEM_LIMIT) before anything is launched.
+// [B, H, P, N] fp32 or null (a zero cotangent); all contiguous, L >= 1;
+// ``chunk`` is K. The dtype picks the kernels: bf16 runs
+// ssd_scan_bwd_wgmma.cu's (chunk 16, 32, 64 or 128, P <= 64, N <= 128;
+// scratch of its scratch_floats), fp32 the CUDA-core kernels above
+// (scratch fp32 of 2 B n_chunks H P N + 2 B H L N + 2 B n_chunks K K
+// floats). Returns cudaGetLastError() after the launches, or
+// kRefusedShape (a shape the route does not take: for fp32, N past
+// MAX_STATE or a kernel's shared memory past SMEM_LIMIT) or, for bf16,
+// a tensor map's refusal (-2 .. -5) before anything is launched.
 int ssd_scan_backward(const void* xd, const float* a, const void* B,
                       const void* C, const void* dy, const float* dstate,
                       float* scratch, void* dxd, float* da, void* dB,
@@ -560,8 +563,8 @@ int ssd_scan_backward(const void* xd, const float* a, const void* B,
                       int chunk, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(xd, a, B, C, dy, dstate, scratch, dxd, da,
-                                 dB, dC, batch, L, H, P, N, chunk, s);
+    return ssd_bwd_wgmma::backward(xd, a, B, C, dy, dstate, scratch, dxd, da,
+                                   dB, dC, batch, L, H, P, N, chunk, s);
   return launch<float>(xd, a, B, C, dy, dstate, scratch, dxd, da, dB, dC,
                        batch, L, H, P, N, chunk, s);
 }

@@ -2,22 +2,25 @@
 library of ``csrc/ssd_scan.cu`` (the entry point, and the fp32 kernel
 on the CUDA cores) and ``csrc/ssd_scan_wgmma.cu`` (the bf16 kernel:
 wgmma on the tensor cores, fed by TMA), the entry point choosing by
-dtype; and one of ``csrc/ssd_scan_bwd.cu`` (the backward: dxd, da, dB
-and dC from the cotangents of y and of the final state, bf16 or fp32 on
-the CUDA cores, deterministic), built apart so that the two build at
-once.
+dtype; and one of ``csrc/ssd_scan_bwd.cu`` (the backward's entry point,
+and its fp32 kernels on the CUDA cores) and ``csrc/ssd_scan_bwd_wgmma.cu``
+(the bf16 backward: wgmma fed by TMA), again choosing by dtype, each
+route deterministic: dxd, da, dB and dC from the cotangents of y and of
+the final state. The two libraries are built apart so that they build
+at once; the bf16 sources include ``kernels/csrc/hopper.cuh``.
 
 Built with ``nvcc`` for ``sm_90a`` at first use
 (``repro_torch.kernels.build``) and called through ``ctypes``, as the
-other kernels are: pointers, the sizes, the chunk and the current
-stream go in; the C function returns ``cudaGetLastError()``, raised here
-if it is not 0, or one of ``TMA_REFUSED``'s codes (the backward's
-``BWD_REFUSED``), raised as a ``ValueError``. ``SSD_LAUNCHES`` counts
-the forward's launches by (B, L, H, P, N, chunk); ``SSD_BWD_LAUNCHES``
-the backward's by the same key, one a call of its entry point (which
-runs its four kernels); ``SSD_CHUNK_LAUNCHES`` counts, by (K, P, N),
-those that ``ops.ssd_chunk`` makes (one chunk of one (batch, head)
-from a given state), which ``SSD_LAUNCHES`` counts too.
+other kernels are: pointers, the sizes, the chunk and the current stream
+go in; the C function returns ``cudaGetLastError()``, raised here if it
+is not 0, or one of ``TMA_REFUSED``'s codes (the backward's
+``BWD_REFUSED`` and ``BWD_TMA_REFUSED``), raised as a ``ValueError``.
+``SSD_LAUNCHES`` counts the forward's launches by (B, L, H, P, N,
+chunk); ``SSD_BWD_LAUNCHES`` the backward's by the same key, one a call
+of its entry point (which runs its four kernels); ``SSD_CHUNK_LAUNCHES``
+counts, by (K, P, N), those that ``ops.ssd_chunk`` makes (one chunk of
+one (batch, head) from a given state), which ``SSD_LAUNCHES`` counts
+too.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from repro_torch.kernels.build import LaunchCounter
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = [_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_wgmma.cu"]
-BWD_SOURCES = [_CSRC / "ssd_scan_bwd.cu"]
+BWD_SOURCES = [_CSRC / "ssd_scan_bwd.cu", _CSRC / "ssd_scan_bwd_wgmma.cu"]
 LIBRARIES = {"ssd_scan": SOURCES, "ssd_scan_bwd": BWD_SOURCES}
 # dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232_448
@@ -46,12 +49,19 @@ BF16_MAX_HEAD_DIM, BF16_MAX_STATE = 64, 128
 # strides are 16-byte multiples), before anything is launched; cudaError
 # values are positive
 TMA_REFUSED = {-1: "xd", -2: "B_", -3: "C_"}
-# the backward: the largest state it takes (its register accumulators),
-# the rows of the [K, K] matrices and of a state it holds at once, and
-# its entry point's return for a shape it refuses, before any launch
+# the fp32 backward: the largest state it takes (its register
+# accumulators), the rows of the [K, K] matrices and of a state it holds
+# at once, and its entry point's return for a shape it refuses (either
+# route's), before any launch
 BWD_MAX_STATE = 128
 BWD_ROW_BLOCK = BWD_STATE_TILE = 16
 BWD_REFUSED = {-1: "shape"}
+# the bf16 backward: the entry point's returns when the CUDA driver
+# refuses an operand's tensor map, before anything is launched; the heads
+# one of its chunk blocks walks, summing dB or dC over them (the
+# scratch's groups)
+BWD_TMA_REFUSED = {-2: "xd", -3: "B_", -4: "C_", -5: "dy"}
+BWD_HEADS = 8
 
 SSD_LAUNCHES = LaunchCounter()
 SSD_BWD_LAUNCHES = LaunchCounter()
@@ -92,12 +102,21 @@ def bwd_smem_bytes(chunk: int, head_dim: int, state: int) -> int:
 
 
 def bwd_scratch_floats(Bsz: int, L: int, H: int, P: int, N: int,
-                       chunk: int) -> int:
-    """The backward's fp32 scratch: the state entering and the cotangent
-    of the state leaving each chunk, [B, n_chunks, H, P, N] each; the
-    heads' partials of dB and dC, [B, H, L, N] each; and each chunk's C
-    B^T and its transpose, [B, n_chunks, chunk, chunk] each."""
+                       chunk: int, bf16: bool = False) -> int:
+    """The backward's fp32 scratch. fp32: the state entering and the
+    cotangent of the state leaving each chunk, [B, n_chunks, H, P, N]
+    each; the heads' partials of dB and dC, [B, H, L, N] each; and each
+    chunk's C B^T and its transpose, [B, n_chunks, chunk, chunk] each.
+    bf16 (a copy of ``scratch_floats`` in ssd_scan_bwd_wgmma.cu): the two
+    states transposed and padded to 64-column slabs, [B, n_chunks, H, 64
+    ceil(N / 64), 64] each; the head groups' dB and dC, [ceil(H /
+    BWD_HEADS), B, L, N] each; three [B, L, H] rows of da's terms and
+    [B, n_chunks, H] of the state's decay term."""
     nc = -(-L // chunk)
+    if bf16:
+        st = Bsz * nc * H * 64 * -(-N // 64) * 64
+        pt = -(-H // BWD_HEADS) * Bsz * L * N
+        return 2 * st + 2 * pt + 3 * Bsz * L * H + Bsz * nc * H
     return (2 * Bsz * nc * H * P * N + 2 * Bsz * H * L * N
             + 2 * Bsz * nc * chunk * chunk)
 
@@ -120,24 +139,27 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def raise_for(rc: int, xd, B_, C_, chunk: int) -> None:
-    """Raise for the entry point's return ``rc`` on xd, B_, C_: a
+def raise_for(rc: int, xd, B_, C_, chunk: int, dy=None) -> None:
+    """Raise for the entry point's return ``rc`` on xd, B_, C_ (and dy:
+    the backward's, whose shape refusal its caller raises): a
     ``ValueError`` naming the operand TMA cannot read, a ``RuntimeError``
     for a CUDA error; nothing for 0."""
     if rc == 0:
         return
-    if rc in TMA_REFUSED:
-        name = TMA_REFUSED[rc]
-        t = dict(xd=xd, B_=B_, C_=C_)[name]
+    codes = TMA_REFUSED if dy is None else BWD_TMA_REFUSED
+    what = "ssd_scan" if dy is None else "ssd_scan backward"
+    if rc in codes:
+        name = codes[rc]
+        t = dict(xd=xd, B_=B_, C_=C_, dy=dy)[name]
         raise ValueError(
-            f"ssd_scan kernel (bf16, TMA) cannot read {name}: TMA takes "
+            f"{what} kernel (bf16, TMA) cannot read {name}: TMA takes "
             f"16-byte aligned tensors whose strides are 16-byte multiples; "
             f"{name} starts {t.data_ptr() % 16} bytes past a 16-byte "
             f"boundary, its strides are "
             f"{[s * t.element_size() for s in t.stride()[:-1]]} bytes at "
             f"shape {tuple(t.shape)}")
     Bsz, L, H, P = xd.shape
-    raise RuntimeError(f"ssd_scan kernel launch failed at B={Bsz} L={L} "
+    raise RuntimeError(f"{what} kernel launch failed at B={Bsz} L={L} "
                        f"H={H} P={P} N={B_.shape[-1]} chunk={chunk} "
                        f"{xd.dtype}: cudaError {rc}")
 
@@ -170,28 +192,33 @@ def ssd_scan_bwd_cuda(xd, a, B_, C_, chunk: int, dy, dstate=None):
     checked: xd and dy [B, L, H, P], B_ and C_ [B, L, N], one dtype (fp32
     or bf16); a [B, L, H] fp32; dstate [B, H, P, N] fp32 or None (a zero
     cotangent); all contiguous. Returns fresh (dxd, da, dB, dC), each in
-    its input's dtype."""
+    its input's dtype. bf16 takes chunk 16, 32, 64 or 128, head dims up
+    to 64 and states up to 128, and operands TMA can read; anything else
+    raises a ``ValueError`` before a launch."""
     Bsz, L, H, P = xd.shape
     N = B_.shape[-1]
     if xd.numel() == 0:
         return tuple(torch.zeros_like(t) for t in (xd, a, B_, C_))
     grads = tuple(torch.empty_like(t) for t in (xd, a, B_, C_))
-    scratch = torch.empty(bwd_scratch_floats(Bsz, L, H, P, N, chunk),
+    bf16 = xd.dtype == torch.bfloat16
+    scratch = torch.empty(bwd_scratch_floats(Bsz, L, H, P, N, chunk, bf16),
                           dtype=torch.float32, device=xd.device)
     rc = _bwd_library().ssd_scan_backward(
         xd.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),
         dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
         scratch.data_ptr(), *(g.data_ptr() for g in grads), Bsz, L, H, P,
-        N, chunk, int(xd.dtype == torch.bfloat16),
-        torch.cuda.current_stream(xd.device).cuda_stream)
+        N, chunk, int(bf16), torch.cuda.current_stream(xd.device).cuda_stream)
     if rc in BWD_REFUSED:
+        if bf16:
+            raise ValueError(f"ssd_scan backward kernel (bf16) refuses chunk "
+                             f"{chunk}, head dim {P}, state {N}: it takes "
+                             f"chunk {BF16_CHUNKS}, head dim <= "
+                             f"{BF16_MAX_HEAD_DIM}, state <= "
+                             f"{BF16_MAX_STATE}")
         raise ValueError(f"ssd_scan backward kernel refuses chunk {chunk}, "
                          f"head dim {P}, state {N}: state <= "
                          f"{BWD_MAX_STATE} and {bwd_smem_bytes(chunk, P, N)}"
                          f" bytes of shared memory <= {SMEM_LIMIT}")
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan backward kernel launch failed at "
-                           f"B={Bsz} L={L} H={H} P={P} N={N} chunk={chunk} "
-                           f"{xd.dtype}: cudaError {rc}")
+    raise_for(rc, xd, B_, C_, chunk, dy)
     SSD_BWD_LAUNCHES.add((Bsz, L, H, P, N, chunk))
     return grads

@@ -17,14 +17,15 @@ padding of L to a multiple of the chunk has no counterpart on the card:
 the kernel masks the ragged last chunk itself.
 
 Gradients. On the card an input that requires grad, while grad is
-enabled, goes through ``SSDScanFunction``: its forward launches the
-scan kernel and saves xd, a, B_ and C_; its backward launches the
-backward's entry point (``kernel.ssd_scan_bwd_cuda``: dxd, da, dB and
-dC from the cotangents of y and of the final state, bf16 or fp32 on the
-CUDA cores of ``csrc/ssd_scan_bwd.cu``), which takes states up to 128
-and what fits its shared memory; any other shape raises before anything
-is launched. On the CPU the gradient is autograd's of the plain
-version, the one CPU route.
+enabled, goes through ``SSDScanFunction``: its forward launches the scan
+kernel and saves xd, a, B_ and C_; its backward launches the backward's
+entry point (``kernel.ssd_scan_bwd_cuda``: dxd, da, dB and dC from the
+cotangents of y and of the final state; bf16 on wgmma fed by TMA,
+``csrc/ssd_scan_bwd_wgmma.cu``, which takes the forward's bf16 shapes;
+fp32 on the CUDA cores of ``csrc/ssd_scan_bwd.cu``, which takes states
+up to 128 and what fits its shared memory); any other shape raises
+before anything is launched. On the CPU the gradient is autograd's of
+the plain version, the one CPU route.
 
 ``ssd_chunk(xd, a, B_, C_, state)`` is the counterpart of
 ``repro.kernels.ssd.ops.ssd_chunk_fused``: one chunk of one (batch,
@@ -108,7 +109,10 @@ def _check_card(xd, a, B_, C_, chunk, name="ssd_scan") -> None:
 
 def _check_grad(xd, B_, chunk, name="ssd_scan") -> None:
     """What the backward kernel takes, checked before the forward's
-    launch."""
+    launch. The bf16 backward takes the shapes the bf16 forward takes
+    (``_check_card``)."""
+    if xd.dtype == torch.bfloat16:
+        return
     P, N = xd.shape[3], B_.shape[2]
     need = kernel.bwd_smem_bytes(chunk, P, N)
     if N > kernel.BWD_MAX_STATE or need > kernel.SMEM_LIMIT:

@@ -18,14 +18,17 @@ card.
   state), one backward call a forward; ``ssd_chunk`` and
   ``ssd_chunked(initial_state=...)`` differentiated this way against
   ``jax.grad`` of the JAX package's.
-- The binding's refusal code, constants and shared-memory formula read
-  from the CUDA source (which builds on a card only).
+- The binding's refusal codes, constants, scratch and shared-memory
+  formula read from the CUDA sources (which build on a card only): the
+  fp32 route's ``ssd_scan_bwd.cu`` and the bf16 route's
+  ``ssd_scan_bwd_wgmma.cu``.
 - ``cuda``-marked: the kernel against the plain version (fp32 at 1e-4
   and bf16 at 1e-2 of each gradient's max |grad|, as the flash backward
   is held) at Mamba2-370M's and Zamba2-2.7B's instantiations (states 128
   and 64), every bf16 chunk, a ragged L, a mid-chunk clip against
-  float64; two launches bitwise; the rows of B = 1 launches bitwise the
-  rows of a B = 8 launch. Run them on a card with ``python -m pytest -q
+  float64; bf16 shapes past the wgmma kernel's raising a ValueError; two
+  launches bitwise; the rows of B = 1 launches bitwise the rows of a B =
+  8 launch. Run them on a card with ``python -m pytest -q
   -m cuda tests/test_torch_ssd_bwd.py``; the JAX package is imported
   inside the CPU tests only.
 """
@@ -312,20 +315,65 @@ def _source() -> str:
     return ssd_kernel.BWD_SOURCES[0].read_text()
 
 
+def _wgmma_source() -> str:
+    return ssd_kernel.BWD_SOURCES[1].read_text()
+
+
+def _consts(src: str) -> dict:
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr (?:int|size_t) (\w+) = (-?\d+);", src)}
+
+
 def test_refusal_code_and_constants_match_the_source():
-    """The binding's refusal code, the largest state, the blocks of rows
-    and the shared-memory limit are the CUDA source's (read from the
-    text: the source builds on a card only)."""
-    src = _source()
-    consts = dict(re.findall(r"constexpr (?:int|size_t) (\w+) = (-?\d+);",
-                             src))
-    assert {int(consts["kRefusedShape"]): "shape"} == ssd_kernel.BWD_REFUSED
+    """The binding's refusal codes, the largest state, the blocks of rows,
+    the shared-memory limit and the heads a bf16 block walks are the CUDA
+    sources' (read from the text: the sources build on a card only); the
+    bf16 route refuses with the fp32 route's shape code, and neither
+    takes a float atomic."""
+    src, wgmma = _source(), _wgmma_source()
+    consts = _consts(src)
+    assert {consts["kRefusedShape"]: "shape"} == ssd_kernel.BWD_REFUSED
     assert "return kRefusedShape;" in src
-    assert int(consts["MAX_STATE"]) == ssd_kernel.BWD_MAX_STATE
-    assert int(consts["ROW_BLOCK"]) == ssd_kernel.BWD_ROW_BLOCK
-    assert int(consts["STATE_TILE"]) == ssd_kernel.BWD_STATE_TILE
-    assert int(consts["SMEM_LIMIT"]) == ssd_kernel.SMEM_LIMIT
-    assert not re.search(r"atomic\w*\(", src)
+    assert consts["MAX_STATE"] == ssd_kernel.BWD_MAX_STATE
+    assert consts["ROW_BLOCK"] == ssd_kernel.BWD_ROW_BLOCK
+    assert consts["STATE_TILE"] == ssd_kernel.BWD_STATE_TILE
+    assert consts["SMEM_LIMIT"] == ssd_kernel.SMEM_LIMIT
+    w = _consts(wgmma)
+    w.update((k, int(v)) for k, v in re.findall(r"(kTmaRefused\w+) = (-\d+)",
+                                                wgmma))
+    assert w["kRefusedShape"] == consts["kRefusedShape"]
+    assert "return kRefusedShape;" in wgmma
+    assert {w[f"kTmaRefused{k}"]: v for k, v in
+            (("Xd", "xd"), ("B", "B_"), ("C", "C_"), ("Dy", "dy"))} \
+        == ssd_kernel.BWD_TMA_REFUSED
+    assert w["HEADS"] == ssd_kernel.BWD_HEADS
+    assert "ssd_bwd_wgmma::backward(" in src
+    for text in (src, wgmma):
+        assert not re.search(r"atomic\w*\(", text)
+
+
+def test_backward_raises_a_refused_operand_by_name():
+    """Each of the bf16 backward's tensor-map refusals raises a
+    ValueError naming its operand (dy's too), the forward's codes raise
+    as before, and a CUDA error a RuntimeError naming the backward."""
+    xd, _, B_, C_, dy, _ = (torch.from_numpy(t) for t in
+                            _draw(1, 32, 2, 16, 8, "sweep", 16))
+    xd, B_, C_, dy = (t.to(torch.bfloat16) for t in (xd, B_, C_, dy))
+    base = torch.zeros(dy.numel() + 8, dtype=torch.bfloat16)
+    shifted = base[1:1 + dy.numel()].view(dy.shape)
+    ssd_kernel.raise_for(0, xd, B_, C_, 16, dy)
+    for rc, name in ssd_kernel.BWD_TMA_REFUSED.items():
+        with pytest.raises(ValueError, match=f"backward kernel .* cannot "
+                                             f"read {name}:"):
+            ssd_kernel.raise_for(rc, xd, B_, C_, 16, dy)
+    with pytest.raises(ValueError, match="cannot read dy: .* starts 2 "
+                                         "bytes past a 16-byte boundary"):
+        ssd_kernel.raise_for(-5, xd, B_, C_, 16, shifted)
+    with pytest.raises(ValueError, match="ssd_scan kernel .* cannot read "
+                                         "B_:"):
+        ssd_kernel.raise_for(-2, xd, B_, C_, 16)
+    with pytest.raises(RuntimeError, match="backward kernel launch failed"):
+        ssd_kernel.raise_for(700, xd, B_, C_, 16, dy)
 
 
 def _c_function(src: str, name: str):
@@ -382,6 +430,52 @@ def test_the_training_paths_fit_and_the_scratch_matches_the_source():
             + 2 * 8 * 4 * 128 * 128)
 
 
+def _scratch_floats(src: str):
+    """ssd_scan_bwd_wgmma.cu's ``scratch_floats`` as Python."""
+    body = re.search(r"long long scratch_floats\(int batch, int L, int H, "
+                     r"int N, int K\) \{(.*?)\n\}", src, re.S).group(1)
+    body = " ".join(body.replace("(long long)", "").split())
+    body = re.sub(r"(\w+) > (\w+) \? (\w+) : (\w+)",
+                  r"(\3 if \1 > \2 else \4)", body)
+    consts = _consts(src)
+
+    def fn(batch, L, H, N, K):
+        env = dict(consts, batch=batch, L=L, H=H, N=N, K=K)
+        for ln in (x.strip() for x in body.split(";") if x.strip()):
+            if ln.startswith("const long long"):
+                for part in re.split(r",(?![^(]*\))", ln[15:]):
+                    key, expr = part.split("=", 1)
+                    env[key.strip()] = eval(expr.replace("/", "//"), {}, env)
+            else:
+                assert ln.startswith("return ")
+                return eval(ln[7:].replace("/", "//"), {}, env)
+    return fn
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 32, 64, 128, 128),
+                                   (8, 512, 80, 64, 64, 128),
+                                   (2, 300, 4, 64, 128, 128),
+                                   (1, 100, 1, 32, 16, 32),
+                                   (2, 96, 17, 16, 8, 16)], ids=str)
+def test_the_bf16_scratch_matches_the_source(shape):
+    """The bf16 route's scratch (the two states, the head groups' dB and
+    dC, da's terms) is the source's ``scratch_floats`` and carves as the
+    source carves it; at the two train launches it is 85,463,040 and
+    108,800,000 bytes, under half of the fp32 route's."""
+    B, L, H, P, N, K = shape
+    src = _wgmma_source()
+    want = _scratch_floats(src)(B, L, H, N, K)
+    assert ssd_kernel.bwd_scratch_floats(B, L, H, P, N, K, bf16=True) == want
+    for line in ("p.dstates = p.states + st;", "p.dBp = p.dstates + st;",
+                 "p.dCp = p.dBp + pt;", "p.uq = p.dCp + pt;",
+                 "p.esd = p.ug + vt;"):
+        assert line in src
+    if shape[:2] == (8, 512):
+        nbytes = 4 * want
+        assert nbytes == {32: 85_463_040, 80: 108_800_000}[H]
+        assert 2 * nbytes < 4 * ssd_kernel.bwd_scratch_floats(*shape)
+
+
 # ------------------------------------------------------------ on a card --
 
 def _card():
@@ -420,12 +514,21 @@ def test_cuda_backward_matches_plain_version(shape, kind, dtype,
     """Mamba2-370M's and Zamba2's instantiations (a ragged L of 300 at
     chunk 128), every bf16 chunk, ragged small shapes (odd head dim and
     state, a chunk of 24, head dim 128) and the training path's launch:
-    fp32 within 1e-4, bf16 within 1e-2 of max |grad|."""
+    fp32 within 1e-4, bf16 within 1e-2 of max |grad|; the bf16 shapes
+    the wgmma kernel does not take (a chunk of 24, head dim 128) raise a
+    ValueError before a launch."""
     _card()
     dt = getattr(torch, dtype)
     xd, a, B_, C_, dy, dstate = _cuda(_draw(*shape[:5], kind, shape[-1],
                                             seed=9), dt)
     ds = dstate if with_state else None
+    P, N, K = shape[3], shape[4], shape[5]
+    if dt == torch.bfloat16 and (K not in ssd_kernel.BF16_CHUNKS
+                                 or P > ssd_kernel.BF16_MAX_HEAD_DIM
+                                 or N > ssd_kernel.BF16_MAX_STATE):
+        with pytest.raises(ValueError, match="refuses"):
+            ssd_kernel.ssd_scan_bwd_cuda(xd, a, B_, C_, K, dy, ds)
+        return
     got = ssd_kernel.ssd_scan_bwd_cuda(xd, a, B_, C_, shape[-1], dy, ds)
     want = ssd_scan_bwd_ref(xd, a, B_, C_, shape[-1], dy, ds)
     _hold(got, want, dt, (shape, kind, dtype, with_state))

@@ -176,7 +176,7 @@ def test_loss_and_gradients_match_jax(arch):
 @pytest.mark.parametrize("arch,microbatches", [
     ("qwen1.5-4b", 1), ("qwen1.5-4b", 2), ("mixtral-8x7b", 1),
     ("mixtral-8x7b", 2), ("whisper-medium", 2),
-    ("qwen3-moe-235b-a22b", 2)])
+    ("qwen3-moe-235b-a22b", 2), ("mamba2-370m", 1), ("zamba2-2.7b", 2)])
 def test_train_steps_match_jax(arch, microbatches):
     """Three Adam steps of each package's train step from the same
     weights on the same batches; after each step the loss, Adam's
